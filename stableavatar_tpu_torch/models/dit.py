@@ -1,0 +1,312 @@
+"""Wan2.1 DiT backbone, port of `stableavatar_tpu/models/dit.py`.
+
+Plain functions over a parameter tree of tensors.  The JAX package stacks
+the block parameters on a leading layer axis for `lax.scan`; here `blocks`
+is a list of per-layer dicts walked by a Python loop.  Linear weights are in
+`nn.Linear` layout [d_out, d_in].  The patch embedding stays a reshape plus
+one matmul, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from stableavatar_tpu_torch.ops.attention import attention
+from stableavatar_tpu_torch.ops.cross_attention import dual_context_attention
+from stableavatar_tpu_torch.ops.embeddings import sinusoidal_embedding_1d
+from stableavatar_tpu_torch.ops.norms import layer_norm, rms_norm
+from stableavatar_tpu_torch.ops.rope import RopeFreqs, pack_split, rope_apply, rope_freqs_3d
+from stableavatar_tpu_torch.models.vocal_projector import (
+    _affine,
+    _linear,
+    _normal,
+    _ones,
+    apply_linear,
+    apply_vocal_projector,
+    init_vocal_projector,
+)
+
+
+def gelu_tanh(x):
+    return F.gelu(x, approximate="tanh")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init_block(gen, cfg, device=None, dtype=torch.float32):
+    d = cfg.dim
+    kw = dict(device=device, dtype=dtype)
+    return {
+        "self_attn": {
+            "q": _linear(gen, d, d, **kw),
+            "k": _linear(gen, d, d, **kw),
+            "v": _linear(gen, d, d, **kw),
+            "o": _linear(gen, d, d, **kw),
+            "norm_q": _ones(d, device, dtype),
+            "norm_k": _ones(d, device, dtype),
+        },
+        "norm3": _affine(d, device, dtype),
+        "cross_attn": {
+            "q": _linear(gen, d, d, **kw),
+            "k": _linear(gen, d, d, **kw),
+            "v": _linear(gen, d, d, **kw),
+            "o": _linear(gen, d, d, **kw),
+            "norm_q": _ones(d, device, dtype),
+            "norm_k": _ones(d, device, dtype),
+            "k_img": _linear(gen, d, d, **kw),
+            "v_img": _linear(gen, d, d, **kw),
+            "norm_k_img": _ones(d, device, dtype),
+            # zero-init vocal branch, as in the reference
+            "k_vocal": _linear(gen, d, d, zero=True, **kw),
+            "v_vocal": _linear(gen, d, d, zero=True, **kw),
+        },
+        "ffn": {
+            "fc1": _linear(gen, d, cfg.ffn_dim, **kw),
+            "fc2": _linear(gen, cfg.ffn_dim, d, **kw),
+        },
+        "modulation": _normal(gen, (1, 6, d), d ** -0.5, device, dtype),
+    }
+
+
+def init_dit(gen: torch.Generator, cfg, device=None, dtype=torch.float32):
+    """Random parameter tree, drawn on `device` from `gen` (a generator on
+    that device) with the JAX package's distributions."""
+    d = cfg.dim
+    kw = dict(device=device, dtype=dtype)
+    patch_in = cfg.in_dim * math.prod(cfg.patch_size)
+    return {
+        "patch_embedding": _linear(gen, patch_in, d, **kw),
+        "text_embedding": {
+            "fc1": _linear(gen, cfg.text_dim, d, init="normal", **kw),
+            "fc2": _linear(gen, d, d, init="normal", **kw),
+        },
+        "time_embedding": {
+            "fc1": _linear(gen, cfg.freq_dim, d, init="normal", **kw),
+            "fc2": _linear(gen, d, d, init="normal", **kw),
+        },
+        "time_projection": {"fc": _linear(gen, d, d * 6, **kw)},
+        "img_emb": {
+            "norm1": _affine(cfg.clip_dim, device, dtype),
+            "fc1": _linear(gen, cfg.clip_dim, cfg.clip_dim, **kw),
+            "fc2": _linear(gen, cfg.clip_dim, d, **kw),
+            "norm2": _affine(d, device, dtype),
+        },
+        "blocks": [init_block(gen, cfg, device, dtype) for _ in range(cfg.num_layers)],
+        "head": {
+            "head": _linear(gen, d, math.prod(cfg.patch_size) * cfg.out_dim, zero=True, **kw),
+            "modulation": _normal(gen, (1, 2, d), d ** -0.5, device, dtype),
+        },
+        "vocal_projector": init_vocal_projector(gen, cfg, device, dtype),
+    }
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def _self_attention(p, x, freqs: RopeFreqs, num_heads, eps, rope_packed=None, quant="none"):
+    """WanSelfAttention.  With `rope_packed` (fast path) q/k weights are in
+    split-pair layout and rope is applied by the attention call; otherwise
+    it is applied here from the interleaved tables."""
+    b, l, dim = x.shape
+    d = dim // num_heads
+    q = rms_norm(apply_linear(p["q"], x), p["norm_q"]["w"], eps).reshape(b, l, num_heads, d)
+    k = rms_norm(apply_linear(p["k"], x), p["norm_k"]["w"], eps).reshape(b, l, num_heads, d)
+    v = apply_linear(p["v"], x).reshape(b, l, num_heads, d)
+    if rope_packed is None:
+        q = rope_apply(q, freqs).to(x.dtype)
+        k = rope_apply(k, freqs).to(x.dtype)
+    else:
+        q = q.to(x.dtype)
+        k = k.to(x.dtype)
+    out = attention(q, k, v, rope=rope_packed, quant=quant)
+    return apply_linear(p["o"], out.reshape(b, l, dim))
+
+
+def _cross_attention(p, x, context_text, context_img, vocal_context, vocal_k_lens,
+                     num_heads, latents_num_frames, eps, fused=False):
+    """Text + image + per-frame vocal cross-attention, summed; bf16 (no int8
+    attention) as in the JAX package.  `fused` takes the K5 kernel for the
+    text + image pair."""
+    b, l, dim = x.shape
+    d = dim // num_heads
+    f = latents_num_frames
+    dt = x.dtype
+
+    q = rms_norm(apply_linear(p["q"], x), p["norm_q"]["w"], eps).to(dt).reshape(b, l, num_heads, d)
+    k = rms_norm(apply_linear(p["k"], context_text), p["norm_k"]["w"], eps).to(dt)
+    v = apply_linear(p["v"], context_text)
+    k = k.reshape(b, -1, num_heads, d)
+    v = v.reshape(b, -1, num_heads, d)
+    k_img = rms_norm(apply_linear(p["k_img"], context_img), p["norm_k_img"]["w"], eps).to(dt)
+    v_img = apply_linear(p["v_img"], context_img)
+    k_img = k_img.reshape(b, -1, num_heads, d)
+    v_img = v_img.reshape(b, -1, num_heads, d)
+
+    if fused:
+        txt_img = dual_context_attention(q, k, v, k_img, v_img)
+    else:
+        txt_img = attention(q, k, v) + attention(q, k_img, v_img)
+
+    # vocal branch: per-latent-frame attention, q regrouped to [b*f, l/f, ...]
+    vq = q.reshape(b * f, l // f, num_heads, d)
+    vk = apply_linear(p["k_vocal"], vocal_context).reshape(b * f, -1, num_heads, d)
+    vv = apply_linear(p["v_vocal"], vocal_context).reshape(b * f, -1, num_heads, d)
+    klens = None if vocal_k_lens is None else vocal_k_lens.repeat(b)
+    voc = attention(vq, vk, vv, k_lens=klens).reshape(b, l, num_heads, d)
+
+    out = txt_img.reshape(b, l, dim) + voc.reshape(b, l, dim)
+    return apply_linear(p["o"], out)
+
+
+def apply_block(p, x, e0, context_text, context_img, vocal_context, vocal_k_lens,
+                freqs: RopeFreqs, cfg, latents_num_frames: int, rope_packed=None,
+                attn_quant="none", fuse_cross=False):
+    """WanAttentionBlock."""
+    e = p["modulation"].to(e0.dtype) + e0  # [B, 6, dim]
+    e = [e[:, i : i + 1] for i in range(6)]
+
+    temp = (layer_norm(x, eps=cfg.eps) * (1 + e[1]) + e[0]).to(x.dtype)
+    y = _self_attention(p["self_attn"], temp, freqs, cfg.num_heads, cfg.eps,
+                        rope_packed=rope_packed, quant=attn_quant)
+    x = x + y * e[2]
+
+    normed = layer_norm(x, p["norm3"]["w"], p["norm3"]["b"], eps=cfg.eps)
+    x = x + _cross_attention(p["cross_attn"], normed.to(x.dtype), context_text, context_img,
+                             vocal_context, vocal_k_lens, cfg.num_heads, latents_num_frames,
+                             cfg.eps, fused=fuse_cross)
+
+    temp = (layer_norm(x, eps=cfg.eps) * (1 + e[4]) + e[3]).to(x.dtype)
+    y = apply_linear(p["ffn"]["fc2"], gelu_tanh(apply_linear(p["ffn"]["fc1"], temp)))
+    return x + y * e[5]
+
+
+def patchify(x: torch.Tensor, patch_size: Tuple[int, int, int]) -> torch.Tensor:
+    """[B, C, F, H, W] -> [B, F*(H/ph)*(W/pw), C*pt*ph*pw], channel-major
+    patches (the Conv3d(kernel=stride=patch) weight order)."""
+    b, c, f, h, w = x.shape
+    pt, ph, pw = patch_size
+    x = x.reshape(b, c, f // pt, pt, h // ph, ph, w // pw, pw)
+    x = x.permute(0, 2, 4, 6, 1, 3, 5, 7)
+    return x.reshape(b, (f // pt) * (h // ph) * (w // pw), c * pt * ph * pw)
+
+
+def unpatchify(x: torch.Tensor, grid, patch_size, out_dim: int) -> torch.Tensor:
+    """[B, L, pt*ph*pw*C] -> [B, C, F, H, W] (reference 'fhwpqrc->cfphqwr')."""
+    b = x.shape[0]
+    f, h, w = grid
+    pt, ph, pw = patch_size
+    x = x.reshape(b, f, h, w, pt, ph, pw, out_dim)
+    x = x.permute(0, 7, 1, 4, 2, 5, 3, 6)
+    return x.reshape(b, out_dim, f * pt, h * ph, w * pw)
+
+
+def time_embeddings(params, cfg, t: torch.Tensor, dtype):
+    """e [B, dim] and e0 [B, 6, dim], fp32 inside."""
+    emb = sinusoidal_embedding_1d(cfg.freq_dim, t.float())
+    te = params["time_embedding"]
+    e = apply_linear(te["fc2"], F.silu(apply_linear(te["fc1"], emb.float())))
+    e0 = apply_linear(params["time_projection"]["fc"], F.silu(e))
+    e0 = e0.reshape(e0.shape[0], 6, cfg.dim)
+    return e.to(dtype), e0.to(dtype)
+
+
+def encode_context(params, cfg, text_embeds, clip_fea, dtype):
+    """Text MLP (tanh GELU) and CLIP-image MLPProj (exact GELU)."""
+    tp = params["text_embedding"]
+    context_text = apply_linear(tp["fc2"], gelu_tanh(apply_linear(tp["fc1"], text_embeds.to(dtype))))
+    ip = params["img_emb"]
+    h = layer_norm(clip_fea.to(dtype), ip["norm1"]["w"], ip["norm1"]["b"], eps=1e-5)
+    h = F.gelu(apply_linear(ip["fc1"], h))
+    h = apply_linear(ip["fc2"], h)
+    context_img = layer_norm(h, ip["norm2"]["w"], ip["norm2"]["b"], eps=1e-5)
+    return context_text, context_img
+
+
+def dit_prologue(params, cfg, x, t, text_embeds, clip_fea, y, vocal_embeddings,
+                 video_sample_n_frames: int = 81, vocal_cfg_tile: bool = False,
+                 rope_split: bool = False, honor_vocal_k_lens: bool = True):
+    """Everything before the block stack: patch embed, rope tables, time /
+    text / image embeddings, vocal projector.  Returns (tokens, e, e0,
+    context_text, context_img, vocal_context, vocal_k_lens, freqs,
+    rope_packed, grid, latents_num_frames)."""
+    b, _, f, h, w = x.shape
+    pt, ph, pw = cfg.patch_size
+    grid = (f // pt, h // ph, w // pw)
+    dtype = x.dtype
+
+    xin = torch.cat([x, y.to(dtype)], dim=1)
+    tokens = apply_linear(params["patch_embedding"], patchify(xin, cfg.patch_size))
+
+    freqs = rope_freqs_3d(grid, cfg.head_dim, riflex_k=cfg.riflex_k,
+                          riflex_L_test=cfg.riflex_L_test, riflex_scale=cfg.riflex_scale,
+                          device=x.device)
+    rope_packed = pack_split(freqs) if rope_split else None
+
+    e, e0 = time_embeddings(params, cfg, t, dtype)
+    context_text, context_img = encode_context(params, cfg, text_embeds, clip_fea, dtype)
+
+    vocal_embeddings = vocal_embeddings.to(dtype)
+    if vocal_cfg_tile:
+        # CFG triple: the projector runs on the last row, tiled as [0, v, v]
+        vocal_context, vocal_k_lens = apply_vocal_projector(
+            params["vocal_projector"], cfg, vocal_embeddings[-1:], tokens[-1:], e0[-1:],
+            e[-1:], video_sample_n_frames)
+        vocal_context = torch.cat(
+            [torch.zeros_like(vocal_context), vocal_context, vocal_context], dim=0)
+    else:
+        vocal_context, vocal_k_lens = apply_vocal_projector(
+            params["vocal_projector"], cfg, vocal_embeddings, tokens, e0, e,
+            video_sample_n_frames)
+    if not honor_vocal_k_lens:
+        vocal_k_lens = None
+
+    latents_num_frames = (video_sample_n_frames - 1) // 4 + 1
+    return (tokens, e, e0, context_text, context_img, vocal_context, vocal_k_lens, freqs,
+            rope_packed, grid, latents_num_frames)
+
+
+def dit_forward(params, cfg, x, t, text_embeds, clip_fea, y, vocal_embeddings,
+                video_sample_n_frames: int = 81, vocal_cfg_tile: bool = False,
+                rope_split: bool = False, attn_quant: str = "none",
+                honor_vocal_k_lens: bool = True):
+    """One denoise evaluation; returns the velocity [B, 16, F, H, W] in fp32.
+
+    x [B, 16, F, H, W], t [B], text_embeds [B, text_len, text_dim], clip_fea
+    [B, 257, clip_dim], y [B, 20, F, H, W], vocal_embeddings [Bv, La, 768].
+    `rope_split` needs params from `utils/fastpath.py:prepare_fast_params`;
+    `attn_quant` in {"none", "qk"} picks the self-attention kernel (K1 / K2),
+    and the fused cross-attention kernel K5 is on exactly when it is not
+    "none" (the JAX package's `fuse_cross_attn` auto rule).
+    `honor_vocal_k_lens=False` drops the vocal padding masks like the
+    reference's SDPA deployment.
+    """
+    (tokens, e, e0, context_text, context_img, vocal_context, vocal_k_lens, freqs,
+     rope_packed, grid, latents_num_frames) = dit_prologue(
+        params, cfg, x, t, text_embeds, clip_fea, y, vocal_embeddings,
+        video_sample_n_frames=video_sample_n_frames, vocal_cfg_tile=vocal_cfg_tile,
+        rope_split=rope_split, honor_vocal_k_lens=honor_vocal_k_lens)
+
+    for bp in params["blocks"]:
+        tokens = apply_block(bp, tokens, e0, context_text, context_img, vocal_context,
+                             vocal_k_lens, freqs, cfg, latents_num_frames,
+                             rope_packed=rope_packed, attn_quant=attn_quant,
+                             fuse_cross=attn_quant != "none")
+    return _apply_head(params, cfg, tokens, e, grid)
+
+
+def _apply_head(params, cfg, tokens, e, grid):
+    """Head + unpatchify."""
+    hp = params["head"]
+    hm = hp["modulation"].to(e.dtype) + e[:, None]
+    h0, h1 = hm[:, 0:1], hm[:, 1:2]
+    out = apply_linear(hp["head"], layer_norm(tokens, eps=cfg.eps) * (1 + h1) + h0)
+    return unpatchify(out.float(), grid, cfg.patch_size, cfg.out_dim)
