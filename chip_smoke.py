@@ -22,19 +22,16 @@ exits non-zero):
                (attn_quant="none"): 90 K1 launches.
 
 The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.  `--phases` runs a subset (no
-final ok line then).
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import subprocess
 import sys
 import time
 
-PHASES = ("device", "kernels", "reference", "pipeline", "bf16")
 # relative L2 and max-abs error limits of a kernel against its plain version
 # (bf16 outputs; the two differ by summation order and bf16 rounding of P)
 REL_TOL = 1e-2
@@ -202,7 +199,7 @@ def build_models(device):
     weights (as the parity tests do) so the velocity is not identically 0."""
     import torch
 
-    from stableavatar_tpu_torch.config import CLIPConfig, VAEConfig, WAN_1_3B, Wav2Vec2Config
+    from stableavatar_tpu.config import CLIPConfig, VAEConfig, WAN_1_3B, Wav2Vec2Config
     from stableavatar_tpu_torch.models.clip import init_clip_visual
     from stableavatar_tpu_torch.models.dit import init_dit
     from stableavatar_tpu_torch.models.vae import init_vae
@@ -271,6 +268,28 @@ def phase_reference(models):
         raise AssertionError(f"card and CPU forwards disagree: rel_l2 {rel:.3e} >= 5e-2")
 
 
+OVERLAP, N_WINDOWS = 15, 2
+
+
+def pipeline_inputs(models):
+    """Seeded inputs of generate_long at 512x512 whose audio makes N_WINDOWS
+    windows of 21 latent frames (infer_length 27 for 2): a reference image,
+    a 16 kHz waveform and a pre-encoded text context [3, 512, 4096]."""
+    import numpy as np
+    import torch
+
+    infer_length = 21 + (21 - OVERLAP) * (N_WINDOWS - 1)
+    n_samples = ((infer_length - 1) * 4 + 1) * (16000 // 25)
+    rng = np.random.default_rng(0)
+    ref = rng.standard_normal((1, 3, 512, 512)).astype(np.float32) * 0.2
+    wav = rng.standard_normal(n_samples).astype(np.float32) * 0.05
+    text_ctx = torch.as_tensor(
+        rng.standard_normal((3, models.dit_cfg.text_len, models.dit_cfg.text_dim)),
+        dtype=torch.bfloat16, device="cuda")
+    return dict(ref_image=ref, vocal_waveform=wav, text_ctx=text_ctx,
+                overlap_window_length=OVERLAP, seed=42)
+
+
 def phase_pipeline(models):
     """generate_long at 512x512, 2 windows (infer_length 27), 2 Euler steps."""
     import numpy as np
@@ -279,22 +298,11 @@ def phase_pipeline(models):
     from stableavatar_tpu_torch.pipelines.long import generate_long
     from stableavatar_tpu_torch.utils.profiling import StepTimer
 
-    steps, overlap, n_windows = 2, 15, 2
-    infer_length = 21 + (21 - overlap) * (n_windows - 1)
-    n_samples = ((infer_length - 1) * 4 + 1) * (16000 // 25)
-    rng = np.random.default_rng(0)
-    ref = rng.standard_normal((1, 3, 512, 512)).astype(np.float32) * 0.2
-    wav = rng.standard_normal(n_samples).astype(np.float32) * 0.05
-    text_ctx = torch.as_tensor(
-        rng.standard_normal((3, models.dit_cfg.text_len, models.dit_cfg.text_dim)),
-        dtype=torch.bfloat16, device="cuda")
-
+    steps, n_windows = 2, N_WINDOWS
     timer = StepTimer("cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = generate_long(models, ref_image=ref, vocal_waveform=wav, text_ctx=text_ctx,
-                        num_inference_steps=steps, overlap_window_length=overlap, seed=42,
-                        timer=timer)
+    out = generate_long(models, num_inference_steps=steps, timer=timer, **pipeline_inputs(models))
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     for name, s in timer.summary().items():
@@ -342,16 +350,7 @@ def phase_bf16(dit_params, cfg):
         raise AssertionError("bf16 dit_forward output has the wrong shape or non-finite values")
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of " + ",".join(PHASES))
-    args = ap.parse_args(argv)
-    phases = [p for p in args.phases.split(",") if p]
-    unknown = set(phases) - set(PHASES)
-    if unknown:
-        ap.error(f"unknown phases {sorted(unknown)}")
-
+def main() -> int:
     try:
         import torch
         import stableavatar_tpu_torch  # noqa: F401
@@ -364,12 +363,16 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
 
+    # the smoke drives device 0 only and reports the one card it used
+    if torch.cuda.device_count() != 1:
+        print(f"chip_smoke: needs exactly one visible card, found {torch.cuda.device_count()} "
+              "(set CUDA_VISIBLE_DEVICES to one of them)", file=sys.stderr)
+        return 1
+
     results = {}
-    models = dit_bf16 = None
     phase_device()
-    if "kernels" in phases:
-        log("== kernels against their plain versions")
-        phase_kernels(results)
+    log("== kernels against their plain versions")
+    phase_kernels(results)
 
     from stableavatar_tpu_torch.ops import cross_attention as ca
     from stableavatar_tpu_torch.ops import flash_attention as fa
@@ -377,43 +380,37 @@ def main(argv=None) -> int:
     def counts():
         return {**fa.launch_counts, **ca.launch_counts}
 
-    if {"reference", "pipeline", "bf16"} & set(phases):
-        log("== random 1.3B / ViT-H / wav2vec2-base / VAE weights on the card")
-        t0 = time.perf_counter()
-        models, dit_bf16 = build_models("cuda")
-        torch.cuda.synchronize()
-        log(f"  built in {time.perf_counter() - t0:.2f} s")
-    if "reference" in phases:
-        log("== reference: card against CPU on a small input")
-        phase_reference(models)
+    log("== random 1.3B / ViT-H / wav2vec2-base / VAE weights on the card")
+    t0 = time.perf_counter()
+    models, dit_bf16 = build_models("cuda")
+    torch.cuda.synchronize()
+    log(f"  built in {time.perf_counter() - t0:.2f} s")
+    log("== reference: card against CPU on a small input")
+    phase_reference(models)
 
     # the main path: every launch count starts at 0 here and is read after
     # the last main-path phase; the comparisons above do not count
     for d in (fa.launch_counts, ca.launch_counts):
         for k in d:
             d[k] = 0
-    layers = models.dit_cfg.num_layers if models is not None else 0
-    if "pipeline" in phases:
-        log("== main path: generate_long, 1.3B, 512x512, Euler, overlap 15, 2 windows, 2 steps")
-        n_dit_calls = phase_pipeline(models)
-        c = counts()
-        log(f"  launches: {c}")
-        want = layers * n_dit_calls
-        if c["flash_fwd_int8_qk"] != want or c["dual_context"] != want:
-            raise AssertionError(f"expected {want} K2 and K5 launches, got {c}")
-    if "bf16" in phases:
-        log("== CLI-default bf16 path: dit_forward, attn_quant='none'")
-        before = counts()["flash_fwd_bf16"]
-        phase_bf16(dit_bf16, models.dit_cfg)
-        k1 = counts()["flash_fwd_bf16"] - before
-        log(f"  K1 launches: {k1}")
-        if k1 != 3 * layers:
-            raise AssertionError(f"expected {3 * layers} K1 launches (1 self + 2 cross per layer), got {k1}")
+    layers = models.dit_cfg.num_layers
+    log("== main path: generate_long, 1.3B, 512x512, Euler, overlap 15, 2 windows, 2 steps")
+    n_dit_calls = phase_pipeline(models)
+    c = counts()
+    log(f"  launches: {c}")
+    want = layers * n_dit_calls
+    if c["flash_fwd_int8_qk"] != want or c["dual_context"] != want:
+        raise AssertionError(f"expected {want} K2 and K5 launches, got {c}")
+    log("== CLI-default bf16 path: dit_forward, attn_quant='none'")
+    phase_bf16(dit_bf16, models.dit_cfg)
     launches = counts()
-    if {"pipeline", "bf16"} <= set(phases):
-        idle = [k for k, n in launches.items() if n == 0]
-        if idle:
-            raise AssertionError(f"kernels of the main path never launched: {idle}")
+    k1 = launches["flash_fwd_bf16"] - c["flash_fwd_bf16"]
+    log(f"  K1 launches: {k1}")
+    if k1 != 3 * layers:
+        raise AssertionError(f"expected {3 * layers} K1 launches (1 self + 2 cross per layer), got {k1}")
+    idle = [k for k, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"kernels of the main path never launched: {idle}")
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -424,10 +421,9 @@ def main(argv=None) -> int:
             "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
-    if phases == list(PHASES):
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

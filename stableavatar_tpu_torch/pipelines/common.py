@@ -9,7 +9,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from stableavatar_tpu_torch.config import CLIPConfig, DiTConfig, VAEConfig, Wav2Vec2Config
+from stableavatar_tpu.config import CLIPConfig, DiTConfig, VAEConfig, Wav2Vec2Config
 from stableavatar_tpu_torch.models.clip import clip_visual_forward, preprocess_reference_image
 from stableavatar_tpu_torch.models.vae import encode_video
 from stableavatar_tpu_torch.models.wav2vec import normalize_waveform, wav2vec2_forward

@@ -123,6 +123,19 @@ def test_generate_long_unported_options_raise(jax_models):
         tcommon.encode_prompts(tm, "a person talking")
 
 
+@pytest.mark.parametrize("option, match", [
+    ({"scheduler": "dpm++"}, "fm_solvers"),
+    ({"teacache": object()}, "teacache"),
+    ({"streamed_dit": object()}, "streaming"),
+])
+def test_generate_long_names_the_roadmap_item_it_lacks(option, match):
+    kw = {k: v for k, v in option.items() if k != "scheduler"}
+    tm = tcommon.WanModels(dit_params=None, dit_cfg=DIT_E2E, vae_params=None, vae_cfg=VAE_E2E, **kw)
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP queue 1, item 8: .*{match}"):
+        tlong.generate_long(tm, ref_image=np.zeros((1, 3, 32, 32)), vocal_waveform=np.zeros(9000),
+                            scheduler=option.get("scheduler", "euler"))
+
+
 @pytest.mark.parametrize("args", [(21, 21, 15), (40, 21, 15), (75, 21, 10), (5, 3, 1), (27, 21, 15)])
 def test_window_planners_match_jax(args):
     infer_length, fpb, ov = args
