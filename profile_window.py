@@ -1,8 +1,10 @@
-"""Where the time of one Euler step goes: the port's generate_long on one H100.
+"""Where the time of one Euler step, or of one train step, goes: the port's
+generate_long or train_step on one H100.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 profile_window.py
+    python3 profile_window.py          # generate_long, fast and bf16 paths
+    python3 profile_window.py train    # train_step, 1.3B / 512x512 / 81 frames
 
 It builds the random 1.3B / ViT-H / wav2vec2-base / VAE stack of
 `chip_smoke.py` and runs `generate_long` on chip_smoke's inputs (512x512,
@@ -17,6 +19,12 @@ attn_quant="none": K1 for self- and cross-attention).  Per path it prints
   kernels, and the device idle share bounded as 1 - kernel time / wall (the
   port launches on one stream, so its kernels do not overlap);
 - the device time by kind of kernel (one JSON line) and the top device ops.
+
+`train` runs 6 train steps (the train CLI's defaults: batch 1, remat,
+AdamW) of the bf16 1.3B DiT on one batch of chip_smoke's synthetic 512x512,
+81-frame data, encoded once before the timed steps; steps 0-3 unprofiled,
+step 4 the profiler's warm-up, step 5 profiled; it also prints the peak
+device memory of the steps.
 """
 
 from __future__ import annotations
@@ -32,9 +40,11 @@ STEPS, WAIT, WARMUP = 6, 4, 1
 # kernel name -> kind; first match wins
 KINDS = (
     ("K2 flash_fwd_int8_qk", re.compile(r"flash_fwd_int8_qk_kernel")),
-    ("K1 flash_fwd_bf16", re.compile(r"flash_fwd_bf16_kernel")),
+    ("K1 flash_fwd_bf16 (with or without LSE)", re.compile(r"flash_fwd_bf16_kernel")),
+    ("K4a flash_bwd_dkdv", re.compile(r"flash_bwd_dkdv_kernel")),
+    ("K4b flash_bwd_dq", re.compile(r"flash_bwd_dq_kernel")),
     ("K5 dual_context", re.compile(r"dual_context_kernel")),
-    ("SDPA (short-query attention)", re.compile(r"fmha|pytorch_flash|flash_fwd_kernel|attention", re.I)),
+    ("SDPA (VAE attention)", re.compile(r"fmha|pytorch_flash|flash_fwd_kernel|attention", re.I)),
     ("GEMM (cuBLAS: bf16 and _int_mm)", re.compile(r"gemm|cutlass|xmma|nvjet|cublas", re.I)),
     ("memcpy / memset", re.compile(r"memcpy|memset", re.I)),
     ("PyTorch native (elementwise, reductions, copies)", re.compile(r"at::native|at::")),
@@ -47,8 +57,6 @@ def device_us(evt) -> float:
 
 
 def profile_path(tag, models):
-    import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     import chip_smoke
@@ -63,7 +71,55 @@ def profile_path(tag, models):
         generate_long(models, num_inference_steps=STEPS, output_type="latent", timer=timer,
                       step_callback=lambda i, lat: prof.step(), **chip_smoke.pipeline_inputs(models))
     steps_s = timer.history["denoise_step"]
-    wall = steps_s[WAIT + WARMUP]
+    print(f"{tag}: step seconds (2 windows) {steps_s}; unprofiled step 3: "
+          f"{steps_s[3] / chip_smoke.N_WINDOWS} s per window-step", flush=True)
+    report(tag, prof, steps_s[WAIT + WARMUP])
+
+
+def profile_train(models, dit_bf16):
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    import chip_smoke
+    from stableavatar_tpu_torch.train.loop import encode_batch
+    from stableavatar_tpu_torch.train.trainer import (
+        TrainConfig, make_optimizer, train_sigmas, train_step)
+    from stableavatar_tpu_torch.utils.profiling import StepTimer
+    from stableavatar_tpu_torch.utils.tree import tree_leaves
+
+    cfg, tc = models.dit_cfg, TrainConfig()
+    tmodels = dataclasses.replace(models, dit_params=dit_bf16, rope_split=False, attn_quant="none")
+    enc = encode_batch(tmodels, next(chip_smoke.train_batches(1, cfg)),
+                       np.random.default_rng(chip_smoke.TRAIN_SEED))
+    clip_level = enc.pop("is_clip_level_modeling")
+    tx = make_optimizer(tc)
+    state = tx.init(tree_leaves(dit_bf16))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sigmas = train_sigmas(device="cuda")
+    timer = StepTimer("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=WAIT, warmup=WARMUP, active=1, repeat=1)) as prof:
+        for _ in range(STEPS):
+            with timer.phase("train_step"):
+                _, state, m = train_step(dit_bf16, state, enc, gen, clip_level, dit_cfg=cfg,
+                                         train_cfg=tc, tx=tx, sigmas_table=sigmas)
+            prof.step()
+    steps_s = timer.history["train_step"]
+    tag = f"train step (clip-level {clip_level})"
+    print(f"{tag}: step seconds {steps_s}; loss {float(m['loss'])}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30} GiB", flush=True)
+    report(tag, prof, steps_s[WAIT + WARMUP])
+
+
+def report(tag, prof, wall):
+    """Device time of the profiled step by kind of kernel, and the idle-share
+    bound 1 - kernel time / wall."""
+    from torch.autograd import DeviceType
+
     # the step's own annotation spans the device timeline too; it is no kernel
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
@@ -73,8 +129,6 @@ def profile_path(tag, models):
         kind = next((k for k, rx in KINDS if rx.search(e.key)), "other")
         s, n = kinds.get(kind, (0.0, 0))
         kinds[kind] = (s + device_us(e) / 1e6, n + e.count)
-    print(f"{tag}: step seconds (2 windows) {steps_s}; unprofiled step 3: "
-          f"{steps_s[3] / chip_smoke.N_WINDOWS} s per window-step", flush=True)
     print(f"{tag}: profiled step wall {wall} s, device kernel time {busy} s, "
           f"device idle share at most {1 - busy / wall}", flush=True)
     print(json.dumps({"path": tag, "profiled_wall_s": wall, "kernel_s": busy,
@@ -101,6 +155,9 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     models, dit_bf16 = chip_smoke.build_models("cuda")
+    if sys.argv[1:] == ["train"]:
+        profile_train(models, dit_bf16)
+        return 0
     profile_path("fast (W8A8 + K2 + K5)", models)
     profile_path("bf16 (K1)", dataclasses.replace(
         models, dit_params=dit_bf16, rope_split=False, attn_quant="none"))

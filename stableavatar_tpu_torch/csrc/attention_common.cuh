@@ -23,6 +23,8 @@
 namespace sa {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kBlockQ = 64;   // query rows per thread block (4 warps x 16)
 constexpr int kBlockK = 64;   // keys per shared-memory tile
 constexpr int kThreads = 128;

@@ -3,8 +3,12 @@
 //
 // K1 replaces stableavatar_tpu/ops/flash_attention.py:_flash_fwd_impl (body
 // `_fwd_body`): softmax(q k^T * scale) v over [B, L, N, D] bf16 with keys at
-// or past k_lens[b] masked; forward only, no LSE output, rope applied by the
-// caller.
+// or past k_lens[b] masked, rope applied by the caller.  With a non-null
+// `lse` it also writes the natural-log log-sum-exp of every query row,
+// m * ln2 + log(max(l, 1e-30)) as `_fwd_body` finalizes it, in fp32 laid out
+// [B, N, Lq] (no 128-lane broadcast); the backward (K4,
+// flash_attention_bwd.cu) recomputes P from it.  A null `lse` skips the
+// write, as the JAX package's primal-only path does.
 //
 // K2 replaces stableavatar_tpu/ops/flash_attention.py:_flash_int8_impl with
 // quant="qk" (body `_int8_fwd_body`): Q and K arrive as int8 with one scale
@@ -31,7 +35,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, const int* __restrict__ k_lens,
-                      __nv_bfloat16* __restrict__ out, int Lq, int Lk, int N, float scale_log2) {
+                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Lq, int Lk,
+                      int N, float scale_log2) {
   constexpr int kPitch = D + 8;
   __shared__ __align__(16) unsigned short Ks[kBlockK * kPitch];
   __shared__ __align__(16) unsigned short Vs[kBlockK * kPitch];
@@ -89,6 +94,12 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     acc[nd][3] /= l1;
   }
   store_rows<D>(out + ((long long)b * Lq * N + h) * D, rs, row_a, Lq, acc);
+  if (lse != nullptr && (lane & 3) == 0) {
+    // m is the base-2 running max (shared by the quad), l the row sum
+    float* lse_bh = lse + (long long)bh * Lq;
+    if (row_a < Lq) lse_bh[row_a] = m[0] * kLn2 + logf(l0);
+    if (row_a + 8 < Lq) lse_bh[row_a + 8] = m[1] * kLn2 + logf(l1);
+  }
 }
 
 template <int D>
@@ -182,11 +193,11 @@ flash_fwd_int8_qk_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict
 // --------------------------------------------------------------------------
 // plain C entry points (loaded with ctypes).  Each launches on `stream`,
 // allocates nothing and returns cudaGetLastError().  k_lens may be NULL
-// (every key valid).
+// (every key valid), and so may lse (no LSE output).
 // --------------------------------------------------------------------------
 
 extern "C" int sa_flash_fwd_bf16(const void* q, const void* k, const void* v, const void* k_lens,
-                                 void* out, int B, int Lq, int Lk, int N, int D,
+                                 void* out, void* lse, int B, int Lq, int Lk, int N, int D,
                                  float scale_log2, void* stream) {
   const dim3 grid((Lq + sa::kBlockQ - 1) / sa::kBlockQ, B * N);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -195,12 +206,13 @@ extern "C" int sa_flash_fwd_bf16(const void* q, const void* k, const void* v, co
   auto v_ = static_cast<const __nv_bfloat16*>(v);
   auto kl = static_cast<const int*>(k_lens);
   auto o_ = static_cast<__nv_bfloat16*>(out);
+  auto lse_ = static_cast<float*>(lse);
   if (D == 128) {
-    sa::flash_fwd_bf16_kernel<128><<<grid, sa::kThreads, 0, st>>>(q_, k_, v_, kl, o_, Lq, Lk, N,
-                                                                  scale_log2);
+    sa::flash_fwd_bf16_kernel<128><<<grid, sa::kThreads, 0, st>>>(q_, k_, v_, kl, o_, lse_, Lq,
+                                                                  Lk, N, scale_log2);
   } else if (D == 64) {
-    sa::flash_fwd_bf16_kernel<64><<<grid, sa::kThreads, 0, st>>>(q_, k_, v_, kl, o_, Lq, Lk, N,
-                                                                 scale_log2);
+    sa::flash_fwd_bf16_kernel<64><<<grid, sa::kThreads, 0, st>>>(q_, k_, v_, kl, o_, lse_, Lq,
+                                                                 Lk, N, scale_log2);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

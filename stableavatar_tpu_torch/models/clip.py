@@ -18,7 +18,7 @@ from stableavatar_tpu_torch.ops.attention import attention
 from stableavatar_tpu_torch.ops.norms import layer_norm
 
 
-def init_clip_visual(gen, cfg, device=None, dtype=torch.float32):
+def init_clip_visual(gen, cfg, device="cuda", dtype=torch.float32):
     d = cfg.vision_dim
     kw = dict(device=device, dtype=dtype)
 

@@ -9,11 +9,13 @@ one matmul, as in the JAX package.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from stableavatar_tpu_torch.ops.attention import attention
 from stableavatar_tpu_torch.ops.cross_attention import dual_context_attention
@@ -27,12 +29,10 @@ from stableavatar_tpu_torch.models.vocal_projector import (
     _ones,
     apply_linear,
     apply_vocal_projector,
+    gelu_exact,
+    gelu_tanh,
     init_vocal_projector,
 )
-
-
-def gelu_tanh(x):
-    return F.gelu(x, approximate="tanh")
 
 
 # ---------------------------------------------------------------------------
@@ -40,7 +40,7 @@ def gelu_tanh(x):
 # ---------------------------------------------------------------------------
 
 
-def init_block(gen, cfg, device=None, dtype=torch.float32):
+def init_block(gen, cfg, device="cuda", dtype=torch.float32):
     d = cfg.dim
     kw = dict(device=device, dtype=dtype)
     return {
@@ -75,7 +75,7 @@ def init_block(gen, cfg, device=None, dtype=torch.float32):
     }
 
 
-def init_dit(gen: torch.Generator, cfg, device=None, dtype=torch.float32):
+def init_dit(gen: torch.Generator, cfg, device="cuda", dtype=torch.float32):
     """Random parameter tree, drawn on `device` from `gen` (a generator on
     that device) with the JAX package's distributions."""
     d = cfg.dim
@@ -156,12 +156,18 @@ def _cross_attention(p, x, context_text, context_img, vocal_context, vocal_k_len
     else:
         txt_img = attention(q, k, v) + attention(q, k_img, v_img)
 
-    # vocal branch: per-latent-frame attention, q regrouped to [b*f, l/f, ...]
-    vq = q.reshape(b * f, l // f, num_heads, d)
-    vk = apply_linear(p["k_vocal"], vocal_context).reshape(b * f, -1, num_heads, d)
-    vv = apply_linear(p["v_vocal"], vocal_context).reshape(b * f, -1, num_heads, d)
-    klens = None if vocal_k_lens is None else vocal_k_lens.repeat(b)
-    voc = attention(vq, vk, vv, k_lens=klens).reshape(b, l, num_heads, d)
+    if vocal_context.shape[1] == 1:
+        # clip-level mode: one global pass over all windows' vocal tokens
+        vk = apply_linear(p["k_vocal"], vocal_context[:, 0]).reshape(b, -1, num_heads, d)
+        vv = apply_linear(p["v_vocal"], vocal_context[:, 0]).reshape(b, -1, num_heads, d)
+        voc = attention(q, vk, vv)
+    else:
+        # vocal branch: per-latent-frame attention, q regrouped to [b*f, l/f, ...]
+        vq = q.reshape(b * f, l // f, num_heads, d)
+        vk = apply_linear(p["k_vocal"], vocal_context).reshape(b * f, -1, num_heads, d)
+        vv = apply_linear(p["v_vocal"], vocal_context).reshape(b * f, -1, num_heads, d)
+        klens = None if vocal_k_lens is None else vocal_k_lens.repeat(b)
+        voc = attention(vq, vk, vv, k_lens=klens).reshape(b, l, num_heads, d)
 
     out = txt_img.reshape(b, l, dim) + voc.reshape(b, l, dim)
     return apply_linear(p["o"], out)
@@ -225,7 +231,7 @@ def encode_context(params, cfg, text_embeds, clip_fea, dtype):
     context_text = apply_linear(tp["fc2"], gelu_tanh(apply_linear(tp["fc1"], text_embeds.to(dtype))))
     ip = params["img_emb"]
     h = layer_norm(clip_fea.to(dtype), ip["norm1"]["w"], ip["norm1"]["b"], eps=1e-5)
-    h = F.gelu(apply_linear(ip["fc1"], h))
+    h = gelu_exact(apply_linear(ip["fc1"], h))
     h = apply_linear(ip["fc2"], h)
     context_img = layer_norm(h, ip["norm2"]["w"], ip["norm2"]["b"], eps=1e-5)
     return context_text, context_img
@@ -233,11 +239,12 @@ def encode_context(params, cfg, text_embeds, clip_fea, dtype):
 
 def dit_prologue(params, cfg, x, t, text_embeds, clip_fea, y, vocal_embeddings,
                  video_sample_n_frames: int = 81, vocal_cfg_tile: bool = False,
+                 is_clip_level_modeling: bool = False, freqs: Optional[RopeFreqs] = None,
                  rope_split: bool = False, honor_vocal_k_lens: bool = True):
-    """Everything before the block stack: patch embed, rope tables, time /
-    text / image embeddings, vocal projector.  Returns (tokens, e, e0,
-    context_text, context_img, vocal_context, vocal_k_lens, freqs,
-    rope_packed, grid, latents_num_frames)."""
+    """Everything before the block stack: patch embed, rope tables (unless
+    `freqs` are given), time / text / image embeddings, vocal projector.
+    Returns (tokens, e, e0, context_text, context_img, vocal_context,
+    vocal_k_lens, freqs, rope_packed, grid, latents_num_frames)."""
     b, _, f, h, w = x.shape
     pt, ph, pw = cfg.patch_size
     grid = (f // pt, h // ph, w // pw)
@@ -246,9 +253,10 @@ def dit_prologue(params, cfg, x, t, text_embeds, clip_fea, y, vocal_embeddings,
     xin = torch.cat([x, y.to(dtype)], dim=1)
     tokens = apply_linear(params["patch_embedding"], patchify(xin, cfg.patch_size))
 
-    freqs = rope_freqs_3d(grid, cfg.head_dim, riflex_k=cfg.riflex_k,
-                          riflex_L_test=cfg.riflex_L_test, riflex_scale=cfg.riflex_scale,
-                          device=x.device)
+    if freqs is None:
+        freqs = rope_freqs_3d(grid, cfg.head_dim, riflex_k=cfg.riflex_k,
+                              riflex_L_test=cfg.riflex_L_test, riflex_scale=cfg.riflex_scale,
+                              device=x.device)
     rope_packed = pack_split(freqs) if rope_split else None
 
     e, e0 = time_embeddings(params, cfg, t, dtype)
@@ -270,18 +278,29 @@ def dit_prologue(params, cfg, x, t, text_embeds, clip_fea, y, vocal_embeddings,
         vocal_k_lens = None
 
     latents_num_frames = (video_sample_n_frames - 1) // 4 + 1
+    if is_clip_level_modeling:
+        # clip-level: all windows concatenated into one global vocal context
+        # [B, 1, F*Lw, C]; the cross-attention runs one global pass
+        vocal_context = vocal_context.reshape(vocal_context.shape[0], 1, -1,
+                                              vocal_context.shape[-1])
+        vocal_k_lens = None
     return (tokens, e, e0, context_text, context_img, vocal_context, vocal_k_lens, freqs,
             rope_packed, grid, latents_num_frames)
 
 
 def dit_forward(params, cfg, x, t, text_embeds, clip_fea, y, vocal_embeddings,
                 video_sample_n_frames: int = 81, vocal_cfg_tile: bool = False,
-                rope_split: bool = False, attn_quant: str = "none",
+                is_clip_level_modeling: bool = False, freqs: Optional[RopeFreqs] = None,
+                remat: bool = False, rope_split: bool = False, attn_quant: str = "none",
                 honor_vocal_k_lens: bool = True):
     """One denoise evaluation; returns the velocity [B, 16, F, H, W] in fp32.
 
     x [B, 16, F, H, W], t [B], text_embeds [B, text_len, text_dim], clip_fea
     [B, 257, clip_dim], y [B, 20, F, H, W], vocal_embeddings [Bv, La, 768].
+    `is_clip_level_modeling` (training) makes the vocal cross-attention one
+    global pass over all windows.  `remat` recomputes each block in the
+    backward (`torch.utils.checkpoint`, the JAX package's `jax.checkpoint`
+    around the scanned block): only the block inputs stay alive.
     `rope_split` needs params from `utils/fastpath.py:prepare_fast_params`;
     `attn_quant` in {"none", "qk"} picks the self-attention kernel (K1 / K2),
     and the fused cross-attention kernel K5 is on exactly when it is not
@@ -293,13 +312,16 @@ def dit_forward(params, cfg, x, t, text_embeds, clip_fea, y, vocal_embeddings,
      rope_packed, grid, latents_num_frames) = dit_prologue(
         params, cfg, x, t, text_embeds, clip_fea, y, vocal_embeddings,
         video_sample_n_frames=video_sample_n_frames, vocal_cfg_tile=vocal_cfg_tile,
+        is_clip_level_modeling=is_clip_level_modeling, freqs=freqs,
         rope_split=rope_split, honor_vocal_k_lens=honor_vocal_k_lens)
 
     for bp in params["blocks"]:
-        tokens = apply_block(bp, tokens, e0, context_text, context_img, vocal_context,
-                             vocal_k_lens, freqs, cfg, latents_num_frames,
-                             rope_packed=rope_packed, attn_quant=attn_quant,
-                             fuse_cross=attn_quant != "none")
+        block = functools.partial(
+            apply_block, bp, e0=e0, context_text=context_text, context_img=context_img,
+            vocal_context=vocal_context, vocal_k_lens=vocal_k_lens, freqs=freqs, cfg=cfg,
+            latents_num_frames=latents_num_frames, rope_packed=rope_packed,
+            attn_quant=attn_quant, fuse_cross=attn_quant != "none")
+        tokens = checkpoint(block, tokens, use_reentrant=False) if remat else block(tokens)
     return _apply_head(params, cfg, tokens, e, grid)
 
 

@@ -191,7 +191,7 @@ def _conv_p(gen, cin, cout, k, device, dtype, zero=False):
     return {"w": w.to(dtype), "b": torch.zeros((cout,), device=device, dtype=dtype)}
 
 
-def init_vae(gen, cfg, device=None, dtype=torch.float32):
+def init_vae(gen, cfg, device="cuda", dtype=torch.float32):
     """Random VAE parameters (the JAX package's `init_vae` distributions)."""
     def norm(dim):
         return {"gamma": torch.ones((dim,), device=device, dtype=dtype), "scale": float(np.sqrt(dim))}
@@ -263,6 +263,25 @@ def encode_video(params, video, cfg, chunks_per_step: Optional[int] = None):
     """video [B, 3, T, H, W] (T = 1 + 4n) -> normalised mu [B, z, 1+n, H/8, W/8]:
     the first frame alone, then groups of `chunks_per_step` 4-frame chunks
     (chunk boundaries are invisible through the caches)."""
+    return _encode_moments(params, video, cfg, chunks_per_step)[0]
+
+
+def encode_video_sample(params, video, cfg, noise=None, generator=None,
+                        chunks_per_step: Optional[int] = None):
+    """Like `encode_video` but SAMPLES the posterior, as the reference trainer
+    does: mu (normalised) + exp(0.5 * clip(log_var, -30, 20)) * N(0, 1), with
+    log_var in raw latent units (the as-built quirk the JAX package keeps).
+    `noise` (same shape as mu) is used as given; otherwise it is drawn from
+    `generator`."""
+    mu, logvar = _encode_moments(params, video, cfg, chunks_per_step)
+    if noise is None:
+        noise = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=mu.dtype)
+    std = torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0))
+    return mu + std * noise.to(device=mu.device, dtype=mu.dtype)
+
+
+def _encode_moments(params, video, cfg, chunks_per_step: Optional[int] = None):
+    """(normalised mu, raw log_var) of the posterior, each [B, z, 1+n, h, w]."""
     b, _, t, h, w = video.shape
     if (t - 1) % 4:
         raise ValueError(f"T must be 1+4n, got {t}")
@@ -278,9 +297,9 @@ def encode_video(params, video, cfg, chunks_per_step: Optional[int] = None):
         parts.append(encoder_apply(enc, video[:, :, s : s + step], ctx, cfg, first_chunk=False))
         caches = ctx.caches_out
     z = _conv3d(params["conv1"], torch.cat(parts, dim=2))
-    mu = z[:, : cfg.z_dim]
+    mu, logvar = z[:, : cfg.z_dim], z[:, cfg.z_dim :]
     mean, std = _latent_stats(cfg, mu)
-    return (mu - mean) / std
+    return (mu - mean) / std, logvar
 
 
 def _decode_segment(params, z_seg, caches, cfg, frames_per_step: int, first: bool,

@@ -119,17 +119,39 @@ def _normal(gen, shape, std, device, dtype):
 
 
 def apply_linear(p, x):
-    """y = x W^T + b with the three weight forms (float, int8 storage, W8A8)."""
+    """y = x W^T + b with the three weight forms (float, int8 storage, W8A8).
+
+    The product is rounded to x's dtype before the bias is added, and the sum
+    rounded again, as the JAX package's `x @ w + b` rounds in bf16 (a fused
+    bias epilogue would round once)."""
     if "w8" in p:
         return int8_linear(x, p["w8"], p.get("b"))
     w = p["w"]
     if isinstance(w, dict):
         w = w["q"].to(x.dtype) * w["s"].to(x.dtype)
+    y = F.linear(x, w.to(x.dtype))
     b = p.get("b")
-    return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
+    return y if b is None else y + b.to(x.dtype)
 
 
-def init_vocal_projector(gen, cfg, device=None, dtype=torch.float32):
+def _const(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A Python constant rounded to like's dtype, as JAX's weak typing does."""
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
+def gelu_tanh(x):
+    """jax.nn.gelu(approximate=True) op for op, each rounded to x's dtype:
+    x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x^3))), x^3 = x * (x * x)."""
+    inner = _const(math.sqrt(2 / math.pi), x) * (x + _const(0.044715, x) * (x * (x * x)))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+def gelu_exact(x):
+    """jax.nn.gelu(approximate=False) op for op: 0.5 * x * erfc(-x * sqrt(1/2))."""
+    return 0.5 * x * torch.special.erfc(-x * _const(math.sqrt(0.5), x))
+
+
+def init_vocal_projector(gen, cfg, device="cuda", dtype=torch.float32):
     """Parameter tree of the 1B vocal projector (one 768 -> vd projection)."""
     if cfg.audio_proj_hidden is not None:
         raise NotImplementedError("the 14B two-stage audio projection is not ported yet")
@@ -192,8 +214,7 @@ def _vocal_block(p, x, e0, latents, num_heads, num_frames, eps):
     x = x + _vocal_cross_attention(p["cross_attn"], normed, latents, num_heads, num_frames, eps)
 
     temp = layer_norm(x, eps=eps) * (1 + e[4]) + e[3]
-    y = apply_linear(p["ffn"]["fc2"],
-                     F.gelu(apply_linear(p["ffn"]["fc1"], temp), approximate="tanh"))
+    y = apply_linear(p["ffn"]["fc2"], gelu_tanh(apply_linear(p["ffn"]["fc1"], temp)))
     return x + y * e[5]
 
 

@@ -17,7 +17,7 @@ from stableavatar_tpu_torch.ops.attention import attention
 from stableavatar_tpu_torch.ops.norms import layer_norm
 
 
-def init_wav2vec2(gen, cfg, device=None, dtype=torch.float32):
+def init_wav2vec2(gen, cfg, device="cuda", dtype=torch.float32):
     h = cfg.hidden_size
     kw = dict(device=device, dtype=dtype)
     convs = []

@@ -3,10 +3,11 @@
 
 Dispatch mirrors the JAX package: long-query attention on the accelerator
 (`lq >= 2048` and `d % 64 == 0` on a CUDA tensor) goes to the flash kernels
-K1 (`quant="none"`) / K2 (`quant="qk"`); every other call takes the
-short-query path, PyTorch's scaled_dot_product_attention with a key-length
-mask -- the port of the JAX package's XLA path, which also ignores `quant`.
-It serves the per-latent-frame vocal attention, CLIP and wav2vec.
+K1 (`quant="none"`, differentiable through K4) / K2 (`quant="qk"`); every
+other call takes the short-query path, plain PyTorch ops that repeat the JAX
+package's XLA path (`jax.nn.dot_product_attention`, which also ignores
+`quant`) with a key-length mask.  It serves the per-latent-frame vocal
+attention, CLIP and wav2vec.
 
 Shapes: q [B, Lq, N, D], k/v [B, Lk, N, D] -> [B, Lq, N, D].
 """
@@ -16,7 +17,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from stableavatar_tpu_torch.ops.flash_attention import flash_attention
 from stableavatar_tpu_torch.ops.rope import rope_apply_split
@@ -35,8 +35,8 @@ def attention(
     """Scaled dot-product attention; keys at or past k_lens[b] are masked.
 
     rope: packed split-pair [L, D] table (q/k in split-pair layout).
-    quant: "none" | "qk" (| "qkv" | "qkpv") for the flash path; the SDPA
-    path ignores it.
+    quant: "none" | "qk" (| "qkv" | "qkpv") for the flash path; the
+    short-query path ignores it.
     """
     if _use_flash(q):
         return flash_attention(q, k, v, k_lens=k_lens, scale=scale, rope=rope, quant=quant)
@@ -44,23 +44,29 @@ def attention(
         dt = q.dtype
         q = rope_apply_split(q, rope).to(dt)
         k = rope_apply_split(k, rope).to(dt)
-    return sdpa_attention(q, k, v, k_lens=k_lens, scale=scale)
+    return short_attention(q, k, v, k_lens=k_lens, scale=scale)
 
 
 def _use_flash(q: torch.Tensor) -> bool:
-    """The flash kernels take long-query calls on the card: SDPA's math path
-    would materialise [B, N, Lq, Lk] logits at the DiT self-attention."""
+    """The flash kernels take long-query calls on the card: the short-query
+    path materialises [B, N, Lq, Lk] logits (66 GB at the DiT
+    self-attention)."""
     return q.is_cuda and q.shape[1] >= 2048 and q.shape[3] % 64 == 0
 
 
-def sdpa_attention(q, k, v, *, k_lens=None, scale=None):
-    """Short-query path: torch SDPA on [B, N, L, D] with a boolean key mask."""
-    mask = None
+def short_attention(q, k, v, *, k_lens=None, scale=None):
+    """Short-query path, `jax.nn.dot_product_attention(implementation="xla")`
+    step for step so that bf16 rounds where the JAX package rounds: fp32
+    logits (bf16 products are exact in fp32) times the scale, masked keys at
+    -0.7 * float32 max, softmax in fp32, probabilities rounded to v's dtype,
+    P.V accumulated in fp32 and rounded once.  The [B, N, Lq, Lk] logits are
+    small here (Lq < 2048)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    logits = torch.einsum("btnh,bsnh->bnts", q.to(acc), k.to(acc)) * scale
     if k_lens is not None:
         cols = torch.arange(k.shape[1], device=q.device)
         mask = (cols[None, :] < k_lens.to(q.device)[:, None])[:, None, None, :]
-    out = F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        attn_mask=mask, scale=scale,
-    )
-    return out.transpose(1, 2)
+        logits = torch.where(mask, logits, -0.7 * torch.finfo(logits.dtype).max)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bnts,bsnh->btnh", probs.to(acc), v.to(acc)).to(q.dtype)

@@ -1,10 +1,18 @@
-"""Flash attention forward: kernels K1 (bf16) and K2 (int8 Q.K^T).
+"""Flash attention: kernels K1 (bf16 forward, optional LSE), K2 (int8 Q.K^T
+forward) and K4 (the bf16 backward).
 
-Port of `stableavatar_tpu/ops/flash_attention.py` (forward, inference).  On a
-CUDA tensor `flash_attention` launches a hand-written Hopper kernel
-(`csrc/flash_attention.cu`); on a CPU tensor it runs the plain PyTorch
-version beside it (`_flash_fwd_plain`, `_flash_int8_plain`).  There is no
-other path: a CUDA call that the kernels do not take raises.
+Port of `stableavatar_tpu/ops/flash_attention.py`.  On a CUDA tensor
+`flash_attention` launches a hand-written Hopper kernel
+(`csrc/flash_attention.cu`, `csrc/flash_attention_bwd.cu`); on a CPU tensor
+it runs the plain PyTorch version beside it (`_flash_fwd_plain`,
+`_flash_int8_plain`, `_flash_bwd_plain`).  There is no other path: a CUDA
+call that the kernels do not take raises.
+
+The bf16 path is differentiable like the JAX package's custom-VJP `_flash`:
+with grad enabled and an input that requires grad, the forward launches K1
+with its natural-log LSE and the backward launches K4a (dK, dV) and K4b
+(dQ), which recompute P from that LSE.  Otherwise K1 runs without the LSE
+write, as the JAX primal does.  The int8 paths are not differentiable.
 
 Semantics kept from the JAX package: q/k/v [B, L, N, D]; keys at or past
 `k_lens[b]` are masked with -1e30; the online softmax runs in base 2 with
@@ -32,9 +40,12 @@ from stableavatar_tpu_torch.ops.rope import rope_apply_split
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 
-# kernel launches, counted where each wrapper launches its kernel
-launch_counts = {"flash_fwd_bf16": 0, "flash_fwd_int8_qk": 0}
+# kernel launches, counted where each wrapper launches its kernel; K1 with
+# and without its LSE output count apart
+launch_counts = {"flash_fwd_bf16": 0, "flash_fwd_bf16_lse": 0, "flash_fwd_int8_qk": 0,
+                 "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
 
 # bytes of fp32 logits one plain-version chunk may hold
 _PLAIN_CHUNK_BYTES = 1 << 30
@@ -48,23 +59,31 @@ def _quant_slab(x: torch.Tensor):
     return q, s
 
 
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """fp32 arithmetic of the plain versions (fp64 for fp64 inputs, which
+    gradcheck uses)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def _online_softmax_plain(logits_fn, k_lens, lq, lk, block_k, out_shape,
-                          pv_fn, device):
+                          pv_fn, device, dtype=torch.float32, with_lse=False):
     """Shared plain loop: query chunks x key blocks with the kernels' online
     base-2 softmax.  logits_fn(q0, q1, k0, k1) -> [B, N, qc, kc] base-2
     logits; pv_fn(s, m_cur, m_new, k0, k1) -> (pv [B, N, qc, D], row-sum
-    term) for one block of masked logits s."""
+    term) for one block of masked logits s.  With `with_lse` it also returns
+    the natural-log LSE [B, N, Lq], m * ln2 + log(max(l, 1e-30))."""
     b, n, _, d = out_shape
     qc = max(1, _PLAIN_CHUNK_BYTES // (4 * b * n * block_k))
-    acc_out = torch.empty(out_shape, dtype=torch.float32, device=device)
+    acc_out = torch.empty(out_shape, dtype=dtype, device=device)
+    lse = torch.empty((b, n, lq), dtype=dtype, device=device) if with_lse else None
     cols = torch.arange(lk, device=device)
     klens = (torch.full((b,), lk, device=device) if k_lens is None
              else k_lens.to(device=device, dtype=torch.int64))
     for q0 in range(0, lq, qc):
         q1 = min(lq, q0 + qc)
-        m = torch.full((b, n, q1 - q0, 1), NEG_INF, dtype=torch.float32, device=device)
+        m = torch.full((b, n, q1 - q0, 1), NEG_INF, dtype=dtype, device=device)
         l = torch.zeros_like(m)
-        acc = torch.zeros((b, n, q1 - q0, d), dtype=torch.float32, device=device)
+        acc = torch.zeros((b, n, q1 - q0, d), dtype=dtype, device=device)
         for k0 in range(0, lk, block_k):
             k1 = min(lk, k0 + block_k)
             s = logits_fn(q0, q1, k0, k1)
@@ -77,18 +96,24 @@ def _online_softmax_plain(logits_fn, k_lens, lq, lk, block_k, out_shape,
             l = corr * l + rowsum
             acc = acc * corr + pv
             m = m_new
-        acc_out[:, :, q0:q1] = acc / torch.clamp(l, min=1e-30)
-    return acc_out
+        l = torch.clamp(l, min=1e-30)
+        acc_out[:, :, q0:q1] = acc / l
+        if with_lse:
+            lse[:, :, q0:q1] = (m * LN2 + torch.log(l))[..., 0]
+    return (acc_out, lse) if with_lse else acc_out
 
 
-def _flash_fwd_plain(q, k, v, k_lens=None, scale=None, block_k: int = 1024):
-    """Plain K1: bf16 (or fp32) flash forward, [B, L, N, D] in and out."""
+def _flash_fwd_plain(q, k, v, k_lens=None, scale=None, block_k: int = 1024,
+                     with_lse: bool = False):
+    """Plain K1: bf16 (or fp32) flash forward, [B, L, N, D] in and out; with
+    `with_lse` also the natural-log LSE [B, N, Lq] (fp32)."""
     b, lq, n, d = q.shape
     lk = k.shape[1]
     scale = d ** -0.5 if scale is None else scale
-    qf = q.permute(0, 2, 1, 3).float()
-    kf = k.permute(0, 2, 1, 3).float()
-    vf = v.permute(0, 2, 1, 3).float()
+    acc = _acc_dtype(q)
+    qf = q.permute(0, 2, 1, 3).to(acc)
+    kf = k.permute(0, 2, 1, 3).to(acc)
+    vf = v.permute(0, 2, 1, 3).to(acc)
     eff = scale * LOG2E
 
     def logits(q0, q1, k0, k1):
@@ -96,11 +121,52 @@ def _flash_fwd_plain(q, k, v, k_lens=None, scale=None, block_k: int = 1024):
 
     def pv(s, m_cur, m_new, k0, k1):
         p = torch.exp2(s - m_new)
-        return p.to(v.dtype).float() @ vf[:, :, k0:k1], p.sum(-1, keepdim=True)
+        return p.to(v.dtype).to(acc) @ vf[:, :, k0:k1], p.sum(-1, keepdim=True)
 
-    out = _online_softmax_plain(logits, k_lens, lq, lk, min(block_k, lk),
-                                (b, n, lq, d), pv, q.device)
-    return out.to(q.dtype).permute(0, 2, 1, 3)
+    res = _online_softmax_plain(logits, k_lens, lq, lk, min(block_k, lk),
+                                (b, n, lq, d), pv, q.device, acc, with_lse)
+    out, lse = res if with_lse else (res, None)
+    out = out.to(q.dtype).permute(0, 2, 1, 3)
+    return (out, lse) if with_lse else out
+
+
+def _flash_bwd_plain(q, k, v, k_lens, out, lse, g, scale=None):
+    """Plain K4: the flash backward from the forward's LSE [B, N, Lq], in
+    chunks of queries so no [B, N, Lq, Lk] tensor is materialised.
+
+    The arithmetic of the two TPU bodies: base-2 logits, p = exp2(s -
+    lse * log2 e) with masked keys and rows with lse <= NEG_INF / 2 at 0,
+    delta = rowsum(dO * O), ds = p * (dp - delta) * scale; P and dS are
+    rounded to the input dtype before their products (dV = P^T dO,
+    dK = dS^T Q, dQ = dS K).  Returns dq, dk, dv [B, L, N, D] in q's dtype."""
+    b, lq, n, d = q.shape
+    lk = k.shape[1]
+    scale = d ** -0.5 if scale is None else scale
+    dt, acc = q.dtype, _acc_dtype(q)
+    qf, kf, vf, gf, of = (x.permute(0, 2, 1, 3).to(acc) for x in (q, k, v, g, out))
+    delta = (gf * of).sum(-1, keepdim=True)  # [B, N, Lq, 1]
+    lse = lse.to(acc)[..., None]
+    lse2 = lse * LOG2E
+    live = lse > NEG_INF / 2
+    klens = (torch.full((b,), lk, device=q.device) if k_lens is None
+             else k_lens.to(device=q.device, dtype=torch.int64))
+    valid = (torch.arange(lk, device=q.device)[None, :] < klens[:, None])[:, None, None, :]
+    dq = torch.empty_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    qc = max(1, _PLAIN_CHUNK_BYTES // (4 * b * n * lk))
+    for q0 in range(0, lq, qc):
+        q1 = min(lq, q0 + qc)
+        s = (qf[:, :, q0:q1] @ kf.transpose(-1, -2)) * (scale * LOG2E)
+        s = torch.where(valid, s, NEG_INF)
+        p = torch.where(live[:, :, q0:q1], torch.exp2(s - lse2[:, :, q0:q1]), 0.0)
+        gc = gf[:, :, q0:q1]
+        dv += p.to(dt).to(acc).transpose(-1, -2) @ gc
+        dp = gc @ vf.transpose(-1, -2)
+        ds = (p * (dp - delta[:, :, q0:q1]) * scale).to(dt).to(acc)
+        dk += ds.transpose(-1, -2) @ qf[:, :, q0:q1]
+        dq[:, :, q0:q1] = ds @ kf
+    return tuple(x.to(dt).permute(0, 2, 1, 3) for x in (dq, dk, dv))
 
 
 def _flash_int8_plain(q8, k8, v, sqk, k_lens=None, quant: str = "qk", sv=None,
@@ -191,20 +257,74 @@ def _check_cuda_common(q, k, v, k_lens):
             raise ValueError("k_lens must be on the same device as q")
 
 
-def _flash_fwd_cuda(q, k, v, k_lens, scale):
+def _flash_fwd_cuda(q, k, v, k_lens, scale, with_lse: bool = False):
+    """K1; with `with_lse` returns (out, lse [B, N, Lq] fp32)."""
     b, lq, n, d = q.shape
     lk = k.shape[1]
     _check("q", q, torch.bfloat16)
     _check("k", k, torch.bfloat16, (b, lk, n, d))
     _check_cuda_common(q, k, v, k_lens)
     out = torch.empty_like(q)
+    lse = torch.empty((b, n, lq), dtype=torch.float32, device=q.device) if with_lse else None
     cuda_lib.launch(
         "sa_flash_fwd_bf16", q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if k_lens is None else k_lens.data_ptr(), out.data_ptr(),
-        b, lq, lk, n, d, float(scale * LOG2E),
+        None if lse is None else lse.data_ptr(), b, lq, lk, n, d, float(scale * LOG2E),
     )
-    launch_counts["flash_fwd_bf16"] += 1
-    return out
+    launch_counts["flash_fwd_bf16_lse" if with_lse else "flash_fwd_bf16"] += 1
+    return (out, lse) if with_lse else out
+
+
+def _flash_bwd_cuda(q, k, v, k_lens, out, lse, g, scale):
+    """K4a then K4b: (dq, dk, dv) in bf16 from the forward's LSE."""
+    b, lq, n, d = q.shape
+    lk = k.shape[1]
+    _check("q", q, torch.bfloat16)
+    _check("k", k, torch.bfloat16, (b, lk, n, d))
+    _check_cuda_common(q, k, v, k_lens)
+    _check("dout", g, torch.bfloat16, (b, lq, n, d))
+    _check("out", out, torch.bfloat16, (b, lq, n, d))
+    _check("lse", lse, torch.float32, (b, n, lq))
+    # delta = rowsum(dO * O) in fp32: a plain torch op, as on the TPU
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    kl = None if k_lens is None else k_lens.data_ptr()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), kl)
+    dims = (b, lq, lk, n, d, float(scale), float(scale * LOG2E))
+    cuda_lib.launch("sa_flash_bwd_dkdv", *args, dk.data_ptr(), dv.data_ptr(), *dims)
+    launch_counts["flash_bwd_dkdv"] += 1
+    cuda_lib.launch("sa_flash_bwd_dq", *args, dq.data_ptr(), *dims)
+    launch_counts["flash_bwd_dq"] += 1
+    return dq, dk, dv
+
+
+def _flash_fwd_with_lse(q, k, v, k_lens, scale):
+    if q.is_cuda:
+        return _flash_fwd_cuda(q, k, v, k_lens, scale, with_lse=True)
+    return _flash_fwd_plain(q, k, v, k_lens, scale, with_lse=True)
+
+
+class _Flash(torch.autograd.Function):
+    """The custom VJP of the JAX package's `_flash` (flash_attention.py:967):
+    forward K1 with LSE, backward K4 (plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, k_lens, scale):
+        out, lse = _flash_fwd_with_lse(q, k, v, k_lens, scale)
+        ctx.save_for_backward(q, k, v, k_lens, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, k_lens, out, lse = ctx.saved_tensors
+        g = g.contiguous()
+        if q.is_cuda:
+            dq, dk, dv = _flash_bwd_cuda(q, k, v, k_lens, out, lse, g, ctx.scale)
+        else:
+            dq, dk, dv = _flash_bwd_plain(q, k, v, k_lens, out, lse, g, ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def _flash_int8_cuda(q8, k8, v, sqk, k_lens):
@@ -240,21 +360,28 @@ def flash_attention(
     [L, D] table; on the bf16 path it is applied before the kernel, on the
     int8 path inside the quantisation prep.  On CUDA only "none" and "qk"
     have kernels; "qkv" / "qkpv" (off by default in the JAX package) raise.
+    Only "none" is differentiable (K1 with LSE forward, K4 backward).
     """
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no flash attention path for device {q.device}")
     d = q.shape[-1]
     scale = d ** -0.5 if scale is None else float(scale)
+    needs_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
     if quant == "none":
         if rope is not None:
             dt = q.dtype
             q = rope_apply_split(q, rope).to(dt)
             k = rope_apply_split(k, rope).to(dt)
+        if needs_grad:
+            return _Flash.apply(q, k, v, k_lens, scale)
         if q.is_cuda:
             return _flash_fwd_cuda(q, k, v, k_lens, scale)
         return _flash_fwd_plain(q, k, v, k_lens, scale)
     if quant not in ("qk", "qkv", "qkpv"):
         raise ValueError(f"unknown quant {quant!r}")
+    if needs_grad:
+        raise ValueError(f"quant={quant!r}: the int8 flash paths are not differentiable "
+                         "(inference only, as in the JAX package)")
     if q.is_cuda and quant != "qk":
         raise NotImplementedError(
             f"quant={quant!r} has no Hopper kernel yet (ROADMAP queue 2, K2v)"
@@ -267,3 +394,23 @@ def flash_attention(
         v, sv = quantize_v(v)
     return _flash_int8_plain(q8, k8, v, sqk, k_lens, quant=quant, sv=sv,
                              out_dtype=out_dtype)
+
+
+def flash_attention_with_stats(q, k, v, *, k_lens=None, scale=None, rope=None,
+                               quant: str = "none"):
+    """Forward returning (out [B, Lq, N, D], lse [B, Lq, N] fp32, natural
+    log): the combinable partials ring attention merges (JAX
+    `flash_attention_with_stats`).  K1 with its LSE output on CUDA; the int8
+    kernels have no LSE output yet (ROADMAP queue 2)."""
+    if quant != "none":
+        raise NotImplementedError(
+            f"quant={quant!r}: K2 has no LSE output yet (ROADMAP queue 2)")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no flash attention path for device {q.device}")
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    if rope is not None:
+        dt = q.dtype
+        q = rope_apply_split(q, rope).to(dt)
+        k = rope_apply_split(k, rope).to(dt)
+    out, lse = _flash_fwd_with_lse(q, k, v, k_lens, scale)
+    return out, lse.transpose(1, 2)

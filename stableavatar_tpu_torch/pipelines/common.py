@@ -9,7 +9,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from stableavatar_tpu.config import CLIPConfig, DiTConfig, VAEConfig, Wav2Vec2Config
+from stableavatar_tpu_torch.config import CLIPConfig, DiTConfig, VAEConfig, Wav2Vec2Config
 from stableavatar_tpu_torch.models.clip import clip_visual_forward, preprocess_reference_image
 from stableavatar_tpu_torch.models.vae import encode_video
 from stableavatar_tpu_torch.models.wav2vec import normalize_waveform, wav2vec2_forward
@@ -32,10 +32,22 @@ class WanModels:
     attn_quant: str = "none"
     # False reproduces the reference's SDPA deployment (vocal padding masks dropped)
     honor_vocal_k_lens: bool = True
-    device: Any = "cpu"
+    # the card unless the caller asks for the CPU (as the CPU tests do)
+    device: Any = "cuda"
     # not ported yet; generate_long raises when either is set
     teacache: Any = None
     streamed_dit: Any = None
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on.  A CUDA device on a host without
+    CUDA raises: the port never carries on on the CPU unasked."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device}: CUDA is not available on this host; the port runs on "
+            "the card unless the caller passes device='cpu'")
+    return device
 
 
 def encode_prompts(models: WanModels, prompt: str, negative_prompt: str = ""):

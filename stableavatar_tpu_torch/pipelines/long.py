@@ -28,6 +28,7 @@ from stableavatar_tpu_torch.pipelines.common import (
     extract_vocal_features,
     guidance_combine_long,
     prepare_conditioning,
+    resolve_device,
 )
 from stableavatar_tpu_torch.schedulers.flow_match import flow_match_timesteps
 
@@ -154,8 +155,9 @@ def generate_long(
         raise NotImplementedError(
             "the host-streamed DiT is not ported yet (ROADMAP queue 1, item 8: "
             "models/streaming.py)")
-    device = torch.device(models.device)
-    phase = timer.phase if timer is not None else (lambda name: contextlib.nullcontext())
+    device = resolve_device(models.device)
+    phase = (timer.follow(device).phase if timer is not None
+             else (lambda name: contextlib.nullcontext()))
     ref_image = torch.as_tensor(ref_image, dtype=torch.float32, device=device)
     h_img, w_img = ref_image.shape[-2:]
     vae_cfg = models.vae_cfg

@@ -15,11 +15,21 @@ import torch
 
 
 class StepTimer:
-    """Records the wall-clock seconds of every run of each named phase."""
+    """Records the wall-clock seconds of every run of each named phase.
 
-    def __init__(self, device="cpu"):
-        self.sync = torch.device(device).type == "cuda"
+    `device` is where the timed work runs.  Left as None, it is taken from
+    the first run that times with it (`follow`): `generate_long` and `train`
+    pass their models' device."""
+
+    def __init__(self, device=None):
+        self.device = None if device is None else torch.device(device)
         self.history: Dict[str, List[float]] = defaultdict(list)
+
+    def follow(self, device) -> "StepTimer":
+        """Adopt `device` unless the caller named one."""
+        if self.device is None:
+            self.device = torch.device(device)
+        return self
 
     @contextlib.contextmanager
     def phase(self, name: str):
@@ -27,8 +37,8 @@ class StepTimer:
         try:
             yield
         finally:
-            if self.sync:
-                torch.cuda.synchronize()
+            if self.device is not None and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
             self.history[name].append(time.perf_counter() - t0)
 
     def summary(self) -> Dict[str, Dict[str, float]]:

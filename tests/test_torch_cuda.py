@@ -9,7 +9,8 @@ repository root:
 (`--noconftest` skips tests/conftest.py, which configures JAX.)  Each kernel
 is held against its plain PyTorch version in the same module at rel-L2 1e-2,
 the bound `chip_smoke.py` uses: bf16 outputs, summed in another order, with P
-rounded to bf16 at other places.
+rounded to bf16 at other places.  K1's LSE (fp32, from fp32 row statistics)
+is held to max-abs 1e-3.
 """
 
 import pytest
@@ -57,6 +58,61 @@ def test_flash_kernels_match_plain(gen, b, l, n, d, k_lens):
     assert fa.launch_counts["flash_fwd_int8_qk"] == before["flash_fwd_int8_qk"] + 1
 
 
+@pytest.mark.parametrize("b,lq,lk,n,d,k_lens", [(2, 3000, 3000, 2, 128, [2500, 3000]),
+                                               (1, 2100, 2100, 3, 64, None),
+                                               (1, 2048, 77, 2, 128, None),
+                                               (2, 700, 257, 2, 64, [200, 257])])
+def test_k1_lse_and_k4_match_plain(gen, b, lq, lk, n, d, k_lens):
+    q = _randn(gen, b, lq, n, d)
+    k, v = _randn(gen, b, lk, n, d), _randn(gen, b, lk, n, d)
+    g = _randn(gen, b, lq, n, d)
+    kl = None if k_lens is None else torch.tensor(k_lens, dtype=torch.int32, device="cuda")
+    scale = d ** -0.5
+    before = dict(fa.launch_counts)
+    out, lse = fa._flash_fwd_cuda(q, k, v, kl, scale, with_lse=True)
+    want_out, want_lse = fa._flash_fwd_plain(q, k, v, kl, scale, with_lse=True)
+    assert _rel(out, want_out) < REL_TOL
+    assert lse.shape == (b, n, lq) and lse.dtype == torch.float32
+    assert float((lse - want_lse).abs().max()) < 1e-3
+    got = fa._flash_bwd_cuda(q, k, v, kl, out, lse, g, scale)
+    want = fa._flash_bwd_plain(q, k, v, kl, out, lse, g, scale)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape, name
+        assert _rel(a, w) < REL_TOL, (name, _rel(a, w))
+    if k_lens is not None:  # keys past k_lens get no gradient
+        assert float(got[1][0, k_lens[0]:].abs().max()) == 0.0
+        assert float(got[2][0, k_lens[0]:].abs().max()) == 0.0
+    assert fa.launch_counts["flash_fwd_bf16_lse"] == before["flash_fwd_bf16_lse"] + 1
+    assert fa.launch_counts["flash_bwd_dkdv"] == before["flash_bwd_dkdv"] + 1
+    assert fa.launch_counts["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+
+
+def test_backward_through_attention(gen):
+    """A long-query attention() call under autograd takes K1 with LSE and
+    K4; the gradients match the same call on the CPU (plain versions)."""
+    b, l, n, d = 1, 2048, 2, 128
+    q, k, v = (_randn(gen, b, l, n, d).requires_grad_() for _ in range(3))
+    g = _randn(gen, b, l, n, d)
+    before = dict(fa.launch_counts)
+    out = attention(q, k, v)
+    out.backward(g)
+    assert fa.launch_counts["flash_fwd_bf16_lse"] == before["flash_fwd_bf16_lse"] + 1
+    assert fa.launch_counts["flash_fwd_bf16"] == before["flash_fwd_bf16"]
+    assert fa.launch_counts["flash_bwd_dkdv"] == before["flash_bwd_dkdv"] + 1
+    assert fa.launch_counts["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    qc, kc, vc = (x.detach().cpu().requires_grad_() for x in (q, k, v))
+    oc = fa.flash_attention(qc, kc, vc)
+    oc.backward(g.cpu())
+    assert _rel(out.detach().cpu(), oc.detach()) < REL_TOL
+    for a, w in ((q, qc), (k, kc), (v, vc)):
+        assert _rel(a.grad.cpu(), w.grad) < REL_TOL
+    with torch.no_grad():  # inference launches stay K1 without LSE
+        attention(q, k, v)
+    assert fa.launch_counts["flash_fwd_bf16"] == before["flash_fwd_bf16"] + 1
+    with pytest.raises(ValueError, match="not differentiable"):
+        fa.flash_attention(q, k, v, quant="qk")
+
+
 def test_dual_context_kernel_matches_plain(gen):
     b, l, n, d = 2, 3000, 2, 128
     q = _randn(gen, b, l, n, d)
@@ -69,7 +125,8 @@ def test_dual_context_kernel_matches_plain(gen):
 
 
 def test_attention_dispatch_on_cuda(gen):
-    """Long queries take the flash kernel; short ones SDPA (no launch)."""
+    """Long queries take the flash kernel; short ones the short-query path
+    (no launch)."""
     long_q = _randn(gen, 1, 2048, 2, 128)
     short_q = _randn(gen, 1, 1024, 2, 128)
     k, v = _randn(gen, 1, 300, 2, 128), _randn(gen, 1, 300, 2, 128)

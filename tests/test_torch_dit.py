@@ -13,6 +13,7 @@ from stableavatar_tpu.models import dit as jdit
 from stableavatar_tpu.utils import fastpath as jfast
 from stableavatar_tpu_torch.models import dit as tdit
 from stableavatar_tpu_torch.utils import fastpath as tfast
+from stableavatar_tpu_torch.utils.tree import tree_leaves
 from stableavatar_tpu_torch.utils.weights import dit_from_jax
 from tests.torch_parity import densify_dit, pallas_interpret, rel_l2, t, to_numpy_tree
 
@@ -69,7 +70,7 @@ def test_prepare_fast_params_matches_jax(jax_params):
 @pytest.mark.parametrize("honor", [True, False])
 def test_dit_fast_path_matches_jax(jax_params, honor):
     """rope_split + W8A8 linears + attn_quant="qk" (+ fused cross-attention),
-    each side on its CPU dispatch (XLA / SDPA for short queries)."""
+    each side on its CPU dispatch (XLA / the port's short-query path)."""
     inputs = _inputs(8)
     fast_j = jfast.prepare_fast_params(jax_params, CFG, quant=True)
     kw = dict(video_sample_n_frames=17, rope_split=True, attn_quant="qk",
@@ -97,3 +98,38 @@ def test_dit_flash_route_matches_jax(jax_params, attn_quant):
             "stableavatar_tpu_torch.ops.attention._use_flash", lambda q: True):
         got = tdit.dit_forward(fast_t, CFG, *map(t, inputs), **kw).numpy()
     assert rel_l2(got, want) < 1e-5
+
+
+def test_dit_forward_clip_level_matches_jax(jax_params):
+    """Clip-level modeling: all windows' vocal tokens in one global
+    cross-attention pass (the training path's 30% branch)."""
+    inputs = _inputs(9)
+    want = np.asarray(jdit.dit_forward(
+        jax_params, CFG, *map(jax.numpy.asarray, inputs), video_sample_n_frames=17,
+        is_clip_level_modeling=True))
+    params = dit_from_jax(to_numpy_tree(jax_params))
+    with torch.no_grad():
+        got = tdit.dit_forward(params, CFG, *map(t, inputs), video_sample_n_frames=17,
+                               is_clip_level_modeling=True).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("route", ["short", "flash"])
+def test_remat_gradients_equal_plain(jax_params, route):
+    """remat=True (each block under torch.utils.checkpoint, recomputed in
+    the backward) gives exactly the gradients of remat=False, on the
+    short-query path and through the flash autograd Function."""
+    inputs = [t(a) for a in _inputs(10)]
+    grads = []
+    for remat in (False, True):
+        params = dit_from_jax(to_numpy_tree(jax_params))
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        with mock.patch("stableavatar_tpu_torch.ops.attention._use_flash",
+                        lambda q: route == "flash"):
+            out = tdit.dit_forward(params, CFG, *inputs, video_sample_n_frames=17,
+                                   is_clip_level_modeling=True, remat=remat)
+            grads.append(torch.autograd.grad(out.square().mean(), leaves))
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    assert any(float(g.abs().max()) > 0 for g in grads[0])

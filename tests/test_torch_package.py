@@ -1,8 +1,10 @@
-"""Packaging facts of the PyTorch port: it imports no JAX (of the JAX package
-only the jax-free `stableavatar_tpu.config`), importing it builds nothing,
-the kernel sources it builds exist, and the weight bridge yields the same
-tree structure as the port's own initialisers."""
+"""Packaging facts of the PyTorch port: it imports no JAX and nothing of the
+JAX package, importing it builds nothing, its configs are field-for-field
+copies of the JAX package's, the kernel sources it builds exist, the weight
+bridge yields the same tree structure as the port's own initialisers, and
+its entry points never run on the CPU unless asked."""
 
+import dataclasses
 import pkgutil
 import re
 import subprocess
@@ -38,8 +40,8 @@ def test_import_loads_no_jax_and_builds_nothing():
         "assert cuda_lib._lib is None\n"
         "jax = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
         "assert not jax, jax\n"
-        "pkg = {m for m in sys.modules if m.split('.')[0] == 'stableavatar_tpu'}\n"
-        "assert pkg <= {'stableavatar_tpu', 'stableavatar_tpu.config'}, pkg\n"
+        "pkg = sorted(m for m in sys.modules if m.split('.')[0] == 'stableavatar_tpu')\n"
+        "assert not pkg, pkg\n"
         "print('ok', len(sys.modules))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -50,10 +52,30 @@ def test_import_loads_no_jax_and_builds_nothing():
 
 def test_no_source_line_imports_jax():
     pattern = re.compile(r"^\s*(import jax|from jax|import stableavatar_tpu\b(?!_torch)"
-                         r"|from stableavatar_tpu\b(?!_torch|\.config import))")
-    offenders = [f"{p}:{i}" for p in PKG.rglob("*.py")
+                         r"|from stableavatar_tpu\b(?!_torch))")
+    sources = [*PKG.rglob("*.py"), PKG.parent / "chip_smoke.py"]
+    offenders = [f"{p}:{i}" for p in sources
                  for i, line in enumerate(p.read_text().splitlines(), 1) if pattern.match(line)]
     assert not offenders, offenders
+
+
+@pytest.mark.parametrize("name", ["DiTConfig", "VAEConfig", "CLIPConfig", "Wav2Vec2Config",
+                                  "WAN_1_3B", "TrainConfig"])
+def test_configs_equal_jax_package(name):
+    """Each config the port copies equals the JAX package's, field by field."""
+    from stableavatar_tpu import config as jconfig
+    from stableavatar_tpu.train import trainer as jtrainer
+    from stableavatar_tpu_torch import config as tconfig
+    from stableavatar_tpu_torch.train import trainer as ttrainer
+
+    jmod, tmod = (jtrainer, ttrainer) if name == "TrainConfig" else (jconfig, tconfig)
+    want, got = getattr(jmod, name), getattr(tmod, name)
+    if isinstance(want, type):
+        want, got = want(), got()
+    assert [f.name for f in dataclasses.fields(got)] == [f.name for f in dataclasses.fields(want)]
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    if name == "WAN_1_3B":
+        assert got.head_dim == want.head_dim == 128
 
 
 def test_kernel_sources_exist():
@@ -97,7 +119,7 @@ def test_bridge_matches_port_init_structure(model):
     # shapes only: eval_shape skips the eager JAX init
     shapes = jax.eval_shape(lambda k: jax_init(k, cfg), key)
     bridged = bridge(jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes))
-    assert _shapes(bridged) == _shapes(port_init(gen, cfg))
+    assert _shapes(bridged) == _shapes(port_init(gen, cfg, device="cpu"))
 
 
 def test_cpu_wrappers_refuse_other_devices():
@@ -109,3 +131,33 @@ def test_cpu_wrappers_refuse_other_devices():
         flash_attention(q, q, q)
     with pytest.raises(ValueError):
         dual_context_attention(q, q, q, q, q)
+
+
+def test_entry_points_default_to_the_card():
+    """Without CUDA, generate_long and train with their default devices
+    raise instead of running on the CPU; the initialisers default to the
+    card too."""
+    import inspect
+
+    import numpy as np
+
+    from stableavatar_tpu_torch.config import DiTConfig, VAEConfig
+    from stableavatar_tpu_torch.models import dit, vae
+    from stableavatar_tpu_torch.pipelines.common import WanModels
+    from stableavatar_tpu_torch.pipelines.long import generate_long
+    from stableavatar_tpu_torch.train.loop import train
+    from stableavatar_tpu_torch.train.trainer import TrainConfig
+    from stableavatar_tpu_torch.utils.profiling import StepTimer
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    assert inspect.signature(dit.init_dit).parameters["device"].default == "cuda"
+    assert inspect.signature(vae.init_vae).parameters["device"].default == "cuda"
+    assert StepTimer().device is None
+    models = WanModels(dit_params={}, dit_cfg=DiTConfig(), vae_params={}, vae_cfg=VAEConfig())
+    assert models.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        generate_long(models, ref_image=np.zeros((1, 3, 32, 32)), vocal_waveform=np.zeros(9000),
+                      text_ctx=np.zeros((3, 4, 8), np.float32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train(models, iter([]), TrainConfig())

@@ -69,7 +69,7 @@ def _run_both(jax_models, fast: bool):
         vae_params=from_jax_tree(to_numpy_tree(jax_models["vae"])), vae_cfg=VAE_E2E,
         clip_params=from_jax_tree(to_numpy_tree(jax_models["clip"])), clip_cfg=CLIP_E2E,
         wav2vec_params=from_jax_tree(to_numpy_tree(jax_models["w2v"])), wav2vec_cfg=W2V_E2E,
-        rope_split=fast, attn_quant="qk" if fast else "none")
+        rope_split=fast, attn_quant="qk" if fast else "none", device="cpu")
     kw = dict(ref_image=ref, vocal_waveform=wav, num_inference_steps=2, clip_length=9,
               overlap_window_length=1, initial_latents=latents)
 
@@ -77,18 +77,22 @@ def _run_both(jax_models, fast: bool):
     want = jlong.generate_long(jm, text_ctx=jnp.asarray(text_ctx),
                                step_callback=lambda i, x: j_steps.append(np.asarray(x, np.float32)),
                                **kw)
-    timer = StepTimer()
+    timer = StepTimer("cpu")
     got = tlong.generate_long(tm, text_ctx=torch.from_numpy(text_ctx), timer=timer,
                               step_callback=lambda i, x: t_steps.append(x.float().numpy()), **kw)
     return want, got, j_steps, t_steps, timer
 
 
-# Latent tolerance per path.  Both pipelines run the DiT in bf16 and round
-# at different places (each side is 0.73% rel-L2 from an fp32 forward and
-# 0.57% from the other); the W8A8 fast path adds int8 rounding flips.
-# Measured: 0.0089 / 0.0093 (bf16) and 0.0130 / 0.0136 (fast path) after
-# steps 1 / 2 -- the fast path misses the 1e-2 target (ROADMAP queue 3).
-LATENT_TOL = {False: 1e-2, True: 2e-2}
+# Latent tolerance per path.  The port's bf16 DiT rounds where the JAX
+# package's ops round (bit-identical to it with XLA's excess precision off);
+# under jit XLA fuses bf16 elementwise chains without those roundings, so
+# the two still drift apart.  On the fast path the JAX package's CPU
+# fallback of the fused cross-attention (two XLA attentions) and K5's plain
+# version (one pass, P rounded to bf16) differ too, and W8A8 rounding flips
+# amplify both.  Measured: 0.0085 / 0.0092 (bf16) and 0.0130 / 0.0135 (fast
+# path) after steps 1 / 2; the fast path misses the 1e-2 target (ROADMAP
+# queue 3) and is pinned just above what it measures.
+LATENT_TOL = {False: 1e-2, True: 1.5e-2}
 
 
 @pytest.mark.parametrize("fast", [False, True])
@@ -115,7 +119,8 @@ def test_generate_long_matches_jax(jax_models, fast):
 
 
 def test_generate_long_unported_options_raise(jax_models):
-    tm = tcommon.WanModels(dit_params=None, dit_cfg=DIT_E2E, vae_params=None, vae_cfg=VAE_E2E)
+    tm = tcommon.WanModels(dit_params=None, dit_cfg=DIT_E2E, vae_params=None, vae_cfg=VAE_E2E,
+                           device="cpu")
     with pytest.raises(NotImplementedError, match="fm_solvers"):
         tlong.generate_long(tm, ref_image=np.zeros((1, 3, 32, 32)), vocal_waveform=np.zeros(9000),
                             scheduler="unipc")
@@ -130,7 +135,8 @@ def test_generate_long_unported_options_raise(jax_models):
 ])
 def test_generate_long_names_the_roadmap_item_it_lacks(option, match):
     kw = {k: v for k, v in option.items() if k != "scheduler"}
-    tm = tcommon.WanModels(dit_params=None, dit_cfg=DIT_E2E, vae_params=None, vae_cfg=VAE_E2E, **kw)
+    tm = tcommon.WanModels(dit_params=None, dit_cfg=DIT_E2E, vae_params=None, vae_cfg=VAE_E2E,
+                           device="cpu", **kw)
     with pytest.raises(NotImplementedError, match=rf"ROADMAP queue 1, item 8: .*{match}"):
         tlong.generate_long(tm, ref_image=np.zeros((1, 3, 32, 32)), vocal_waveform=np.zeros(9000),
                             scheduler=option.get("scheduler", "euler"))
