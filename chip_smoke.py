@@ -9,12 +9,15 @@ exits non-zero):
 
 1. device   -- require CUDA, print the card's name and power limit, build the
                hand-written kernels from csrc/ and print the build seconds;
-2. kernels  -- K1 (bf16 flash), K2 (int8-QK flash), K5 (dual-context
-               cross-attention), K1 with its LSE output and the K4 backward
-               (K4a dK/dV, K4b dQ) against their plain PyTorch versions at the
-               main-path shapes and on small ragged cases, with times, the
-               least time the card could take (bound) and, where one PyTorch
-               call computes the same function, that call's time;
+2. kernels  -- K1 (bf16 flash), K2 (int8-QK flash), K2v (int8 V: "qkv",
+               "qkpv"), K3 (static-bound softmax, "qk" and "qkv", with its
+               LSE and the count of rows whose sum underflows), K5
+               (dual-context cross-attention), K1 with its LSE output and
+               the K4 backward (K4a dK/dV, K4b dQ) against their plain
+               PyTorch versions at the main-path shapes and on small ragged
+               cases, with times, the least time the card could take (bound)
+               and, where one PyTorch call computes the same function, that
+               call's time;
 3. reference -- the fast-path DiT (2 blocks, full width) on a small window:
                the card's output against the CPU's (plain versions);
 4. train reference -- one train step of the bf16 DiT (2 blocks, full width)
@@ -26,16 +29,26 @@ exits non-zero):
                the K2/K5 launch counts;
 6. bf16     -- one dit_forward window on unprepared bf16 params
                (attn_quant="none"): 90 K1 launches;
-7. train    -- the port's train() for 3 steps at the full width of WAN_1_3B,
+7. cli      -- the inference CLI's path: real flags through `build_parser`
+               (--fast_path linears, DPM++ order 2, TeaCache), `load_models`
+               with umT5-xxl at full width on the card (prompts encoded,
+               then T5 released), and the CLI's own `run_generation` at
+               512x512 over 2 windows with the static-bound softmax on
+               (K3): the text context, the video, the TeaCache skips and the
+               exact K3 / K5 launch counts (file I/O left out);
+8. int8 variants -- generate_long with attn_quant="qkpv" and UniPC (K2v-qkpv,
+               120 launches), and one dit_forward window each with "qkv" (K2v)
+               and "qkv" + the static bound (K3), each against the same run on
+               K1;
+9. train    -- the port's train() for 3 steps at the full width of WAN_1_3B,
                512x512, 81 frames, batch 1, remat, AdamW (the train CLI's
                defaults), one step in clip-level mode; checks finite losses,
                changed parameters, a checkpoint written and resumed at step
                3, and the exact K1-LSE / K4a / K4b launch counts.
 
-Phases 5-6 (inference) and 7 (training) are the two main paths: the launch
-counts are set to 0 just before each and read just after.  The line before
-the last is a JSON object with one entry per kernel; the last line is
-{"ok": true, "device": {...}}.
+Phases 5-6, 7, 8 and 9 drive the paths: the launch counts are set to 0 just
+before each and read just after.  The line before the last is a JSON object
+with one entry per kernel; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -75,8 +88,18 @@ KERNEL_SOURCES = {
                        "stableavatar_tpu/ops/flash_attention.py:905"),
     "flash_bwd_dq": ("stableavatar_tpu_torch/csrc/flash_attention_bwd.cu",
                      "stableavatar_tpu/ops/flash_attention.py:941"),
+    "flash_fwd_int8_qkv": ("stableavatar_tpu_torch/csrc/flash_attention.cu",
+                           "stableavatar_tpu/ops/flash_attention.py:382"),
+    "flash_fwd_int8_qkpv": ("stableavatar_tpu_torch/csrc/flash_attention.cu",
+                            "stableavatar_tpu/ops/flash_attention.py:369"),
+    "flash_fwd_int8_static_qk": ("stableavatar_tpu_torch/csrc/flash_attention.cu",
+                                 "stableavatar_tpu/ops/flash_attention.py:416"),
+    "flash_fwd_int8_static_qkv": ("stableavatar_tpu_torch/csrc/flash_attention.cu",
+                                  "stableavatar_tpu/ops/flash_attention.py:416"),
 }
 INFERENCE_KERNELS = ("flash_fwd_bf16", "flash_fwd_int8_qk", "dual_context")
+CLI_KERNELS = ("flash_fwd_int8_static_qk",)
+VARIANT_KERNELS = ("flash_fwd_int8_qkv", "flash_fwd_int8_qkpv", "flash_fwd_int8_static_qkv")
 TRAIN_KERNELS = ("flash_fwd_bf16_lse", "flash_bwd_dkdv", "flash_bwd_dq")
 
 
@@ -179,7 +202,7 @@ def phase_kernels(results):
             entry["ms"], entry["plain_ms"] = ms, plain_ms
             entry["bound_ms"], entry["bound_by"] = bound
             entry["library_ms"] = library_ms
-            lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
+            lib = ", library —" if library_ms is None else f", library {library_ms:.3f} ms"
             log(f"  {name} {shape_tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
                 f"bound {bound[0]:.3f} ms ({bound[1]}){lib}")
 
@@ -210,6 +233,7 @@ def phase_kernels(results):
            time_ms(lambda: fa._flash_int8_plain(q8, k8, v, sqk), 3),
            # int8 Q.K^T, bf16 P.V; q8/k8 1 byte, v/out 2 bytes
            bound_ms(fwd_ops / 2, b * l * n * d * (1 + 1 + 2 + 2.0), ops_int8=fwd_ops / 2))
+    phase_kernels_int8(record, q8, k8, v, sqk, (b, l, n, d), fwd_ops)
     del q8, k8, got, want
 
     got = fa._flash_fwd_cuda(q, k, v, None, scale)
@@ -250,6 +274,10 @@ def phase_kernels(results):
         record("flash_fwd_bf16", tag, compare(
             f"flash_fwd_bf16 {tag}", fa._flash_fwd_cuda(q, k, v, k_lens, scale),
             fa._flash_fwd_plain(q, k, v, k_lens, scale)), None, None)
+        v8, sv = fa.quantize_v(v)
+        for name, quant, static in INT8_VARIANTS:
+            err = check_int8(name, quant, static, q8, k8, v, v8, sv, sqk, k_lens, tag)[0]
+            record(name, tag, err, None, None)
         k1, v1 = (_rand(gen, (b, 77, n, d), bf16) for _ in range(2))
         k2, v2 = (_rand(gen, (b, 33, n, d), bf16) for _ in range(2))
         record("dual_context", tag, compare(
@@ -258,8 +286,92 @@ def phase_kernels(results):
     torch.cuda.synchronize()
 
 
+# the new int8 kernels: (launch-count name, quant, static bound)
+INT8_VARIANTS = (("flash_fwd_int8_qkv", "qkv", False), ("flash_fwd_int8_qkpv", "qkpv", False),
+                 ("flash_fwd_int8_static_qk", "qk", True),
+                 ("flash_fwd_int8_static_qkv", "qkv", True))
+
+
+def int8_plain(q8, k8, v, sqk, k_lens, quant, sv, static):
+    """The plain version of one int8 kernel on the same prepared operands:
+    K2v-qkpv at the kernel's key tile of 64 (its result depends on the
+    tile), K3 at the kernel's query block of 64 with its LSE."""
+    import torch
+
+    from stableavatar_tpu_torch.ops import flash_attention as fa
+
+    if static:
+        return fa._flash_int8_static_plain(q8, k8, v, sqk, k_lens, quant=quant, sv=sv,
+                                           out_dtype=torch.bfloat16, with_lse=True)
+    return fa._flash_int8_plain(q8, k8, v, sqk, k_lens, quant=quant, sv=sv, block_k=64,
+                                out_dtype=torch.bfloat16)
+
+
+def check_int8(name, quant, static, q8, k8, v, v8, sv, sqk, k_lens, tag):
+    """One K2v / K3 kernel against its plain version on the same prepared
+    operands, K3 on its LSE too.  Returns (max-abs error, the V operand,
+    K3's bound and LSE, or None)."""
+    from stableavatar_tpu_torch.ops import flash_attention as fa
+
+    vin = v if quant == "qk" else v8
+    mstat = fa.static_bound(q8, k8, sqk) if static else None
+    got = fa._flash_int8_cuda(q8, k8, vin, sqk, k_lens, quant=quant, sv=sv, mstat=mstat,
+                              with_lse=static)
+    want = int8_plain(q8, k8, vin, sqk, k_lens, quant, sv, static)
+    lse = None
+    if static:
+        (got, lse), (want, want_lse) = got, want
+    err = compare(f"{name} {tag}", got, want)
+    if static:
+        err = max(err, compare_lse(f"{name} {tag}", lse, want_lse))
+    return err, vin, mstat, lse
+
+
+def phase_kernels_int8(record, q8, k8, v, sqk, shape, fwd_ops):
+    """K2v and K3 at the DiT self-attention shape on K2's roped operands:
+    each against its plain version, timed on prepared operands (as K2 is),
+    with its bound; K3's LSE and the rows whose whole sum underflows its
+    static bound (l clamped to 1e-30); the plain-torch preps timed apart."""
+    import math
+
+    import torch
+
+    from stableavatar_tpu_torch.ops import flash_attention as fa
+
+    b, l, n, d = shape
+    v8, sv = fa.quantize_v(v)
+    tag = f"[{b},{l},{n},{d}] rope"
+    log(f"  prep {tag}, plain torch, not in the kernels' ms: static_bound (K3) "
+        f"{time_ms(lambda: fa.static_bound(q8, k8, sqk), 5):.3f} ms, quantize_v (K2v) "
+        f"{time_ms(lambda: fa.quantize_v(v), 5):.3f} ms")
+    for name, quant, static in INT8_VARIANTS:
+        err, vin, mstat, lse = check_int8(name, quant, static, q8, k8, v, v8, sv, sqk, None, tag)
+        if static:
+            # rows whose sum l underflowed: log(l) = lse - M ln 2 at log(1e-30)
+            m = mstat.reshape(b, n, -1).repeat_interleave(fa.KERNEL_BLOCK_Q, dim=2)[:, :, :l]
+            log_l = lse - m * fa.LN2
+            under = int((log_l <= math.log(1e-30) + 1e-3).sum())
+            log(f"  {name} {tag}: {under} of {b * n * l} rows underflow the static bound "
+                f"(l clamped to 1e-30); least log(l) {float(log_l.min()):.3f}, median "
+                f"{float(log_l.median()):.3f}")
+            del m, log_l
+        # Q.K^T on the s8 tensor cores; P.V in bf16, or s8 for qkpv.  Bytes:
+        # q8, k8 and int8 v one byte each (bf16 v two), bf16 out two; K3's
+        # bound is a few KB
+        vbytes = 2.0 if quant == "qk" else 1.0
+        ops_int8 = fwd_ops if quant == "qkpv" else fwd_ops / 2
+        record(name, "main", err,
+               time_ms(lambda: fa._flash_int8_cuda(q8, k8, vin, sqk, None, quant=quant, sv=sv,
+                                                   mstat=mstat), 5),
+               time_ms(lambda: int8_plain(q8, k8, vin, sqk, None, quant, sv, static), 3),
+               bound_ms(fwd_ops - ops_int8, b * l * n * d * (1 + 1 + vbytes + 2.0),
+                        ops_int8=ops_int8))
+    torch.cuda.synchronize()
+
+
 def compare_lse(name: str, got, want) -> float:
-    """Raise unless K1's LSE is finite and within LSE_TOL of the plain one."""
+    """Raise unless an LSE (K1's or K3's) is finite and within LSE_TOL of
+    the plain one."""
     import torch
 
     if not torch.isfinite(got).all():
@@ -574,6 +686,167 @@ def phase_bf16(dit_params, cfg):
         raise AssertionError("bf16 dit_forward output has the wrong shape or non-finite values")
 
 
+# the CLI's flags in the cli phase: --sample_steps 5 because the TeaCache
+# counter advances once per window call and wraps every 5 calls, so with 2
+# windows steps 1 and 3 pair two skippable calls (with 3 or 4 steps every
+# step pairs one with a forced compute and nothing can be skipped); the
+# rescaled distance never exceeds 0.254, so a threshold of 0.3 skips both
+CLI_ARGV = ["--fast_path", "linears", "--sample_solver", "dpm++", "--solver_order", "2",
+            "--enable_teacache", "--num_skip_start_steps", "1", "--teacache_threshold", "0.3",
+            "--sample_steps", "5", "--validation_prompts", "A person is talking to the camera",
+            "--negative_prompts", "blurry, distorted"]
+
+
+def phase_cli(reset_counts, counts):
+    """The inference CLI's path at 1.3B / 512x512 over 2 windows: flags
+    through build_parser, load_models (umT5-xxl encodes on the card, then is
+    released), the CLI's run_generation with K3 on (STATIC_MAX).  Returns
+    its launch counts; the models are released afterwards."""
+    import numpy as np
+    import torch
+
+    from stableavatar_tpu_torch.cli.inference import build_parser, load_models, run_generation
+    from stableavatar_tpu_torch.ops import flash_attention as fa
+    from stableavatar_tpu_torch.pipelines import long as long_mod
+    from stableavatar_tpu_torch.utils.profiling import StepTimer
+
+    args = build_parser().parse_args(CLI_ARGV)
+    timer = StepTimer("cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    models = load_models(args, "cuda", timer=timer)
+    torch.cuda.synchronize()
+    log(f"  load_models: {time.perf_counter() - t0:.2f} s; device memory above the resident "
+        f"models: peak {(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB (umT5-xxl "
+        f"loaded), after T5's release {(torch.cuda.memory_allocated() - base) / 2**30:.2f} GiB")
+    ctx, t5_cfg = models.text_ctx, models.t5_cfg
+    want_ctx = (3, t5_cfg.text_len, t5_cfg.dim)  # [3, 512, 4096] for umT5-xxl
+    if models.t5_params is not None or ctx is None or tuple(ctx.shape) != want_ctx \
+            or not torch.isfinite(ctx).all():
+        raise AssertionError(f"text context {None if ctx is None else tuple(ctx.shape)} is not "
+                             f"a finite {want_ctx} with T5 released")
+    log(f"  text_ctx {tuple(ctx.shape)} {ctx.dtype}, rms {float(ctx.float().square().mean().sqrt()):.4f}")
+
+    inputs = pipeline_inputs(models)
+    skips = [0]
+    skip_fn = long_mod.dit_forward_skip
+
+    def counted_skip(*a, **k):
+        skips[0] += 1
+        return skip_fn(*a, **k)
+
+    fa.STATIC_MAX, long_mod.dit_forward_skip = True, counted_skip
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = run_generation(args, models, inputs["ref_image"], inputs["vocal_waveform"], ctx,
+                             timer=timer)
+        torch.cuda.synchronize()
+        launches = counts()
+    finally:
+        fa.STATIC_MAX, long_mod.dit_forward_skip = False, skip_fn
+    wall = time.perf_counter() - t0
+    for name, st in timer.summary().items():
+        log(f"  phase {name}: {st['total_s']:.3f} s over {st['count']}")
+    tc = models.teacache
+    n_calls = args.sample_steps * N_WINDOWS
+    computed = n_calls - tc.skipped_calls
+    log(f"  run_generation {wall:.2f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; TeaCache skipped "
+        f"{tc.skipped_calls} of {n_calls} window calls (dit_forward_skip ran {skips[0]} times); "
+        f"launches {launches}")
+    video, want_shape = out.videos, (1, 3, 105, *inputs["ref_image"].shape[-2:])
+    if video.shape != want_shape or not (
+            np.isfinite(video).all() and video.min() >= 0.0 and video.max() <= 1.0):
+        raise AssertionError(f"video {video.shape} is not finite [0, 1] of {want_shape}")
+    if tc.skipped_calls < 1 or skips[0] != tc.skipped_calls:
+        raise AssertionError(f"TeaCache skipped {tc.skipped_calls}, skip path ran {skips[0]}")
+    layers = models.dit_cfg.num_layers
+    want = {"flash_fwd_int8_static_qk": layers * computed, "dual_context": layers * computed,
+            "flash_fwd_int8_qk": 0}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"cli launch counts {launches} != {want}")
+    del models, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_variants(models, reset_counts, counts):
+    """K2v-qkpv through generate_long (UniPC, 2 windows x 2 steps), and K2v-qkv
+    and K3-qkv through one dit_forward window each; every output against
+    the same run on K1 (attn_quant="none" on the same parameters).  The
+    counts are set to 0 just before each of the three runs and read just
+    after it; returns each run's count of its own kernel."""
+    import dataclasses
+
+    import torch
+
+    from stableavatar_tpu_torch.models.dit import dit_forward
+    from stableavatar_tpu_torch.ops import flash_attention as fa
+    from stableavatar_tpu_torch.pipelines.long import generate_long
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a.float() - b.float())
+                     / torch.linalg.vector_norm(b.float()))
+
+    kw = dict(num_inference_steps=2, scheduler="unipc", output_type="latent",
+              **pipeline_inputs(models))
+    reset_counts()
+    t0 = time.perf_counter()
+    qkpv = generate_long(dataclasses.replace(models, attn_quant="qkpv"), **kw)
+    torch.cuda.synchronize()
+    launches = counts()
+    log(f"  generate_long qkpv, UniPC, 2 windows x 2 steps: {time.perf_counter() - t0:.2f} s, "
+        f"launches {launches}")
+    ref = generate_long(dataclasses.replace(models, attn_quant="none"), **kw)
+    if not torch.isfinite(qkpv.latents).all():
+        raise AssertionError("qkpv latents are not finite")
+    log(f"  qkpv latents against the same run on K1: rel_l2 {rel(qkpv.latents, ref.latents):.4e}")
+    want = models.dit_cfg.num_layers * 2 * N_WINDOWS
+    if launches["flash_fwd_int8_qkpv"] != want:
+        raise AssertionError(f"expected {want} K2v-qkpv launches, got {launches}")
+
+    cfg = models.dit_cfg
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((3, cfg.out_dim, 21, 64, 64), generator=gen, device="cuda").bfloat16()
+    y = torch.randn((3, cfg.in_dim - cfg.out_dim, 21, 64, 64), generator=gen,
+                    device="cuda").bfloat16()
+    text = torch.randn((3, cfg.text_len, cfg.text_dim), generator=gen, device="cuda").bfloat16()
+    clip = torch.randn((3, cfg.clip_tokens, cfg.clip_dim), generator=gen, device="cuda").bfloat16()
+    voc = torch.randn((1, 161, cfg.audio_in_dim), generator=gen, device="cuda")
+    t = torch.full((3,), 700.0, device="cuda")
+
+    def window(quant, static):
+        fa.STATIC_MAX = static
+        try:
+            with torch.no_grad():
+                return dit_forward(models.dit_params, cfg, x, t, text, clip, y, voc,
+                                   video_sample_n_frames=81, vocal_cfg_tile=True,
+                                   rope_split=True, attn_quant=quant)
+        finally:
+            fa.STATIC_MAX = False
+
+    outs = {}
+    for name, other, static in (("flash_fwd_int8_qkv", "flash_fwd_int8_static_qkv", False),
+                                ("flash_fwd_int8_static_qkv", "flash_fwd_int8_qkv", True)):
+        reset_counts()
+        out = window("qkv", static)
+        torch.cuda.synchronize()
+        c = counts()
+        if c[name] != cfg.num_layers or c[other] != 0 or not torch.isfinite(out).all():
+            raise AssertionError(f"{name} window: launches {c} (want {cfg.num_layers} of "
+                                 f"{name}, 0 of {other}) or non-finite output")
+        launches[name], outs[name] = c[name], out
+    k1 = window("none", False)
+    for name, out in outs.items():
+        log(f"  dit_forward window {name}: {launches[name]} launches; against the same window "
+            f"on K1: rel_l2 {rel(out, k1):.4e}")
+    return launches
+
+
 # host-draw seed of train(): with batch 1 its third step takes the
 # clip-level branch (encode_batch's draws from numpy's default_rng)
 TRAIN_SEED, TRAIN_STEPS = 6, 3
@@ -767,11 +1040,23 @@ def main() -> int:
     if k1 != 3 * layers:
         raise AssertionError(f"expected {3 * layers} K1 launches (1 self + 2 cross per layer), got {k1}")
 
-    # main path 2, training: counts set to 0 inside, just before train()
+    # main path 2, the inference CLI: counts set to 0 inside, just before
+    # run_generation
+    log("== main path: the inference CLI, --fast_path linears, DPM++ 2, TeaCache, K3, "
+        "umT5-xxl, 1.3B, 512x512, 2 windows, 5 steps")
+    cli = phase_cli(reset_counts, counts)
+
+    # path 3, the int8 variants: counts set to 0 inside, just before each run
+    log("== int8 variants: qkpv generate_long (UniPC), qkv and static qkv dit_forward windows")
+    variants = phase_variants(models, reset_counts, counts)
+
+    # main path 4, training: counts set to 0 inside, just before train()
     log(f"== main path: train(), 1.3B, 512x512, 81 frames, batch 1, remat, AdamW, "
         f"{TRAIN_STEPS} steps")
     training, _ = phase_train(models, dit_bf16, reset_counts, counts)
     launches = {**{k: inference[k] for k in INFERENCE_KERNELS},
+                **{k: cli[k] for k in CLI_KERNELS},
+                **{k: variants[k] for k in VARIANT_KERNELS},
                 **{k: training[k] for k in TRAIN_KERNELS}}
     idle = [k for k, n in launches.items() if n == 0]
     if idle:

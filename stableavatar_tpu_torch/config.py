@@ -1,8 +1,8 @@
 """Model configurations of the port.
 
 Field-for-field copies of the frozen dataclasses in
-`stableavatar_tpu/config.py` (the DiT, VAE, CLIP and wav2vec2 configs and
-`WAN_1_3B`), kept here so that the port, and a run of it on the card, loads
+`stableavatar_tpu/config.py` (the DiT, VAE, umT5, CLIP and wav2vec2
+configs, `WAN_1_3B`, `WAN_14B` and `tiny_debug_configs`), kept here so that the port, and a run of it on the card, loads
 nothing of the JAX package.  `tests/test_torch_package.py` holds the two
 definitions equal field by field.  The port's functions read configs by
 attribute only, so the JAX package's config objects work there too (the
@@ -52,6 +52,17 @@ class DiTConfig:
 
 WAN_1_3B = DiTConfig()
 
+# 14B: dim 5120 / ffn 13824 / 40 heads / 40 layers, two-stage 768 -> 2048 ->
+# 5120 vocal projection
+WAN_14B = DiTConfig(
+    dim=5120,
+    ffn_dim=13824,
+    num_heads=40,
+    num_layers=40,
+    audio_proj_dim=5120,
+    audio_proj_hidden=2048,
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class VAEConfig:
@@ -73,6 +84,23 @@ class VAEConfig:
         2.8184, 1.4541, 2.3275, 2.6558, 1.2196, 1.7708, 2.6052, 2.0743,
         3.2687, 2.1526, 2.8652, 1.5579, 1.6382, 1.1253, 2.8251, 1.9160,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class T5Config:
+    """umT5-xxl encoder."""
+
+    vocab: int = 256384
+    dim: int = 4096
+    dim_attn: int = 4096
+    dim_ffn: int = 10240
+    num_heads: int = 64
+    num_layers: int = 24
+    num_buckets: int = 32
+    shared_pos: bool = False
+    text_len: int = 512
+    eps: float = 1e-6
+    max_dist: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,3 +148,31 @@ class Wav2Vec2Config:
         for k, s in zip(self.conv_kernels, self.conv_strides):
             n = (n - k) // s + 1
         return n
+
+
+def tiny_debug_configs():
+    """Miniature (DiT, VAE, T5, CLIP, wav2vec2) configs for checkpoint-free
+    smoke runs (`STABLEAVATAR_TINY=1` in the inference CLI): a few layers of
+    width ~32 each, random weights, plumbing only."""
+    dit = DiTConfig(
+        dim=32, ffn_dim=64, freq_dim=16, text_dim=32,
+        in_dim=12,  # z(4) + mask(4) + masked latents(4)
+        out_dim=4, num_heads=4, num_layers=2, text_len=16,
+        clip_tokens=5, clip_dim=32, audio_in_dim=16, audio_proj_dim=32,
+        vocal_num_heads=4,
+    )
+    vae = VAEConfig(
+        dim=4, z_dim=4, dim_mult=(1, 2, 2), num_res_blocks=1,
+        temporal_downsample=(True, True), temporal_compression_ratio=4,
+        spatial_compression_ratio=4,
+        latent_mean=(0.0,) * 4, latent_std=(1.0,) * 4,
+    )
+    t5 = T5Config(vocab=64, dim=32, dim_attn=32, dim_ffn=64, num_heads=4,
+                  num_layers=2, text_len=16)
+    clip = CLIPConfig(image_size=28, patch_size=14, vision_dim=32,
+                      vision_heads=2, vision_layers=2)
+    w2v = Wav2Vec2Config(hidden_size=16, num_layers=2, num_heads=2,
+                         ffn_dim=32, conv_dims=(8,) * 7,
+                         num_conv_pos_embeddings=16,
+                         num_conv_pos_embedding_groups=4)
+    return dit, vae, t5, clip, w2v

@@ -292,7 +292,7 @@ def dit_forward(params, cfg, x, t, text_embeds, clip_fea, y, vocal_embeddings,
                 video_sample_n_frames: int = 81, vocal_cfg_tile: bool = False,
                 is_clip_level_modeling: bool = False, freqs: Optional[RopeFreqs] = None,
                 remat: bool = False, rope_split: bool = False, attn_quant: str = "none",
-                honor_vocal_k_lens: bool = True):
+                honor_vocal_k_lens: bool = True, return_residual: bool = False):
     """One denoise evaluation; returns the velocity [B, 16, F, H, W] in fp32.
 
     x [B, 16, F, H, W], t [B], text_embeds [B, text_len, text_dim], clip_fea
@@ -302,11 +302,13 @@ def dit_forward(params, cfg, x, t, text_embeds, clip_fea, y, vocal_embeddings,
     backward (`torch.utils.checkpoint`, the JAX package's `jax.checkpoint`
     around the scanned block): only the block inputs stay alive.
     `rope_split` needs params from `utils/fastpath.py:prepare_fast_params`;
-    `attn_quant` in {"none", "qk"} picks the self-attention kernel (K1 / K2),
-    and the fused cross-attention kernel K5 is on exactly when it is not
-    "none" (the JAX package's `fuse_cross_attn` auto rule).
+    `attn_quant` in {"none", "qk", "qkv", "qkpv"} picks the self-attention
+    kernel (K1, or K2 / K2v / K3 by `ops/flash_attention.py:STATIC_MAX`), and
+    the fused cross-attention kernel K5 is on exactly when it is not "none"
+    (the JAX package's `fuse_cross_attn` auto rule).
     `honor_vocal_k_lens=False` drops the vocal padding masks like the
-    reference's SDPA deployment.
+    reference's SDPA deployment.  `return_residual` also returns the block
+    stack's delta [B, L, dim] (TeaCache's cached residual).
     """
     (tokens, e, e0, context_text, context_img, vocal_context, vocal_k_lens, freqs,
      rope_packed, grid, latents_num_frames) = dit_prologue(
@@ -315,6 +317,7 @@ def dit_forward(params, cfg, x, t, text_embeds, clip_fea, y, vocal_embeddings,
         is_clip_level_modeling=is_clip_level_modeling, freqs=freqs,
         rope_split=rope_split, honor_vocal_k_lens=honor_vocal_k_lens)
 
+    tokens_in = tokens
     for bp in params["blocks"]:
         block = functools.partial(
             apply_block, bp, e0=e0, context_text=context_text, context_img=context_img,
@@ -322,7 +325,10 @@ def dit_forward(params, cfg, x, t, text_embeds, clip_fea, y, vocal_embeddings,
             latents_num_frames=latents_num_frames, rope_packed=rope_packed,
             attn_quant=attn_quant, fuse_cross=attn_quant != "none")
         tokens = checkpoint(block, tokens, use_reentrant=False) if remat else block(tokens)
-    return _apply_head(params, cfg, tokens, e, grid)
+    out = _apply_head(params, cfg, tokens, e, grid)
+    if return_residual:
+        return out, tokens - tokens_in
+    return out
 
 
 def _apply_head(params, cfg, tokens, e, grid):
@@ -332,3 +338,21 @@ def _apply_head(params, cfg, tokens, e, grid):
     h0, h1 = hm[:, 0:1], hm[:, 1:2]
     out = apply_linear(hp["head"], layer_norm(tokens, eps=cfg.eps) * (1 + h1) + h0)
     return unpatchify(out.float(), grid, cfg.patch_size, cfg.out_dim)
+
+
+def dit_time_e0(params, cfg, t: torch.Tensor, dtype=torch.bfloat16):
+    """The modulated time embedding e0 [B, 6, dim]: TeaCache's input."""
+    return time_embeddings(params, cfg, t, dtype)[1]
+
+
+def dit_forward_skip(params, cfg, x, t, y, residual):
+    """TeaCache's skip path: patch embedding + the cached block-stack
+    residual [B, L, dim] + head, no blocks."""
+    b, _, f, h, w = x.shape
+    pt, ph, pw = cfg.patch_size
+    grid = (f // pt, h // ph, w // pw)
+    xin = torch.cat([x, y.to(x.dtype)], dim=1)
+    tokens = apply_linear(params["patch_embedding"], patchify(xin, cfg.patch_size))
+    e, _ = time_embeddings(params, cfg, t, x.dtype)
+    tokens = tokens + residual.to(tokens.dtype)
+    return _apply_head(params, cfg, tokens, e, grid)

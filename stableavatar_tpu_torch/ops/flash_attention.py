@@ -1,12 +1,13 @@
 """Flash attention: kernels K1 (bf16 forward, optional LSE), K2 (int8 Q.K^T
-forward) and K4 (the bf16 backward).
+forward), K2v (K2 with int8 V: "qkv", "qkpv"), K3 (K2 / K2v-qkv with the
+static-bound softmax) and K4 (the bf16 backward).
 
 Port of `stableavatar_tpu/ops/flash_attention.py`.  On a CUDA tensor
 `flash_attention` launches a hand-written Hopper kernel
 (`csrc/flash_attention.cu`, `csrc/flash_attention_bwd.cu`); on a CPU tensor
 it runs the plain PyTorch version beside it (`_flash_fwd_plain`,
-`_flash_int8_plain`, `_flash_bwd_plain`).  There is no other path: a CUDA
-call that the kernels do not take raises.
+`_flash_int8_plain`, `_flash_int8_static_plain`, `_flash_bwd_plain`).
+There is no other path: a CUDA call that the kernels do not take raises.
 
 The bf16 path is differentiable like the JAX package's custom-VJP `_flash`:
 with grad enabled and an input that requires grad, the forward launches K1
@@ -21,6 +22,11 @@ the row sum is guarded with max(l, 1e-30).  For `quant != "none"` q and k
 are roped (split-pair layout) in fp32 and quantised to int8 with ONE absmax
 scale per (batch, head) over the whole sequence (`_quant_slab`), and the
 kernel multiplies the int32 logits by sqk = sq * sk * scale * log2(e).
+"qkv" / "qkpv" also quantise V per channel (`quantize_v`); the output keeps
+the unquantised V's dtype.  `STATIC_MAX` (env `STABLEAVATAR_STATIC_MAX=1`,
+read at import as in the JAX package) or `static_max=True` replaces the
+online max of "qk" / "qkv" by K3's precomputed bound (`static_bound`);
+"qkpv" ignores it.
 
 The plain versions reproduce the kernels' arithmetic exactly where it is
 exact (int8 products are integers, exact in fp32 up to 2^24; bf16 products
@@ -31,6 +37,7 @@ ever materialised (66 GB at the 21,504-token DiT window).
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -42,10 +49,19 @@ NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 
+# K3 for every int8 self-attention but "qkpv" (off by default, as in the
+# JAX package)
+STATIC_MAX = os.environ.get("STABLEAVATAR_STATIC_MAX", "0") == "1"
+
 # kernel launches, counted where each wrapper launches its kernel; K1 with
 # and without its LSE output count apart
 launch_counts = {"flash_fwd_bf16": 0, "flash_fwd_bf16_lse": 0, "flash_fwd_int8_qk": 0,
+                 "flash_fwd_int8_qkv": 0, "flash_fwd_int8_qkpv": 0,
+                 "flash_fwd_int8_static_qk": 0, "flash_fwd_int8_static_qkv": 0,
                  "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+
+# query rows per thread block of the CUDA kernels: K3's bound is per block
+KERNEL_BLOCK_Q = 64
 
 # bytes of fp32 logits one plain-version chunk may hold
 _PLAIN_CHUNK_BYTES = 1 << 30
@@ -211,6 +227,60 @@ def _flash_int8_plain(q8, k8, v, sqk, k_lens=None, quant: str = "qk", sv=None,
     return out.to(out_dtype).permute(0, 2, 1, 3)
 
 
+def static_bound(q8, k8, sqk, block_q: int = KERNEL_BLOCK_Q):
+    """K3's prep (plain torch, as it was XLA on the TPU): the Cauchy-Schwarz
+    bound of the base-2 logits per (slab, query block), sqk * max_rows |q8|
+    * max_cols |k8| -> [B*N, ceil(Lq / block_q)] fp32.  The key maximum runs
+    over all key rows, masked ones included, as in the JAX package."""
+    b, lq, n, d = q8.shape
+    nq = -(-lq // block_q)
+    qf, kf = q8.float(), k8.float()
+    qn = torch.sqrt((qf * qf).sum(-1)).permute(0, 2, 1).reshape(b * n, lq)
+    qn = torch.nn.functional.pad(qn, (0, nq * block_q - lq))  # zero rows: norm 0
+    qn_blk = qn.reshape(b * n, nq, block_q).amax(-1)
+    kn = torch.sqrt((kf * kf).sum(-1)).amax(1).reshape(b * n)
+    return sqk[:, None] * qn_blk * kn[:, None]
+
+
+def _flash_int8_static_plain(q8, k8, v, sqk, k_lens=None, quant: str = "qk", sv=None,
+                             block_q: int = KERNEL_BLOCK_Q, out_dtype=None,
+                             with_lse: bool = False):
+    """Plain K3: the static-bound softmax on prepared int8 operands, "qk" (v
+    in the output dtype) or "qkv" (v int8 with scales `sv`).  p = exp2(s -
+    M) with M the bound of the row's query block of `block_q` rows (the
+    kernel's 64; the JAX package's default is 1536: the result is the same
+    up to underflow); l and P.V are plain sums.  With `with_lse` also
+    returns the natural-log LSE [B, N, Lq], M * ln2 + log(max(l, 1e-30))."""
+    b, lq, n, d = q8.shape
+    lk = k8.shape[1]
+    out_dtype = v.dtype if out_dtype is None else out_dtype
+    mstat = static_bound(q8, k8, sqk, block_q).reshape(b, n, -1)
+    m = mstat.repeat_interleave(block_q, dim=2)[:, :, :lq, None]  # [B, N, Lq, 1]
+    qf = q8.permute(0, 2, 1, 3).float()
+    kf = k8.permute(0, 2, 1, 3).float()
+    vf = v.permute(0, 2, 1, 3).float()
+    sqk4 = sqk.reshape(b, n, 1, 1)
+    klens = (torch.full((b,), lk, device=q8.device) if k_lens is None
+             else k_lens.to(device=q8.device, dtype=torch.int64))
+    valid = (torch.arange(lk, device=q8.device)[None, :] < klens[:, None])[:, None, None, :]
+    p_dtype = torch.bfloat16 if quant == "qkv" else v.dtype
+    out = torch.empty((b, n, lq, d), device=q8.device)
+    lse = torch.empty((b, n, lq), device=q8.device) if with_lse else None
+    qc = max(1, _PLAIN_CHUNK_BYTES // (4 * b * n * lk))
+    for q0 in range(0, lq, qc):
+        q1 = min(lq, q0 + qc)
+        s = (qf[:, :, q0:q1] @ kf.transpose(-1, -2)) * sqk4
+        p = torch.exp2(torch.where(valid, s, NEG_INF) - m[:, :, q0:q1])
+        l = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+        out[:, :, q0:q1] = (p.to(p_dtype).float() @ vf) / l
+        if with_lse:
+            lse[:, :, q0:q1] = (m[:, :, q0:q1] * LN2 + torch.log(l))[..., 0]
+    if quant == "qkv":
+        out = out * sv.permute(0, 2, 1, 3)
+    out = out.to(out_dtype).permute(0, 2, 1, 3)
+    return (out, lse) if with_lse else out
+
+
 def prepare_int8(q, k, rope, scale):
     """K2 prep (plain torch ops, as they were XLA ops on the TPU): split rope
     in fp32, one absmax int8 scale per (batch, head), and
@@ -242,7 +312,7 @@ def _check(name, t, dtype, shape=None):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
-def _check_cuda_common(q, k, v, k_lens):
+def _check_cuda_common(q, k, v, k_lens, v_dtype=torch.bfloat16):
     b, _, n, d = q.shape
     lk = k.shape[1]
     if d not in (64, 128):
@@ -250,7 +320,7 @@ def _check_cuda_common(q, k, v, k_lens):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    _check("v", v, torch.bfloat16, (b, lk, n, d))
+    _check("v", v, v_dtype, (b, lk, n, d))
     if k_lens is not None:
         _check("k_lens", k_lens, torch.int32, (b,))
         if k_lens.device != q.device:
@@ -327,21 +397,39 @@ class _Flash(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def _flash_int8_cuda(q8, k8, v, sqk, k_lens):
+def _flash_int8_cuda(q8, k8, v, sqk, k_lens, quant: str = "qk", sv=None,
+                     mstat=None, with_lse: bool = False):
+    """K2 ("qk"), K2v ("qkv", "qkpv") or, given K3's bound `mstat` (the
+    prep's `static_bound`), K3 ("qk" / "qkv") on prepared operands: v bf16
+    for "qk", int8 with scales sv [B, 1, N, D] otherwise.  Returns bf16 out,
+    and with `with_lse` (K3 only) the LSE [B, N, Lq] fp32."""
     b, lq, n, d = q8.shape
     lk = k8.shape[1]
+    static = mstat is not None
+    if (static and quant == "qkpv") or (with_lse and not static):
+        raise ValueError(f"no int8 kernel for quant={quant!r}, static={static}, "
+                         f"with_lse={with_lse} (K2-LSE: ROADMAP queue 2)")
     _check("q8", q8, torch.int8)
     _check("k8", k8, torch.int8, (b, lk, n, d))
     _check("sqk", sqk, torch.float32, (b * n,))
-    _check_cuda_common(q8, k8, v, k_lens)
+    _check_cuda_common(q8, k8, v, k_lens, torch.bfloat16 if quant == "qk" else torch.int8)
+    ptrs = [q8.data_ptr(), k8.data_ptr(), v.data_ptr()]
+    if quant != "qk":
+        _check("sv", sv, torch.float32, (b, 1, n, d))
+        ptrs.append(sv.data_ptr())
+    ptrs.append(sqk.data_ptr())
+    if static:
+        _check("mstat", mstat, torch.float32, (b * n, -(-lq // KERNEL_BLOCK_Q)))
+        ptrs.append(mstat.data_ptr())
     out = torch.empty(q8.shape, dtype=torch.bfloat16, device=q8.device)
-    cuda_lib.launch(
-        "sa_flash_fwd_int8_qk", q8.data_ptr(), k8.data_ptr(), v.data_ptr(),
-        sqk.data_ptr(), None if k_lens is None else k_lens.data_ptr(),
-        out.data_ptr(), b, lq, lk, n, d,
-    )
-    launch_counts["flash_fwd_int8_qk"] += 1
-    return out
+    lse = torch.empty((b, n, lq), dtype=torch.float32, device=q8.device) if with_lse else None
+    ptrs += [None if k_lens is None else k_lens.data_ptr(), out.data_ptr()]
+    if static:
+        ptrs.append(None if lse is None else lse.data_ptr())
+    name = f"flash_fwd_int8_{'static_' if static else ''}{quant}"
+    cuda_lib.launch(f"sa_{name}", *ptrs, b, lq, lk, n, d)
+    launch_counts[name] += 1
+    return (out, lse) if with_lse else out
 
 
 def flash_attention(
@@ -353,14 +441,15 @@ def flash_attention(
     scale: Optional[float] = None,
     rope: Optional[torch.Tensor] = None,
     quant: str = "none",
+    static_max: Optional[bool] = None,
 ) -> torch.Tensor:
-    """q [B, Lq, N, D], k/v [B, Lk, N, D] -> [B, Lq, N, D].
+    """q [B, Lq, N, D], k/v [B, Lk, N, D] -> [B, Lq, N, D] in v's dtype.
 
-    quant: "none" (K1) | "qk" (K2) | "qkv" | "qkpv".  rope: packed split-pair
-    [L, D] table; on the bf16 path it is applied before the kernel, on the
-    int8 path inside the quantisation prep.  On CUDA only "none" and "qk"
-    have kernels; "qkv" / "qkpv" (off by default in the JAX package) raise.
-    Only "none" is differentiable (K1 with LSE forward, K4 backward).
+    quant: "none" (K1) | "qk" (K2) | "qkv" | "qkpv" (K2v).  static_max
+    (None: `STATIC_MAX`) takes K3 for "qk" / "qkv"; "qkpv" ignores it.
+    rope: packed split-pair [L, D] table; on the bf16 path it is applied
+    before the kernel, on the int8 paths inside the quantisation prep.  Only
+    "none" is differentiable (K1 with LSE forward, K4 backward).
     """
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no flash attention path for device {q.device}")
@@ -382,18 +471,20 @@ def flash_attention(
     if needs_grad:
         raise ValueError(f"quant={quant!r}: the int8 flash paths are not differentiable "
                          "(inference only, as in the JAX package)")
-    if q.is_cuda and quant != "qk":
-        raise NotImplementedError(
-            f"quant={quant!r} has no Hopper kernel yet (ROADMAP queue 2, K2v)"
-        )
+    static = bool(STATIC_MAX if static_max is None else static_max) and quant != "qkpv"
     q8, k8, sqk = prepare_int8(q, k, rope, scale)
-    if q.is_cuda:
-        return _flash_int8_cuda(q8, k8, v, sqk, k_lens)
     sv, out_dtype = None, v.dtype
+    if q.is_cuda and out_dtype != torch.bfloat16:
+        raise TypeError(f"v: the int8 kernels write bf16 outputs, got v in {out_dtype}")
     if quant != "qk":
         v, sv = quantize_v(v)
-    return _flash_int8_plain(q8, k8, v, sqk, k_lens, quant=quant, sv=sv,
-                             out_dtype=out_dtype)
+    if q.is_cuda:
+        mstat = static_bound(q8, k8, sqk) if static else None
+        return _flash_int8_cuda(q8, k8, v, sqk, k_lens, quant=quant, sv=sv, mstat=mstat)
+    if static:
+        return _flash_int8_static_plain(q8, k8, v, sqk, k_lens, quant=quant, sv=sv,
+                                        out_dtype=out_dtype)
+    return _flash_int8_plain(q8, k8, v, sqk, k_lens, quant=quant, sv=sv, out_dtype=out_dtype)
 
 
 def flash_attention_with_stats(q, k, v, *, k_lens=None, scale=None, rope=None,
@@ -401,10 +492,11 @@ def flash_attention_with_stats(q, k, v, *, k_lens=None, scale=None, rope=None,
     """Forward returning (out [B, Lq, N, D], lse [B, Lq, N] fp32, natural
     log): the combinable partials ring attention merges (JAX
     `flash_attention_with_stats`).  K1 with its LSE output on CUDA; the int8
-    kernels have no LSE output yet (ROADMAP queue 2)."""
+    paths need K2-LSE, not ported yet (ROADMAP queue 2)."""
     if quant != "none":
         raise NotImplementedError(
-            f"quant={quant!r}: K2 has no LSE output yet (ROADMAP queue 2)")
+            f"quant={quant!r}: the int8 partials need K2-LSE, K2's LSE output, which is not "
+            "ported yet (ROADMAP queue 2)")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no flash attention path for device {q.device}")
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)

@@ -4,13 +4,20 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
-from stableavatar_tpu_torch.config import CLIPConfig, DiTConfig, VAEConfig, Wav2Vec2Config
+from stableavatar_tpu_torch.config import (
+    CLIPConfig,
+    DiTConfig,
+    T5Config,
+    VAEConfig,
+    Wav2Vec2Config,
+)
 from stableavatar_tpu_torch.models.clip import clip_visual_forward, preprocess_reference_image
+from stableavatar_tpu_torch.models.t5 import t5_encode
 from stableavatar_tpu_torch.models.vae import encode_video
 from stableavatar_tpu_torch.models.wav2vec import normalize_waveform, wav2vec2_forward
 
@@ -23,10 +30,15 @@ class WanModels:
     dit_cfg: DiTConfig
     vae_params: Any
     vae_cfg: VAEConfig = VAEConfig()
+    # umT5: on the models' device in bf16, or on the CPU in fp32 (--t5_cpu);
+    # None once the loader has encoded the prompts and released it
+    t5_params: Any = None
+    t5_cfg: T5Config = T5Config()
     clip_params: Any = None
     clip_cfg: CLIPConfig = CLIPConfig()
     wav2vec_params: Any = None
     wav2vec_cfg: Wav2Vec2Config = Wav2Vec2Config()
+    tokenizer: Optional[Callable] = None  # callable(str) -> (ids, mask) numpy arrays
     # inference fast path: dit_params prepared by utils/fastpath.py
     rope_split: bool = False
     attn_quant: str = "none"
@@ -34,8 +46,11 @@ class WanModels:
     honor_vocal_k_lens: bool = True
     # the card unless the caller asks for the CPU (as the CPU tests do)
     device: Any = "cuda"
-    # not ported yet; generate_long raises when either is set
-    teacache: Any = None
+    teacache: Any = None  # optional models/teacache.py:TeaCache
+    # pre-encoded CFG text context [3, text_len, text_dim], set when the
+    # loader encoded the prompts and released T5 (t5_params is then None)
+    text_ctx: Any = None
+    # not ported yet; generate_long raises when it is set
     streamed_dit: Any = None
 
 
@@ -50,12 +65,42 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def _tree_device(tree) -> torch.device:
+    while isinstance(tree, (dict, list)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
+    return tree.device
+
+
+def encode_prompt_ids(models: WanModels, ids, mask) -> torch.Tensor:
+    """T5-encode tokenised prompts [B, L] where the T5 parameters live (the
+    models' device, or the CPU under --t5_cpu) and zero the padded
+    positions; returns [B, text_len, text_dim] on the models' device.
+    (The reference trims each row to its length and re-pads with zeros,
+    which is the same at a fixed length.)"""
+    t5_dev = _tree_device(models.t5_params)
+    ids = torch.as_tensor(np.asarray(ids), device=t5_dev)
+    mask = torch.as_tensor(np.asarray(mask), device=t5_dev)
+    emb = t5_encode(models.t5_params, models.t5_cfg, ids, mask)
+    emb = emb * mask[..., None].to(emb.dtype)
+    return emb.to(resolve_device(models.device))
+
+
+def stack_cfg_ids(tokenizer, prompt: str, negative_prompt: str = ""):
+    """Tokenise into the long pipeline's CFG stack [neg, neg, pos]; returns
+    numpy (ids, mask) [3, L]."""
+    ids_p, mask_p = tokenizer(prompt)
+    ids_n, mask_n = tokenizer(negative_prompt)
+    return np.stack([ids_n, ids_n, ids_p]), np.stack([mask_n, mask_n, mask_p])
+
+
 def encode_prompts(models: WanModels, prompt: str, negative_prompt: str = ""):
-    """The T5 text encoder is not ported yet: pass a pre-encoded `text_ctx`."""
-    raise NotImplementedError(
-        "encode_prompts needs the umT5 encoder, which the port does not have yet "
-        "(ROADMAP queue 1: T5 and the CLI); pass text_ctx [3, text_len, text_dim]"
-    )
+    """The CFG text context [3, text_len, text_dim]: [neg, neg, pos]."""
+    if models.tokenizer is None or models.t5_params is None:
+        raise ValueError("encode_prompts needs models.tokenizer and models.t5_params; "
+                         "pass a pre-encoded text_ctx otherwise")
+    ids, mask = stack_cfg_ids(models.tokenizer, prompt, negative_prompt)
+    with torch.no_grad():
+        return encode_prompt_ids(models, ids, mask)
 
 
 def prepare_conditioning(models: WanModels, ref_image: torch.Tensor, clip_length: int,

@@ -68,6 +68,12 @@ def from_jax_tree(tree, device=None, dtype=None):
     return _convert(tree, None, device, dtype)
 
 
+def t5_from_jax(params, device=None, dtype=None):
+    """Convert a JAX umT5 tree: its "blocks" are already a list, so only the
+    linear layouts change (token and position embeddings, norms as is)."""
+    return from_jax_tree(params, device, dtype)
+
+
 def _unstack(tree, i):
     if isinstance(tree, dict):
         return {k: _unstack(v, i) for k, v in tree.items()}

@@ -9,8 +9,9 @@ repository root:
 (`--noconftest` skips tests/conftest.py, which configures JAX.)  Each kernel
 is held against its plain PyTorch version in the same module at rel-L2 1e-2,
 the bound `chip_smoke.py` uses: bf16 outputs, summed in another order, with P
-rounded to bf16 at other places.  K1's LSE (fp32, from fp32 row statistics)
-is held to max-abs 1e-3.
+rounded to bf16 at other places.  K1's and K3's LSE (fp32, from fp32 row
+statistics) are held to max-abs 1e-3.  K2v-qkpv is held against its plain
+version at the kernel's key tile of 64 (its result depends on the tile).
 """
 
 import pytest
@@ -142,8 +143,18 @@ def test_attention_dispatch_on_cuda(gen):
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     q = _randn(gen, 1, 2048, 2, 128)
-    with pytest.raises(NotImplementedError, match="K2v"):
-        fa.flash_attention(q, q, q, quant="qkv")
+    with pytest.raises(NotImplementedError, match="K2-LSE"):
+        fa.flash_attention_with_stats(q, q, q, quant="qkv")
+    q8, k8, sqk = fa.prepare_int8(q, q, None, 128 ** -0.5)
+    v8, sv = fa.quantize_v(q)
+    with pytest.raises(ValueError, match="no int8 kernel"):
+        fa._flash_int8_cuda(q8, k8, v8, sqk, None, quant="qkpv", sv=sv,
+                            mstat=fa.static_bound(q8, k8, sqk))
+    with pytest.raises(ValueError, match="mstat: expected shape"):
+        fa._flash_int8_cuda(q8, k8, q, sqk, None,
+                            mstat=fa.static_bound(q8, k8, sqk)[:, :1].contiguous())
+    with pytest.raises(TypeError):
+        fa._flash_int8_cuda(q8, k8, q, sqk, None, quant="qkv", sv=sv)
     with pytest.raises(TypeError):
         fa.flash_attention(q.float(), q.float(), q.float())
     with pytest.raises(ValueError, match="contiguous"):
@@ -168,3 +179,35 @@ def test_int8_linear_on_cuda_matches_cpu(gen, rows):
     want = int8_linear(x.cpu(), {k: t.cpu() for k, t in w8.items()}, b.cpu())
     assert got.shape == (rows, 48) and got.dtype == torch.bfloat16
     assert _rel(got.cpu(), want) < REL_TOL
+
+
+@pytest.mark.parametrize("b,l,n,d,k_lens", [(2, 3000, 2, 128, [2500, 3000]),
+                                            (1, 2100, 3, 64, None),
+                                            (2, 2100, 2, 128, [1280, 700])])
+@pytest.mark.parametrize("variant", ["qkv", "qkpv", "static_qk", "static_qkv"])
+def test_int8_variant_kernels_match_plain(gen, b, l, n, d, k_lens, variant):
+    """K2v and K3 against their plain versions; the ragged cases have whole
+    key tiles past k_lens (skipped by the kernels), and [1280, 700] ends
+    one batch on a tile edge."""
+    q, k, v = (_randn(gen, b, l, n, d) for _ in range(3))
+    kl = None if k_lens is None else torch.tensor(k_lens, dtype=torch.int32, device="cuda")
+    static = variant.startswith("static_")
+    quant = variant.removeprefix("static_")
+    q8, k8, sqk = fa.prepare_int8(q, k, None, d ** -0.5)
+    v_in, sv = (v, None) if quant == "qk" else fa.quantize_v(v)
+    before = fa.launch_counts[f"flash_fwd_int8_{variant}"]
+    got = fa.flash_attention(q, k, v, k_lens=kl, quant=quant, static_max=static)
+    assert got.dtype == torch.bfloat16
+    assert fa.launch_counts[f"flash_fwd_int8_{variant}"] == before + 1
+    if static:
+        want, want_lse = fa._flash_int8_static_plain(q8, k8, v_in, sqk, kl, quant=quant, sv=sv,
+                                                     out_dtype=torch.bfloat16, with_lse=True)
+        out, lse = fa._flash_int8_cuda(q8, k8, v_in, sqk, kl, quant=quant, sv=sv,
+                                       mstat=fa.static_bound(q8, k8, sqk), with_lse=True)
+        assert torch.equal(out, got)
+        assert lse.shape == (b, n, l) and float((lse - want_lse).abs().max()) < 1e-3
+    else:
+        want = fa._flash_int8_plain(q8, k8, v_in, sqk, kl, quant=quant, sv=sv, block_k=64,
+                                    out_dtype=torch.bfloat16)
+    assert _rel(got, want) < REL_TOL, _rel(got, want)
+    assert float((got.float() - want.float()).abs().max()) < 6e-2

@@ -95,8 +95,10 @@ def test_flash_wrapper_routes_cpu_to_plain():
     qg = t(q).requires_grad_()
     tfa.flash_attention(qg, t(k), t(v)).sum().backward()
     assert qg.grad is not None
-    assert set(tfa.launch_counts) == {"flash_fwd_bf16", "flash_fwd_bf16_lse", "flash_fwd_int8_qk",
-                                      "flash_bwd_dkdv", "flash_bwd_dq"}
+    assert set(tfa.launch_counts) == {
+        "flash_fwd_bf16", "flash_fwd_bf16_lse", "flash_fwd_int8_qk", "flash_fwd_int8_qkv",
+        "flash_fwd_int8_qkpv", "flash_fwd_int8_static_qk", "flash_fwd_int8_static_qkv",
+        "flash_bwd_dkdv", "flash_bwd_dq"}
     assert not any(tfa.launch_counts.values())
 
 
@@ -157,7 +159,7 @@ def test_int8_flash_refuses_grad():
     q, k, v = _qkv(5, lq=64, lk=64)
     with pytest.raises(ValueError, match="not differentiable"):
         tfa.flash_attention(t(q).requires_grad_(), t(k), t(v), quant="qk")
-    with pytest.raises(NotImplementedError, match="LSE"):
+    with pytest.raises(NotImplementedError, match="K2-LSE"):
         tfa.flash_attention_with_stats(t(q), t(k), t(v), quant="qk")
 
 
@@ -187,3 +189,100 @@ def test_k5_plain_matches_pallas_bf16():
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                rtol=0.05, atol=0.05)
 
+
+
+@pytest.mark.parametrize("quant", ["qk", "qkv"])
+def test_k3_plain_matches_pallas(quant):
+    """Plain K3 against the Pallas static-bound kernel in interpret mode at
+    block 128 (tests/test_fastpath.py:143): the same int8 operands and the
+    same bound per 128-row query block, so the outputs differ by fp32
+    summation order only; the LSE (bound-independent) to 1e-4 as there."""
+    q, k, v = _qkv(5, lq=256)
+    kw = dict(k_lens=jnp.asarray(K_LENS), quant=quant, block_q=128, block_k=128,
+              static_max=True)
+    with pallas_interpret():
+        want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw)
+        _, want_lse = jfa.flash_attention_with_stats(jnp.asarray(q), jnp.asarray(k),
+                                                     jnp.asarray(v), **kw)
+    q8, k8, sqk = tfa.prepare_int8(t(q), t(k), None, 64 ** -0.5)
+    v_in, sv = t(v), None
+    if quant == "qkv":
+        v_in, sv = tfa.quantize_v(v_in)
+    got, lse = tfa._flash_int8_static_plain(q8, k8, v_in, sqk, t(K_LENS), quant=quant, sv=sv,
+                                            block_q=128, out_dtype=torch.float32, with_lse=True)
+    want = np.asarray(want)
+    assert rel_l2(got.numpy(), want) < 1e-3
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(lse.transpose(1, 2).numpy(), np.asarray(want_lse),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("quant", ["qk", "qkv"])
+def test_k3_plain_matches_online_and_its_own_block(quant):
+    """The static bound changes only underflow: at the kernel's block of 64
+    the plain K3 equals the online plain K2 / K2v to fp32 rounding, and so
+    does its LSE equal the online LSE (mirrors tests/test_fastpath.py:143)."""
+    q, k, v = _qkv(8, lq=200)
+    q8, k8, sqk = tfa.prepare_int8(t(q), t(k), None, 64 ** -0.5)
+    v_in, sv = t(v), None
+    if quant == "qkv":
+        v_in, sv = tfa.quantize_v(v_in)
+    got, lse = tfa._flash_int8_static_plain(q8, k8, v_in, sqk, t(K_LENS), quant=quant, sv=sv,
+                                            out_dtype=torch.float32, with_lse=True)
+    want = tfa._flash_int8_plain(q8, k8, v_in, sqk, t(K_LENS), quant=quant, sv=sv,
+                                 block_k=128, out_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-3, atol=2e-3)
+    mstat = tfa.static_bound(q8, k8, sqk)
+    assert mstat.shape == (4, 4)  # B*N slabs x ceil(200 / 64) query blocks
+    # the bound holds: every logit is at most its block's M
+    s = torch.einsum("bqnd,bknd->bnqk", q8.float(), k8.float()) * sqk.reshape(2, 2, 1, 1)
+    m_rows = mstat.reshape(2, 2, 4).repeat_interleave(64, dim=2)[:, :, :200]
+    assert bool((s.amax(-1) <= m_rows * (1 + 1e-6)).all())
+    # LSE against the online softmax's: log of the same row sums
+    online = torch.logsumexp(torch.where(
+        torch.arange(384)[None, None, None, :] < t(K_LENS).long()[:, None, None, None],
+        s * LN2_T, -torch.inf), -1)
+    np.testing.assert_allclose(lse.numpy(), online.numpy(), rtol=1e-4, atol=1e-4)
+
+
+LN2_T = 0.6931471805599453
+
+
+def test_int8_wrapper_routes_variants_on_cpu(monkeypatch):
+    """flash_attention picks the plain K2v / K3 on CPU tensors: quant selects
+    the V path, static_max (or STATIC_MAX) the static softmax, which "qkpv"
+    ignores; the output keeps the unquantised V's dtype."""
+    q, k, v = (t(x) for x in _qkv(12, lq=128, lk=128))
+    q8, k8, sqk = tfa.prepare_int8(q, k, None, 64 ** -0.5)
+    v8, sv = tfa.quantize_v(v)
+    cases = [
+        (dict(quant="qkv"), tfa._flash_int8_plain(q8, k8, v8, sqk, quant="qkv", sv=sv,
+                                                  out_dtype=torch.float32)),
+        (dict(quant="qkpv", static_max=True),
+         tfa._flash_int8_plain(q8, k8, v8, sqk, quant="qkpv", sv=sv, out_dtype=torch.float32)),
+        (dict(quant="qk", static_max=True), tfa._flash_int8_static_plain(q8, k8, v, sqk)),
+        (dict(quant="qkv", static_max=True),
+         tfa._flash_int8_static_plain(q8, k8, v8, sqk, quant="qkv", sv=sv,
+                                      out_dtype=torch.float32)),
+    ]
+    for kw, want in cases:
+        got = tfa.flash_attention(q, k, v, **kw)
+        assert got.dtype == torch.float32 and torch.equal(got, want), kw
+    monkeypatch.setattr(tfa, "STATIC_MAX", True)
+    assert torch.equal(tfa.flash_attention(q, k, v, quant="qk"), cases[2][1])
+    assert not any(tfa.launch_counts.values())
+
+
+def test_k2v_qkpv_plain_masks_whole_tiles():
+    """A ragged batch whose last key tiles are fully masked: the plain qkpv
+    at the kernel's tile of 64 gives what the same attention gives over the
+    valid keys alone (a masked tile has m_tile = -1e30 and p_rel = 1, which
+    its zero factor must remove)."""
+    q, k, v = _qkv(13, b=1, lq=64, lk=320, n=2, d=64)
+    q8, k8, sqk = tfa.prepare_int8(t(q), t(k), None, 64 ** -0.5)
+    v8, sv = tfa.quantize_v(t(v))
+    got = tfa._flash_int8_plain(q8, k8, v8, sqk, torch.tensor([150], dtype=torch.int32),
+                                quant="qkpv", sv=sv, block_k=64, out_dtype=torch.float32)
+    want = tfa._flash_int8_plain(q8, k8[:, :150], v8[:, :150], sqk, quant="qkpv", sv=sv,
+                                 block_k=64, out_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)

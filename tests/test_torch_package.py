@@ -60,7 +60,7 @@ def test_no_source_line_imports_jax():
 
 
 @pytest.mark.parametrize("name", ["DiTConfig", "VAEConfig", "CLIPConfig", "Wav2Vec2Config",
-                                  "WAN_1_3B", "TrainConfig"])
+                                  "WAN_1_3B", "TrainConfig", "T5Config", "WAN_14B"])
 def test_configs_equal_jax_package(name):
     """Each config the port copies equals the JAX package's, field by field."""
     from stableavatar_tpu import config as jconfig
@@ -76,6 +76,16 @@ def test_configs_equal_jax_package(name):
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     if name == "WAN_1_3B":
         assert got.head_dim == want.head_dim == 128
+
+
+def test_tiny_debug_configs_equal_jax_package():
+    from stableavatar_tpu import config as jconfig
+    from stableavatar_tpu_torch import config as tconfig
+
+    for got, want in zip(tconfig.tiny_debug_configs(), jconfig.tiny_debug_configs(),
+                         strict=True):
+        assert type(got).__name__ == type(want).__name__
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 def test_kernel_sources_exist():
@@ -134,15 +144,16 @@ def test_cpu_wrappers_refuse_other_devices():
 
 
 def test_entry_points_default_to_the_card():
-    """Without CUDA, generate_long and train with their default devices
-    raise instead of running on the CPU; the initialisers default to the
-    card too."""
+    """Without CUDA, generate_long, train and the CLI's load_models with
+    their default devices raise instead of running on the CPU; the
+    initialisers and the CLI's main default to the card too."""
     import inspect
 
     import numpy as np
 
+    from stableavatar_tpu_torch.cli import inference
     from stableavatar_tpu_torch.config import DiTConfig, VAEConfig
-    from stableavatar_tpu_torch.models import dit, vae
+    from stableavatar_tpu_torch.models import dit, t5, vae
     from stableavatar_tpu_torch.pipelines.common import WanModels
     from stableavatar_tpu_torch.pipelines.long import generate_long
     from stableavatar_tpu_torch.train.loop import train
@@ -153,6 +164,11 @@ def test_entry_points_default_to_the_card():
         pytest.skip("this host has CUDA")
     assert inspect.signature(dit.init_dit).parameters["device"].default == "cuda"
     assert inspect.signature(vae.init_vae).parameters["device"].default == "cuda"
+    assert inspect.signature(t5.init_t5).parameters["device"].default == "cuda"
+    for fn in (inference.load_models, inference.main):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        inference.load_models(inference.build_parser().parse_args([]))
     assert StepTimer().device is None
     models = WanModels(dit_params={}, dit_cfg=DiTConfig(), vae_params={}, vae_cfg=VAEConfig())
     assert models.device == "cuda"
