@@ -44,11 +44,23 @@ exits non-zero):
                512x512, 81 frames, batch 1, remat, AdamW (the train CLI's
                defaults), one step in clip-level mode; checks finite losses,
                changed parameters, a checkpoint written and resumed at step
-               3, and the exact K1-LSE / K4a / K4b launch counts.
+               3, and the exact K1-LSE / K4a / K4b launch counts;
+10. ring    -- multi-GPU inference's pieces that one card holds: K2-LSE (the
+               int8 kernels' LSE output, "qk", "qkv", "qkpv") against its
+               plain version at the DiT self-attention shape and at the
+               4-rank ring slice, K2v-qkpv on the JAX package's key blocks of
+               1536 and 1024, the ring's merge of 4 K1-LSE / K2-LSE partials
+               of query slice 0 against K1 / K2 over all 21,504 keys, and the
+               multi-GPU path itself on one rank: `initialize_distributed`
+               (NCCL) + `make_mesh` + `ring_attention` in each V mode, which
+               launches K2-LSE.  Collectives between ranks need two cards
+               (NCCL puts one rank on a card); the CPU tests hold them with
+               gloo (tests/test_torch_parallel.py).
 
-Phases 5-6, 7, 8 and 9 drive the paths: the launch counts are set to 0 just
-before each and read just after.  The line before the last is a JSON object
-with one entry per kernel; the last line is {"ok": true, "device": {...}}.
+Phases 5-6, 7, 8, 9 and 10's one-rank ring drive the paths: the launch
+counts are set to 0 just before each and read just after.  The line before
+the last is a JSON object with one entry per kernel; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -69,6 +81,10 @@ ABS_TOL = 6e-2
 LSE_TOL = 1e-3
 # K4's gradients: rel-L2 only (dS mixes signs, so max-abs scales with |dO|)
 GRAD_REL_TOL = 1e-2
+# int8 ring partials against one int8 attention over all keys: each chunk
+# is quantised on its own slab scales, so the two differ at the int8 level;
+# K2's own tolerance (relative error 2e-2, tests/test_fastpath.py:115)
+RING_INT8_REL_TOL = 2e-2
 
 # published dense peaks of one H100 SXM at 700 W, and its memory rate
 PEAK_BF16 = 989e12
@@ -96,11 +112,20 @@ KERNEL_SOURCES = {
                                  "stableavatar_tpu/ops/flash_attention.py:416"),
     "flash_fwd_int8_static_qkv": ("stableavatar_tpu_torch/csrc/flash_attention.cu",
                                   "stableavatar_tpu/ops/flash_attention.py:416"),
+    # K2-LSE: _flash_int8_impl(with_lse=True), reached from
+    # flash_attention_with_stats
+    "flash_fwd_int8_qk_lse": ("stableavatar_tpu_torch/csrc/flash_attention.cu",
+                              "stableavatar_tpu/ops/flash_attention.py:1073"),
+    "flash_fwd_int8_qkv_lse": ("stableavatar_tpu_torch/csrc/flash_attention.cu",
+                               "stableavatar_tpu/ops/flash_attention.py:1073"),
+    "flash_fwd_int8_qkpv_lse": ("stableavatar_tpu_torch/csrc/flash_attention.cu",
+                                "stableavatar_tpu/ops/flash_attention.py:1073"),
 }
 INFERENCE_KERNELS = ("flash_fwd_bf16", "flash_fwd_int8_qk", "dual_context")
 CLI_KERNELS = ("flash_fwd_int8_static_qk",)
 VARIANT_KERNELS = ("flash_fwd_int8_qkv", "flash_fwd_int8_qkpv", "flash_fwd_int8_static_qkv")
 TRAIN_KERNELS = ("flash_fwd_bf16_lse", "flash_bwd_dkdv", "flash_bwd_dq")
+RING_KERNELS = ("flash_fwd_int8_qk_lse", "flash_fwd_int8_qkv_lse", "flash_fwd_int8_qkpv_lse")
 
 
 def bound_ms(ops_bf16: float, nbytes: float, ops_int8: float = 0.0):
@@ -135,8 +160,8 @@ def time_ms(fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
-def compare(name: str, got, want) -> float:
-    """Raise unless rel-L2 <= REL_TOL and max-abs <= ABS_TOL; return max-abs."""
+def compare(name: str, got, want, rel_tol: float = REL_TOL) -> float:
+    """Raise unless rel-L2 <= rel_tol and max-abs <= ABS_TOL; return max-abs."""
     import torch
 
     g, w = got.float(), want.float()
@@ -145,10 +170,10 @@ def compare(name: str, got, want) -> float:
     rel = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
     mx = float((g - w).abs().max())
     log(f"  {name}: rel_l2={rel:.3e} max_abs={mx:.3e}")
-    if not (rel <= REL_TOL and mx <= ABS_TOL):
+    if not (rel <= rel_tol and mx <= ABS_TOL):
         raise AssertionError(
             f"{name}: kernel disagrees with its plain version "
-            f"(rel_l2 {rel:.3e} > {REL_TOL} or max_abs {mx:.3e} > {ABS_TOL})"
+            f"(rel_l2 {rel:.3e} > {rel_tol} or max_abs {mx:.3e} > {ABS_TOL})"
         )
     return mx
 
@@ -294,8 +319,9 @@ INT8_VARIANTS = (("flash_fwd_int8_qkv", "qkv", False), ("flash_fwd_int8_qkpv", "
 
 def int8_plain(q8, k8, v, sqk, k_lens, quant, sv, static):
     """The plain version of one int8 kernel on the same prepared operands:
-    K2v-qkpv at the kernel's key tile of 64 (its result depends on the
-    tile), K3 at the kernel's query block of 64 with its LSE."""
+    K2v-qkpv on `flash_attention`'s JAX key block (its result depends on the
+    block; the kernel takes the same), K3 at the kernel's query block of 64
+    with its LSE."""
     import torch
 
     from stableavatar_tpu_torch.ops import flash_attention as fa
@@ -303,7 +329,8 @@ def int8_plain(q8, k8, v, sqk, k_lens, quant, sv, static):
     if static:
         return fa._flash_int8_static_plain(q8, k8, v, sqk, k_lens, quant=quant, sv=sv,
                                            out_dtype=torch.bfloat16, with_lse=True)
-    return fa._flash_int8_plain(q8, k8, v, sqk, k_lens, quant=quant, sv=sv, block_k=64,
+    return fa._flash_int8_plain(q8, k8, v, sqk, k_lens, quant=quant, sv=sv,
+                                block_k=fa.jax_key_block(k8.shape[1], fa.INT8_BLOCK_K),
                                 out_dtype=torch.bfloat16)
 
 
@@ -975,6 +1002,183 @@ def phase_train(models, dit_params, reset_counts, counts):
     return launches, steps
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+RING_W = 4  # ranks of the ring whose slice the kernels are checked at
+
+
+def phase_ring_kernels(results):
+    """K2-LSE in each V mode against its plain version at the DiT
+    self-attention shape [3, 21504, 12, 128] (timed, with its bound) and at
+    the 4-rank ring slice [3, 5376, 12, 128] (its key block of 1024 for
+    "qkpv", as `flash_attention_with_stats` gives it); K2v-qkpv without LSE
+    on the JAX package's blocks of 1536 (`flash_attention`) and 1024."""
+    import torch
+
+    from stableavatar_tpu_torch.ops import flash_attention as fa
+    from stableavatar_tpu_torch.ops.rope import pack_split, rope_freqs_3d
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    n, d = 12, 128
+    rope = pack_split(rope_freqs_3d((21, 32, 32), d, device="cuda"))
+    for l in (21504, 21504 // RING_W):
+        b = 3
+        q, k, v = (_rand(gen, (b, l, n, d), torch.bfloat16) for _ in range(3))
+        q8, k8, sqk = fa.prepare_int8(q, k, rope[:l], d ** -0.5)
+        v8, sv = fa.quantize_v(v)
+        tag = f"[{b},{l},{n},{d}] rope"
+        pv_block = fa.jax_key_block(l, fa.STATS_BLOCK_K)
+        fwd_ops = 4.0 * b * n * l * l * d
+        for quant in ("qk", "qkv", "qkpv"):
+            name = f"flash_fwd_int8_{quant}_lse"
+            vin = v if quant == "qk" else v8
+
+            def kernel():
+                return fa._flash_int8_cuda(q8, k8, vin, sqk, None, quant=quant, sv=sv,
+                                           with_lse=True, pv_block=pv_block)
+
+            def plain():
+                return fa._flash_int8_plain(q8, k8, vin, sqk, None, quant=quant, sv=sv,
+                                            block_k=pv_block, out_dtype=torch.bfloat16,
+                                            with_lse=True)
+
+            (got, lse), (want, want_lse) = kernel(), plain()
+            err = max(compare(f"{name} {tag}", got, want),
+                      compare_lse(f"{name} {tag}", lse, want_lse))
+            del got, lse, want, want_lse
+            entry = results.setdefault(name, {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            ms = time_ms(kernel, 5)
+            if l != 21504:
+                log(f"  {name} {tag}: kernel {ms:.3f} ms (ring partial)")
+                continue
+            # Q.K^T int8; P.V bf16, or int8 for qkpv; bytes: q8, k8, int8 v
+            # one each (bf16 v two), bf16 out two, the fp32 LSE four per row
+            ops_int8 = fwd_ops if quant == "qkpv" else fwd_ops / 2
+            vbytes = 2.0 if quant == "qk" else 1.0
+            entry.update(ms=ms, plain_ms=time_ms(plain, 3), library_ms=None)
+            entry["bound_ms"], entry["bound_by"] = bound_ms(
+                fwd_ops - ops_int8, b * l * n * d * (1 + 1 + vbytes + 2.0) + 4.0 * b * n * l,
+                ops_int8=ops_int8)
+            log(f"  {name} {tag}: kernel {ms:.3f} ms, plain {entry['plain_ms']:.3f} ms, bound "
+                f"{entry['bound_ms']:.3f} ms ({entry['bound_by']}), library —")
+        if l == 21504:
+            for block in (1536, 1024):
+                got = fa._flash_int8_cuda(q8, k8, v8, sqk, None, quant="qkpv", sv=sv,
+                                          pv_block=block)
+                want = fa._flash_int8_plain(q8, k8, v8, sqk, None, quant="qkpv", sv=sv,
+                                            block_k=block, out_dtype=torch.bfloat16)
+                err = compare(f"flash_fwd_int8_qkpv {tag} key block {block}", got, want)
+                entry = results.setdefault("flash_fwd_int8_qkpv", {"max_abs_err": 0.0})
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                del got, want
+                log(f"  flash_fwd_int8_qkpv {tag} key block {block}: kernel "
+                    f"{time_ms(lambda: fa._flash_int8_cuda(q8, k8, v8, sqk, None, quant='qkpv', sv=sv, pv_block=block), 5):.3f} ms")
+        del q, k, v, q8, k8, v8
+    torch.cuda.synchronize()
+
+
+def phase_ring_merge():
+    """Query slice 0 of [3, 21504, 12, 128] against the 4 key chunks of a
+    4-rank ring: K1-LSE and K2-LSE ("qk") partials merged by the port's
+    `merge_partials`, against K1 / K2 over all 21,504 keys (the JAX
+    package's tests/test_sharding.py:265-310 at its real shape).  The int8
+    partials quantise each chunk on its own slab scales, as the JAX ring
+    does."""
+    import torch
+
+    from stableavatar_tpu_torch.ops import flash_attention as fa
+    from stableavatar_tpu_torch.ops.ring_attention import merge_partials
+    from stableavatar_tpu_torch.ops.rope import pack_split, rope_apply_split, rope_freqs_3d
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    b, l, n, d = 3, 21504, 12, 128
+    lw = l // RING_W
+    rope = pack_split(rope_freqs_3d((21, 32, 32), d, device="cuda"))
+    q, k, v = (_rand(gen, (b, l, n, d), torch.bfloat16) for _ in range(3))
+    # rope first, as the ring path applies it (positions are global)
+    q = rope_apply_split(q, rope).bfloat16()
+    k = rope_apply_split(k, rope).bfloat16()
+    qc = q[:, :lw].contiguous()
+    for quant in ("none", "qk"):
+        o = lse = None
+        for ci in range(RING_W):
+            kc, vc = (x[:, ci * lw:(ci + 1) * lw].contiguous() for x in (k, v))
+            o_i, lse_i = fa.flash_attention_with_stats(qc, kc, vc, quant=quant, static_max=False)
+            o, lse = (o_i, lse_i) if o is None else merge_partials(o, lse, o_i, lse_i)
+        want = fa.flash_attention(qc, k, v, quant=quant, static_max=False)
+        compare(f"ring merge of {RING_W} {'K1-LSE' if quant == 'none' else 'K2-LSE'} partials "
+                f"[{b},{lw},{n},{d}] x {l} keys against {'K1' if quant == 'none' else 'K2'}",
+                o, want, REL_TOL if quant == "none" else RING_INT8_REL_TOL)
+    torch.cuda.synchronize()
+
+
+def phase_ring_path(reset_counts, counts):
+    """The multi-GPU path on one rank: `initialize_distributed` starts an
+    NCCL group of 1, `make_mesh` its ('dp', 'fsdp', 'sp') mesh, and
+    `ring_attention` runs each V mode at [3, 21504, 12, 128] (rope applied),
+    one K2-LSE partial each; every output must equal the partial of
+    `flash_attention_with_stats` on the same inputs.  Returns the run's
+    launch counts."""
+    import torch
+    import torch.distributed as dist
+
+    from stableavatar_tpu_torch.ops import flash_attention as fa
+    from stableavatar_tpu_torch.ops.ring_attention import ring_attention
+    from stableavatar_tpu_torch.ops.rope import pack_split, rope_apply_split, rope_freqs_3d
+    from stableavatar_tpu_torch.parallel.distributed import initialize_distributed
+    from stableavatar_tpu_torch.parallel.mesh import make_mesh, mesh_context
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    b, l, n, d = 3, 21504, 12, 128
+    rope = pack_split(rope_freqs_3d((21, 32, 32), d, device="cuda"))
+    q, k, v = (_rand(gen, (b, l, n, d), torch.bfloat16) for _ in range(3))
+    q = rope_apply_split(q, rope).bfloat16()
+    k = rope_apply_split(k, rope).bfloat16()
+    t0 = time.perf_counter()
+    if not initialize_distributed(f"localhost:{_free_port()}", 1, 0, device="cuda"):
+        raise AssertionError("initialize_distributed did not start a process group")
+    try:
+        mesh = make_mesh(1, 1, 1, device_type="cuda")
+        backend = dist.get_backend(mesh.get_group("sp"))
+        log(f"  process group: backend {backend}, world {dist.get_world_size()}, mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}, started in "
+            f"{time.perf_counter() - t0:.2f} s")
+        if backend != "nccl":
+            raise AssertionError(f"the card's process group runs {backend}, not nccl")
+        outs = {}
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with mesh_context(mesh), torch.no_grad():
+            for quant in ("qk", "qkv", "qkpv"):
+                outs[quant] = ring_attention(q, k, v, group=mesh.get_group("sp"), quant=quant)
+        torch.cuda.synchronize()
+        launches = counts()
+        log(f"  ring_attention on 1 rank, 3 V modes: {time.perf_counter() - t0:.3f} s; "
+            f"launches {launches}")
+        for quant, out in outs.items():
+            want, _ = fa.flash_attention_with_stats(q, k, v, quant=quant, static_max=False)
+            if not (torch.isfinite(out).all() and torch.equal(out, want)):
+                raise AssertionError(f"ring_attention quant={quant} on 1 rank differs from its "
+                                     "K2-LSE partial")
+            log(f"  ring_attention quant={quant} on 1 rank: equal to its K2-LSE partial, "
+                f"{tuple(out.shape)} {out.dtype}")
+    finally:
+        dist.destroy_process_group()
+    want = {name: 1 for name in RING_KERNELS}
+    want.update(flash_fwd_int8_qk=0, flash_fwd_int8_qkv=0, flash_fwd_int8_qkpv=0)
+    if {key: launches[key] for key in want} != want:
+        raise AssertionError(f"ring path launch counts {launches} != {want}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1054,10 +1258,21 @@ def main() -> int:
     log(f"== main path: train(), 1.3B, 512x512, 81 frames, batch 1, remat, AdamW, "
         f"{TRAIN_STEPS} steps")
     training, _ = phase_train(models, dit_bf16, reset_counts, counts)
+    del models, dit_bf16
+    torch.cuda.empty_cache()
+
+    # path 5, multi-GPU inference's kernels and its one-rank path: counts set
+    # to 0 inside, just before ring_attention
+    log("== ring: K2-LSE and K2v-qkpv against their plain versions, the ring merge at the "
+        "DiT shape, the one-rank NCCL mesh and ring_attention")
+    phase_ring_kernels(results)
+    phase_ring_merge()
+    ring = phase_ring_path(reset_counts, counts)
     launches = {**{k: inference[k] for k in INFERENCE_KERNELS},
                 **{k: cli[k] for k in CLI_KERNELS},
                 **{k: variants[k] for k in VARIANT_KERNELS},
-                **{k: training[k] for k in TRAIN_KERNELS}}
+                **{k: training[k] for k in TRAIN_KERNELS},
+                **{k: ring[k] for k in RING_KERNELS}}
     idle = [k for k, n in launches.items() if n == 0]
     if idle:
         raise AssertionError(f"kernels of the main paths never launched: {idle}")

@@ -5,6 +5,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 profile_window.py          # generate_long, fast and bf16 paths
     python3 profile_window.py train    # train_step, 1.3B / 512x512 / 81 frames
+    python3 profile_window.py kernels  # the int8 flash kernels alone
 
 It builds the random 1.3B / ViT-H / wav2vec2-base / VAE stack of
 `chip_smoke.py` and runs `generate_long` on chip_smoke's inputs (512x512,
@@ -25,6 +26,14 @@ AdamW) of the bf16 1.3B DiT on one batch of chip_smoke's synthetic 512x512,
 81-frame data, encoded once before the timed steps; steps 0-3 unprofiled,
 step 4 the profiler's warm-up, step 5 profiled; it also prints the peak
 device memory of the steps.
+
+`kernels` times the int8 flash template's instances -- K2 ("qk"), K2v
+("qkv", "qkpv" on its default key block) and K3 ("qk") -- at the DiT
+self-attention shape [3, 21504, 12, 128] on the same roped, prepared
+operands: the median of 20 CUDA-event timings each, after a warm-up, as one
+JSON line.  It uses only wrapper arguments that every version of the
+template takes, so the same file compares two checkouts in one call (copy
+it into each and run it from there, in turns).
 """
 
 from __future__ import annotations
@@ -39,7 +48,7 @@ STEPS, WAIT, WARMUP = 6, 4, 1
 
 # kernel name -> kind; first match wins
 KINDS = (
-    ("K2 flash_fwd_int8_qk", re.compile(r"flash_fwd_int8_qk_kernel")),
+    ("K2 / K2v / K2-LSE / K3 flash_fwd_int8", re.compile(r"flash_fwd_int8_kernel")),
     ("K1 flash_fwd_bf16 (with or without LSE)", re.compile(r"flash_fwd_bf16_kernel")),
     ("K4a flash_bwd_dkdv", re.compile(r"flash_bwd_dkdv_kernel")),
     ("K4b flash_bwd_dq", re.compile(r"flash_bwd_dq_kernel")),
@@ -139,6 +148,31 @@ def report(tag, prof, wall):
         print(f"  {device_us(e) / 1e6:9.4f} s {e.count:6d}x  {e.key[:110]}", flush=True)
 
 
+def time_kernels():
+    import torch
+
+    import chip_smoke
+    from stableavatar_tpu_torch.ops import flash_attention as fa
+    from stableavatar_tpu_torch.ops.rope import pack_split, rope_freqs_3d
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, l, n, d = 3, 21504, 12, 128
+    q, k, v = (torch.randn((b, l, n, d), generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    rope = pack_split(rope_freqs_3d((21, 32, 32), d, device="cuda"))
+    q8, k8, sqk = fa.prepare_int8(q, k, rope, d ** -0.5)
+    v8, sv = fa.quantize_v(v)
+    mstat = fa.static_bound(q8, k8, sqk)
+    runs = {
+        "K2 qk": lambda: fa._flash_int8_cuda(q8, k8, v, sqk, None),
+        "K2v qkv": lambda: fa._flash_int8_cuda(q8, k8, v8, sqk, None, quant="qkv", sv=sv),
+        "K2v qkpv": lambda: fa._flash_int8_cuda(q8, k8, v8, sqk, None, quant="qkpv", sv=sv),
+        "K3 qk": lambda: fa._flash_int8_cuda(q8, k8, v, sqk, None, mstat=mstat),
+    }
+    print(json.dumps({name: round(chip_smoke.time_ms(fn, 20), 3) for name, fn in runs.items()}),
+          flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -154,6 +188,9 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    if sys.argv[1:] == ["kernels"]:
+        time_kernels()
+        return 0
     models, dit_bf16 = chip_smoke.build_models("cuda")
     if sys.argv[1:] == ["train"]:
         profile_train(models, dit_bf16)

@@ -1,7 +1,7 @@
 """Inference CLI of the port (port of `stableavatar_tpu/cli/inference.py`).
 
 The same flags, defaults and choices as the JAX package's CLI, mapped onto
-PyTorch on one card:
+PyTorch, one process per card:
 
 - `--GPU_memory_mode model_full_load` keeps umT5-xxl (bf16, 11.4 GB) on the
   card; every other mode (and `--offload_model`) encodes the prompts on the
@@ -10,13 +10,23 @@ PyTorch on one card:
 - `--fast_path` prepares the DiT for the inference fast path (split-pair
   rope, int8 attention, W8A8 linears); `model_cpu_offload_and_qfloat8`
   stores the block weights in int8 with bf16 compute;
-- TeaCache flags build the host-side controller.
+- TeaCache flags build the host-side controller;
+- `--ulysses_degree` x `--ring_degree` ranks form the sequence-parallel 'sp'
+  axis (one ring over all of them when `--ring_degree` > 1, Ulysses
+  otherwise), `--fsdp_dit` shards the DiT over world // sp ranks when the
+  world holds at least two sp groups, the remaining ranks replicate
+  (`parallel/`); every rank runs the same sweep and rank 0 alone writes the
+  video.  The ranks come from torchrun's environment or from
+  `--coordinator_address` / `--num_processes` / `--process_id`:
+
+      torchrun --nproc_per_node 4 -m stableavatar_tpu_torch.cli.inference \
+          --ulysses_degree 4 ...
 
 Unported options raise NotImplementedError naming their ROADMAP item:
-checkpoint files (there is no converter yet), `sequential_cpu_offload`,
-sequence parallelism and multi-process runs, and the 14B model.  Without
-checkpoints every model is random, drawn from fixed seeds, and the
-tokenizer is a byte-level fallback unless an umT5 tokenizer is on disk.
+checkpoint files (there is no converter yet), `sequential_cpu_offload`, and
+the 14B model.  Without checkpoints every model is random, drawn from fixed
+seeds, and the tokenizer is a byte-level fallback unless an umT5 tokenizer
+is on disk.
 
 Run on the card:  python -m stableavatar_tpu_torch.cli.inference --help
 `STABLEAVATAR_TINY=1` selects miniature configs (plumbing runs).
@@ -34,6 +44,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from stableavatar_tpu_torch import config
 from stableavatar_tpu_torch.models.clip import init_clip_visual
@@ -42,6 +53,9 @@ from stableavatar_tpu_torch.models.t5 import init_t5
 from stableavatar_tpu_torch.models.teacache import TeaCache, get_teacache_coefficients
 from stableavatar_tpu_torch.models.vae import init_vae
 from stableavatar_tpu_torch.models.wav2vec import init_wav2vec2
+from stableavatar_tpu_torch.parallel.distributed import initialize_distributed, make_multihost_mesh
+from stableavatar_tpu_torch.parallel.mesh import mesh_context
+from stableavatar_tpu_torch.parallel.sharding import shard_params
 from stableavatar_tpu_torch.pipelines.common import WanModels, encode_prompts, resolve_device
 from stableavatar_tpu_torch.pipelines.long import generate_long
 from stableavatar_tpu_torch.utils.fastpath import prepare_fast_params
@@ -131,7 +145,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--ulysses_degree", type=int, default=1)
     p.add_argument("--ring_degree", type=int, default=1)
-    p.add_argument("--fsdp_dit", action="store_true")  # one card: nothing to shard
+    p.add_argument("--fsdp_dit", action="store_true",
+                   help="shard the DiT over world // sp ranks (when world >= 2 sp)")
     p.add_argument("--t5_fsdp", action="store_true")  # parsed only, as in the reference
     p.add_argument("--t5_cpu", action="store_true")
     return p
@@ -197,11 +212,6 @@ def check_ported(args) -> None:
         raise NotImplementedError(
             "--GPU_memory_mode sequential_cpu_offload needs the host-streamed DiT "
             "(ROADMAP queue 1, open item 3: streamed offload, models/streaming.py)")
-    if args.ulysses_degree > 1 or args.ring_degree > 1 or (args.num_processes or 1) > 1 \
-            or args.coordinator_address:
-        raise NotImplementedError(
-            "sequence parallelism and multi-process runs are not ported yet "
-            "(ROADMAP queue 1, open item 5: multi-GPU with K2-LSE)")
     if args.model_family == "14B":
         raise NotImplementedError(
             "the 14B model (two-stage vocal projection) is not ported yet "
@@ -291,6 +301,8 @@ def load_models(args, device="cuda", timer=None) -> WanModels:
         wav2vec_params=init_wav2vec2(_gen(device, 4), w2v_cfg, device, torch.float32),
         wav2vec_cfg=w2v_cfg, tokenizer=tokenizer, teacache=teacache, rope_split=rope_split,
         attn_quant=attn_quant, honor_vocal_k_lens=not args.reference_attn_numerics,
+        # ring_degree > 1 makes the whole sp axis one ring (JAX CLI, :427-429)
+        attn_impl="ring" if args.ring_degree > 1 else "ulysses",
         device=device, text_ctx=text_ctx)
 
 
@@ -324,10 +336,23 @@ def run_generation(args, models: WanModels, ref_image, waveform, text_ctx=None,
     )
 
 
-def main(argv=None, device="cuda") -> int:
-    from stableavatar_tpu_torch.utils.media import ffmpeg_available, load_image, load_wav, mux_audio
-    from stableavatar_tpu_torch.utils.video_io import StreamingVideoWriter, save_videos_grid
+def build_mesh(args, device):
+    """The ('dp', 'fsdp', 'sp') mesh of the JAX CLI (:495-501): sp =
+    ulysses x ring, fsdp = world // sp under --fsdp_dit when world >= 2 sp;
+    None when both are 1.  The process group must be running for sp or
+    fsdp above 1."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    sp = args.ulysses_degree * args.ring_degree
+    fsdp = world // sp if args.fsdp_dit and world >= 2 * sp else 1
+    if sp == 1 and fsdp == 1:
+        return None
+    if not dist.is_initialized():
+        raise ValueError(f"--ulysses_degree x --ring_degree = {sp} needs {sp} processes "
+                         "(torchrun, or --coordinator_address / --num_processes / --process_id)")
+    return make_multihost_mesh(fsdp=fsdp, sp=sp, device_type=torch.device(device).type)
 
+
+def main(argv=None, device="cuda") -> int:
     args = build_parser().parse_args(argv)
     check_ported(args)
     for path, what in [(args.validation_reference_path, "reference image"),
@@ -335,7 +360,22 @@ def main(argv=None, device="cuda") -> int:
         if not path or not os.path.exists(path):
             print(f"error: {what} not found: {path!r}", file=sys.stderr)
             return 2
+    running = dist.is_initialized()
+    initialize_distributed(args.coordinator_address, args.num_processes, args.process_id,
+                           device=device)
+    try:
+        return _generate_and_write(args, device)
+    finally:
+        if dist.is_initialized() and not running:
+            dist.destroy_process_group()
 
+
+def _generate_and_write(args, device) -> int:
+    from stableavatar_tpu_torch.utils.media import ffmpeg_available, load_image, load_wav, mux_audio
+    from stableavatar_tpu_torch.utils.video_io import StreamingVideoWriter, save_videos_grid
+
+    mesh = build_mesh(args, device)
+    writer = not dist.is_initialized() or dist.get_rank() == 0
     t0 = time.time()
     models = load_models(args, device)
     print(f"[stableavatar] models loaded ({time.time() - t0:.0f}s)", flush=True)
@@ -347,15 +387,21 @@ def main(argv=None, device="cuda") -> int:
         text_ctx = encode_prompts(models, args.validation_prompts, args.negative_prompts)
         print(f"[stableavatar] prompt encoded ({time.time() - t0:.0f}s)", flush=True)
 
-    os.makedirs(args.output_dir, exist_ok=True)
     out_path = os.path.join(args.output_dir, f"video_seed{args.seed}.mp4")
     sink_writer = None
-    if args.stream_output:
-        sink_writer = StreamingVideoWriter(out_path, fps=args.fps,
-                                           audio_path=args.validation_driven_audio_path)
-    out = run_generation(args, models, ref, wav, text_ctx,
-                         frame_sink=sink_writer.append if sink_writer is not None else None)
+    if writer:
+        os.makedirs(args.output_dir, exist_ok=True)
+        if args.stream_output:
+            sink_writer = StreamingVideoWriter(out_path, fps=args.fps,
+                                               audio_path=args.validation_driven_audio_path)
+    with mesh_context(mesh):
+        if mesh is not None:
+            models.dit_params = shard_params(models.dit_params, mesh)
+        out = run_generation(args, models, ref, wav, text_ctx,
+                             frame_sink=sink_writer.append if sink_writer is not None else None)
     print(f"[stableavatar] generation done ({time.time() - t0:.0f}s)", flush=True)
+    if not writer:
+        return 0  # rank 0 writes the video
 
     if sink_writer is not None:
         out_path = sink_writer.close()

@@ -10,8 +10,8 @@
 // flash_attention_bwd.cu) recomputes P from it.  A null `lse` skips the
 // write, as the JAX package's primal-only path does.
 //
-// K2, K2v and K3 replace stableavatar_tpu/ops/flash_attention.py:
-// _flash_int8_impl, one template (`flash_fwd_int8_kernel`) for all five
+// K2, K2v, K2-LSE and K3 replace stableavatar_tpu/ops/flash_attention.py:
+// _flash_int8_impl, one template (`flash_fwd_int8_kernel`) for all
 // variants.  Q and K arrive as int8 with one scale per (batch, head) slab
 // (the prep is plain torch, as it was XLA on the TPU); the kernel runs
 // Q8.K8^T on the s8 tensor cores into s32 and multiplies by sqk[b*N + h] =
@@ -20,20 +20,27 @@
 //   - K2v "qkv" (`v_int8` branch): V int8, widened to bf16 in registers for
 //     the P.V product, its per-channel scale applied once at finalize;
 //   - K2v "qkpv" (`quant_pv` branch): P rescaled to its row max within the
-//     64-key tile, rounded to int8 and multiplied with int8 V into s32 (so
-//     the result depends on the key tile, 64 here), times
-//     exp2(m_tile - m_new) / 127;
+//     JAX package's key block (`pv_block` keys, a multiple of 64: 1536 or
+//     1024 capped to the sequence rounded up to 128), rounded to int8 and
+//     multiplied with int8 V into s32, times exp2(m_block - m_new) / 127.
+//     Each block of pv_block / 64 key tiles is swept twice: first for the
+//     row max of its logits, then for P.V (Q.K^T is computed twice);
 //   - K3 (`_int8_fwd_body_static`, "qk" or "qkv"): no running max -- p =
 //     exp2(s - M) with M = sqk * max|q8| * max|k8| over this block's 64
 //     query rows and all keys (Cauchy-Schwarz, computed by the wrapper), no
-//     rescale; optional LSE M * ln2 + log(l).
+//     rescale.
+// With a non-null `lse` every variant also writes the natural-log LSE of
+// each query row, m * ln2 + log(max(l, 1e-30)) (M in place of m for K3), in
+// fp32 laid out [B, N, Lq]: K2-LSE, the combinable partials of ring
+// attention (`flash_attention_with_stats(quant=...)`).
 // K is read row-major [B, L, N, D]: the TPU's [D, L] pre-transpose is a
 // layout of its matrix unit and has no use here.
 //
 // What bounds them on the H100: at the DiT self-attention shape (B*N = 36,
 // L = 21,504, D = 128) all are compute-bound -- 4*L^2*D operations per head
-// (half int8 for Q.K^T, half bf16 for P.V, or all int8 for qkpv) against
-// 3*L*D bytes per head of input read once per 64-row query tile from L2.
+// (half int8 for Q.K^T, half bf16 for P.V, or all int8 for qkpv, whose Q.K^T
+// runs twice) against 3*L*D bytes per head of input read once per 64-row
+// query tile from L2.
 // All kernels read Q, K and V straight from the [B, L, N, D] activations
 // (no transpose or padding pass), keep the logits and probabilities in
 // registers, and keep K/V tiles in shared memory shared by 4 warps.  This
@@ -119,7 +126,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 enum VMode {
   kVBf16 = 0,  // K2 / K3-qk: bf16 V, bf16 P.V
   kVInt8 = 1,  // K2v-qkv / K3-qkv: int8 V widened to bf16 for the P.V product
-  kPV8 = 2,    // K2v-qkpv: P quantised per row to its tile max, int8 P.V into s32
+  kPV8 = 2,    // K2v-qkpv: P quantised per row to its key-block max, int8 P.V into s32
 };
 
 // K3's softmax for one key tile: p = exp2(s - M) under the static bound M of
@@ -141,58 +148,45 @@ __device__ __forceinline__ void softmax_static(float (&s)[kNT][4], float bound, 
   }
 }
 
-// K2v-qkpv's softmax for one key tile (TPU `_int8_fwd_body`, `quant_pv`):
-// `s` leaves as p_rel = exp2(s - m_tile), whose row max is exactly 1, and
-// `f` as exp2(m_tile - m_new) / 127, the factor of this tile's int8 P.V.
-template <int D>
-__device__ __forceinline__ void softmax_update_pv8(float (&s)[kNT][4], float (&m)[2],
-                                                   float (&l)[2], float (&acc)[D / 8][4],
-                                                   float (&f)[2], int k0, int klen) {
+// K2v-qkpv, first sweep: fold this tile's masked logits into the running
+// row maxima mx (per thread; the caller reduces them over the quad).
+__device__ __forceinline__ void tile_row_max(const float (&s)[kNT][4], float (&mx)[2], int k0,
+                                             int klen) {
   const int t = threadIdx.x & 3;
-  float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
   for (int nt = 0; nt < kNT; ++nt) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      if (k0 + nt * 8 + t * 2 + e >= klen) {
-        s[nt][e] = kNegInf;
-        s[nt][2 + e] = kNegInf;
+      if (k0 + nt * 8 + t * 2 + e < klen) {
+        mx[0] = fmaxf(mx[0], s[nt][e]);
+        mx[1] = fmaxf(mx[1], s[nt][2 + e]);
       }
-      mx0 = fmaxf(mx0, s[nt][e]);
-      mx1 = fmaxf(mx1, s[nt][2 + e]);
     }
   }
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-  const float mn0 = fmaxf(m[0], mx0), mn1 = fmaxf(m[1], mx1);
-  const float c0 = exp2f(m[0] - mn0), c1 = exp2f(m[1] - mn1);
-  const float f0 = exp2f(mx0 - mn0), f1 = exp2f(mx1 - mn1);
-  m[0] = mn0;
-  m[1] = mn1;
+}
+
+// K2v-qkpv, second sweep (TPU `_int8_fwd_body`, `quant_pv`): `s` leaves as
+// p_rel = exp2(s - m_block) with m_block the row max over the whole key
+// block (masked keys 0), and the row sum gains sum(p_rel) * f_raw with
+// f_raw = exp2(m_block - m_new), the block's factor.
+__device__ __forceinline__ void softmax_pv8(float (&s)[kNT][4], const float (&mb)[2],
+                                            const float (&f_raw)[2], float (&l)[2], int k0,
+                                            int klen) {
+  const int t = threadIdx.x & 3;
   float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
   for (int nt = 0; nt < kNT; ++nt) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      s[nt][e] = exp2f(s[nt][e] - mx0);
-      s[nt][2 + e] = exp2f(s[nt][2 + e] - mx1);
+      const bool masked = k0 + nt * 8 + t * 2 + e >= klen;
+      s[nt][e] = masked ? 0.f : exp2f(s[nt][e] - mb[0]);
+      s[nt][2 + e] = masked ? 0.f : exp2f(s[nt][2 + e] - mb[1]);
       rs0 += s[nt][e];
       rs1 += s[nt][2 + e];
     }
   }
-  l[0] = l[0] * c0 + rs0 * f0;
-  l[1] = l[1] * c1 + rs1 * f1;
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    acc[nd][0] *= c0;
-    acc[nd][1] *= c0;
-    acc[nd][2] *= c1;
-    acc[nd][3] *= c1;
-  }
-  f[0] = f0 * (1.f / 127.f);
-  f[1] = f1 * (1.f / 127.f);
+  l[0] += rs0 * f_raw[0];
+  l[1] += rs1 * f_raw[1];
 }
 
 // acc[16, D] += bf16(P[16, 64]) . bf16(V8_tile[64, D]): as pv_bf16, with V
@@ -269,17 +263,49 @@ __device__ __forceinline__ void pv_int8(float (&acc)[D / 8][4], const float (&p)
   }
 }
 
+// S[16, 64] = Q8[16, D] . K8_tile[64, D]^T on the s8 tensor cores, times
+// the slab scale (int32 -> fp32: the products are integers).
+template <int D>
+__device__ __forceinline__ void qk_int8(float (&s)[kNT][4], const uint32_t (&qa)[D / 32][4],
+                                        const int8_t* Ks, float scale) {
+  constexpr int kPitch8 = D + 16;  // bytes
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  int si[kNT][4];
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) si[nt][0] = si[nt][1] = si[nt][2] = si[nt][3] = 0;
+#pragma unroll
+  for (int kk = 0; kk < D / 32; ++kk) {
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const int8_t* kr = Ks + (nt * 8 + g) * kPitch8 + kk * 32 + t * 4;
+      mma_s8_16832(si[nt], qa[kk], ld32(kr), ld32(kr + 16));
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    s[nt][0] = float(si[nt][0]) * scale;
+    s[nt][1] = float(si[nt][1]) * scale;
+    s[nt][2] = float(si[nt][2]) * scale;
+    s[nt][3] = float(si[nt][3]) * scale;
+  }
+}
+
 // The int8 flash forward: K2 (kVBf16, online), K2v (kVInt8 / kPV8, online)
 // and K3 (kVBf16 / kVInt8, STATIC).  `sv` [B, N, D] scales the int8 V at
-// finalize; `mstat` [B*N, Lq / 64 blocks] is K3's bound; `lse` (K3 only,
-// may be null) receives M * ln2 + log(max(l, 1e-30)) as [B, N, Lq].
+// finalize; `mstat` [B*N, Lq / 64 blocks] is K3's bound; `pv_block` is
+// kPV8's quantisation block in keys (a multiple of kBlockK); `lse` (may be
+// null) receives m * ln2 + log(max(l, 1e-30)) as [B, N, Lq] -- K2-LSE, or
+// K3's M * ln2 + log(l).
+// At most 168 registers a thread (3 blocks of 128 threads on an SM's 65,536):
+// at 173 the online K2v-qkv instance fell to 2 blocks per SM and ran 8.7%
+// slower than at 168 (profile_window.py kernels, NVIDIA H100 80GB HBM3).
 template <int D, int VMODE, bool STATIC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 flash_fwd_int8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
                       const void* __restrict__ v, const float* __restrict__ sv,
                       const float* __restrict__ sqk, const float* __restrict__ mstat,
                       const int* __restrict__ k_lens, __nv_bfloat16* __restrict__ out,
-                      float* __restrict__ lse, int Lq, int Lk, int N) {
+                      float* __restrict__ lse, int Lq, int Lk, int N, int pv_block) {
   constexpr int kPitch8 = D + 16;  // bytes
   constexpr int kVRow = VMODE == kVBf16 ? 2 * D : D;  // bytes of one V row
   __shared__ __align__(16) int8_t Ks[kBlockK * kPitch8];
@@ -309,16 +335,51 @@ flash_fwd_int8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ 
   const long long v_rs = VMODE == kVBf16 ? rs * 2 : rs;  // bytes between V rows
   const char* vb = static_cast<const char*>(v) + ((long long)b * Lk * N + h) * kVRow;
 
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, f[2];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float acc[D / 8][4];
 #pragma unroll
   for (int nd = 0; nd < D / 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
 
-  // tiles wholly past klen are skipped: for kPV8 a fully masked tile would
-  // have m_tile = -1e30 and p_rel = 1 on every column
+  // tiles (and kPV8's blocks) wholly past klen are skipped: their mass is 0
   const int ntiles = (klen + kBlockK - 1) / kBlockK;
+  float mb[2], f_raw[2], f[2];  // kPV8: the block's row max and factors
   for (int it = 0; it < ntiles; ++it) {
     const int k0 = it * kBlockK;
+    if constexpr (VMODE == kPV8) {
+      if (k0 % pv_block == 0) {
+        // a new quantisation block: first sweep for the row max of its
+        // masked logits, then rescale acc and l once to the new running max
+        const int t1 = min(ntiles, it + pv_block / kBlockK);
+        float mx[2] = {kNegInf, kNegInf};
+        for (int jt = it; jt < t1; ++jt) {
+          load_tile<D>(reinterpret_cast<char*>(Ks), kb, rs, jt * kBlockK, Lk);
+          cp_async_commit();
+          cp_async_wait<0>();
+          __syncthreads();
+          float s[kNT][4];
+          qk_int8<D>(s, qa, Ks, scale);
+          tile_row_max(s, mx, jt * kBlockK, klen);
+          __syncthreads();
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float mn = fmaxf(m[r], mx[r]);
+          const float c = exp2f(m[r] - mn);
+          l[r] *= c;
+#pragma unroll
+          for (int nd = 0; nd < D / 8; ++nd) {
+            acc[nd][2 * r] *= c;
+            acc[nd][2 * r + 1] *= c;
+          }
+          m[r] = mn;
+          mb[r] = mx[r];
+          f_raw[r] = exp2f(mx[r] - mn);
+          f[r] = f_raw[r] * (1.f / 127.f);
+        }
+      }
+    }
     load_tile<D>(reinterpret_cast<char*>(Ks), kb, rs, k0, Lk);
     cp_async_commit();
     load_tile<kVRow>(Vs, vb, v_rs, k0, Lk);
@@ -326,29 +387,12 @@ flash_fwd_int8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ 
     cp_async_wait<1>();
     __syncthreads();
 
-    int si[kNT][4];
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) si[nt][0] = si[nt][1] = si[nt][2] = si[nt][3] = 0;
-#pragma unroll
-    for (int kk = 0; kk < D / 32; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        const int8_t* kr = Ks + (nt * 8 + g) * kPitch8 + kk * 32 + t * 4;
-        mma_s8_16832(si[nt], qa[kk], ld32(kr), ld32(kr + 16));
-      }
-    }
     float s[kNT][4];
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      s[nt][0] = float(si[nt][0]) * scale;
-      s[nt][1] = float(si[nt][1]) * scale;
-      s[nt][2] = float(si[nt][2]) * scale;
-      s[nt][3] = float(si[nt][3]) * scale;
-    }
+    qk_int8<D>(s, qa, Ks, scale);
     if constexpr (STATIC) {
       softmax_static(s, bound, l, k0, klen);
     } else if constexpr (VMODE == kPV8) {
-      softmax_update_pv8<D>(s, m, l, acc, f, k0, klen);
+      softmax_pv8(s, mb, f_raw, l, k0, klen);
     } else {
       softmax_update<D>(s, m, l, acc, k0, klen);
     }
@@ -382,12 +426,13 @@ flash_fwd_int8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ 
     }
   }
   store_rows<D>(out + ((long long)b * Lq * N + h) * D, rs, row_a, Lq, acc);
-  if constexpr (STATIC) {
-    if (lse != nullptr && t == 0) {
-      float* lse_bh = lse + (long long)bh * Lq;
-      if (row_a < Lq) lse_bh[row_a] = bound * kLn2 + logf(l0);
-      if (row_b < Lq) lse_bh[row_b] = bound * kLn2 + logf(l1);
-    }
+  if (lse != nullptr && t == 0) {
+    // the running max m is shared by the quad (reduced before every update);
+    // K3's M is the block's bound
+    const float m0 = STATIC ? bound : m[0], m1 = STATIC ? bound : m[1];
+    float* lse_bh = lse + (long long)bh * Lq;
+    if (row_a < Lq) lse_bh[row_a] = m0 * kLn2 + logf(l0);
+    if (row_b < Lq) lse_bh[row_b] = m1 * kLn2 + logf(l1);
   }
 }
 
@@ -427,7 +472,10 @@ namespace {
 template <int VMODE, bool STATIC>
 int launch_int8(const void* q8, const void* k8, const void* v, const void* sv, const void* sqk,
                 const void* mstat, const void* k_lens, void* out, void* lse, int B, int Lq,
-                int Lk, int N, int D, void* stream) {
+                int Lk, int N, int D, int pv_block, void* stream) {
+  if (VMODE == sa::kPV8 && (pv_block <= 0 || pv_block % sa::kBlockK != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const dim3 grid((Lq + sa::kBlockQ - 1) / sa::kBlockQ, B * N);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto q_ = static_cast<const int8_t*>(q8);
@@ -440,10 +488,10 @@ int launch_int8(const void* q8, const void* k8, const void* v, const void* sv, c
   auto lse_ = static_cast<float*>(lse);
   if (D == 128) {
     sa::flash_fwd_int8_kernel<128, VMODE, STATIC><<<grid, sa::kThreads, 0, st>>>(
-        q_, k_, v, sv_, s_, ms_, kl, o_, lse_, Lq, Lk, N);
+        q_, k_, v, sv_, s_, ms_, kl, o_, lse_, Lq, Lk, N, pv_block);
   } else if (D == 64) {
     sa::flash_fwd_int8_kernel<64, VMODE, STATIC><<<grid, sa::kThreads, 0, st>>>(
-        q_, k_, v, sv_, s_, ms_, kl, o_, lse_, Lq, Lk, N);
+        q_, k_, v, sv_, s_, ms_, kl, o_, lse_, Lq, Lk, N, pv_block);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -452,30 +500,31 @@ int launch_int8(const void* q8, const void* k8, const void* v, const void* sv, c
 
 }  // namespace
 
-// K2: bf16 V
+// K2 (and K2-LSE with a non-null lse [B, N, Lq]): bf16 V
 extern "C" int sa_flash_fwd_int8_qk(const void* q8, const void* k8, const void* v,
-                                    const void* sqk, const void* k_lens, void* out, int B, int Lq,
-                                    int Lk, int N, int D, void* stream) {
-  return launch_int8<sa::kVBf16, false>(q8, k8, v, nullptr, sqk, nullptr, k_lens, out, nullptr,
-                                        B, Lq, Lk, N, D, stream);
+                                    const void* sqk, const void* k_lens, void* out, void* lse,
+                                    int B, int Lq, int Lk, int N, int D, void* stream) {
+  return launch_int8<sa::kVBf16, false>(q8, k8, v, nullptr, sqk, nullptr, k_lens, out, lse, B,
+                                        Lq, Lk, N, D, 0, stream);
 }
 
 // K2v-qkv: int8 V [B, Lk, N, D] with per-channel scales sv [B, N, D]
 extern "C" int sa_flash_fwd_int8_qkv(const void* q8, const void* k8, const void* v8,
                                      const void* sv, const void* sqk, const void* k_lens,
-                                     void* out, int B, int Lq, int Lk, int N, int D,
+                                     void* out, void* lse, int B, int Lq, int Lk, int N, int D,
                                      void* stream) {
-  return launch_int8<sa::kVInt8, false>(q8, k8, v8, sv, sqk, nullptr, k_lens, out, nullptr, B,
-                                        Lq, Lk, N, D, stream);
+  return launch_int8<sa::kVInt8, false>(q8, k8, v8, sv, sqk, nullptr, k_lens, out, lse, B, Lq,
+                                        Lk, N, D, 0, stream);
 }
 
-// K2v-qkpv: as qkv, with P quantised to int8 per row and tile
+// K2v-qkpv: as qkv, with P quantised to int8 per row against its maximum
+// over each block of pv_block keys (a positive multiple of 64)
 extern "C" int sa_flash_fwd_int8_qkpv(const void* q8, const void* k8, const void* v8,
                                       const void* sv, const void* sqk, const void* k_lens,
-                                      void* out, int B, int Lq, int Lk, int N, int D,
-                                      void* stream) {
-  return launch_int8<sa::kPV8, false>(q8, k8, v8, sv, sqk, nullptr, k_lens, out, nullptr, B, Lq,
-                                      Lk, N, D, stream);
+                                      void* out, void* lse, int B, int Lq, int Lk, int N, int D,
+                                      int pv_block, void* stream) {
+  return launch_int8<sa::kPV8, false>(q8, k8, v8, sv, sqk, nullptr, k_lens, out, lse, B, Lq, Lk,
+                                      N, D, pv_block, stream);
 }
 
 // K3 with bf16 V; mstat [B*N, ceil(Lq / 64)], lse [B, N, Lq] or NULL
@@ -484,7 +533,7 @@ extern "C" int sa_flash_fwd_int8_static_qk(const void* q8, const void* k8, const
                                            const void* k_lens, void* out, void* lse, int B,
                                            int Lq, int Lk, int N, int D, void* stream) {
   return launch_int8<sa::kVBf16, true>(q8, k8, v, nullptr, sqk, mstat, k_lens, out, lse, B, Lq,
-                                       Lk, N, D, stream);
+                                       Lk, N, D, 0, stream);
 }
 
 // K3 with int8 V and its scales
@@ -493,5 +542,5 @@ extern "C" int sa_flash_fwd_int8_static_qkv(const void* q8, const void* k8, cons
                                             const void* k_lens, void* out, void* lse, int B,
                                             int Lq, int Lk, int N, int D, void* stream) {
   return launch_int8<sa::kVInt8, true>(q8, k8, v8, sv, sqk, mstat, k_lens, out, lse, B, Lq, Lk,
-                                       N, D, stream);
+                                       N, D, 0, stream);
 }

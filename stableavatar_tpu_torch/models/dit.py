@@ -5,15 +5,29 @@ the block parameters on a leading layer axis for `lax.scan`; here `blocks`
 is a list of per-layer dicts walked by a Python loop.  Linear weights are in
 `nn.Linear` layout [d_out, d_in].  The patch embedding stays a reshape plus
 one matmul, as in the JAX package.
+
+Under a mesh (`parallel/mesh.py:mesh_context`) whose 'sp' axis has W > 1
+ranks, `dit_forward` runs the blocks sequence-parallel: the prologue (the
+vocal projector reads every token) runs whole on every rank, then rank r
+keeps tokens [r L/W, (r+1) L/W), and the tokens are all-gathered before the
+head.  Self-attention either turns [B, L/W, N, D] into [B, L, N/W, D] with
+an all-to-all around the attention call and back (attn_impl="ulysses"), or
+keeps the tokens where they are and rotates K/V around the ring
+(attn_impl="ring", `ops/ring_attention.py`, rope applied first); the
+cross-attention runs on the local queries.  Parameters sharded over 'fsdp'
+(`parallel/sharding.py:shard_params`) are gathered block by block.  One
+rank, or no mesh, takes none of these paths.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -21,7 +35,16 @@ from stableavatar_tpu_torch.ops.attention import attention
 from stableavatar_tpu_torch.ops.cross_attention import dual_context_attention
 from stableavatar_tpu_torch.ops.embeddings import sinusoidal_embedding_1d
 from stableavatar_tpu_torch.ops.norms import layer_norm, rms_norm
-from stableavatar_tpu_torch.ops.rope import RopeFreqs, pack_split, rope_apply, rope_freqs_3d
+from stableavatar_tpu_torch.ops.ring_attention import ring_attention
+from stableavatar_tpu_torch.ops.rope import (
+    RopeFreqs,
+    pack_split,
+    rope_apply,
+    rope_apply_split,
+    rope_freqs_3d,
+)
+from stableavatar_tpu_torch.parallel.mesh import all_gather_dim0, axis_group, axis_rank, axis_size
+from stableavatar_tpu_torch.parallel.sharding import gather_block
 from stableavatar_tpu_torch.models.vocal_projector import (
     _affine,
     _linear,
@@ -112,22 +135,97 @@ def init_dit(gen: torch.Generator, cfg, device="cuda", dtype=torch.float32):
 # ---------------------------------------------------------------------------
 
 
-def _self_attention(p, x, freqs: RopeFreqs, num_heads, eps, rope_packed=None, quant="none"):
+ATTN_IMPLS = ("ulysses", "ring")
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqShard:
+    """This rank's slice of the token sequence: tokens [start, start +
+    length) of `total`, one of `size` equal slices over the sp `group`."""
+
+    group: dist.ProcessGroup
+    size: int
+    start: int
+    length: int
+    total: int
+
+
+def _seq_shard(length: int) -> Optional[SeqShard]:
+    """The active mesh's sequence slice of a [B, length, ...] activation
+    that is already sliced, or None with one sp rank (or no mesh)."""
+    w = axis_size("sp")
+    if w == 1:
+        return None
+    return SeqShard(axis_group("sp"), w, axis_rank("sp") * length, length, w * length)
+
+
+def _rope_rows(freqs: RopeFreqs, rope_packed, sp: Optional[SeqShard]):
+    """The rope tables' rows of this rank's tokens."""
+    if sp is None:
+        return freqs, rope_packed
+    rows = slice(sp.start, sp.start + sp.length)
+    return (RopeFreqs(freqs.cos[rows], freqs.sin[rows]),
+            None if rope_packed is None else rope_packed[rows])
+
+
+def _seq_to_heads(x, sp: SeqShard):
+    """Ulysses all-to-all: [B, L/W, N, D] -> [B, L, N/W, D] (rank j gets head
+    group j of every slice, in slice order)."""
+    b, lw, n, d = x.shape
+    send = x.reshape(b, lw, sp.size, n // sp.size, d).permute(2, 0, 1, 3, 4).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=sp.group)
+    return recv.permute(1, 0, 2, 3, 4).reshape(b, sp.size * lw, n // sp.size, d)
+
+
+def _heads_to_seq(x, sp: SeqShard):
+    """The inverse all-to-all: [B, L, N/W, D] -> [B, L/W, N, D]."""
+    b, l, nw, d = x.shape
+    send = x.reshape(b, sp.size, l // sp.size, nw, d).permute(1, 0, 2, 3, 4).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=sp.group)
+    return recv.permute(1, 2, 0, 3, 4).reshape(b, l // sp.size, sp.size * nw, d)
+
+
+def _gather_seq(x, sp: SeqShard):
+    """All-gather the token slices: [B, L/W, C] -> [B, L, C]."""
+    full = all_gather_dim0(x, sp.group).reshape(sp.size, *x.shape)
+    return full.transpose(0, 1).reshape(x.shape[0], sp.size * x.shape[1], *x.shape[2:])
+
+
+def _self_attention(p, x, freqs: RopeFreqs, num_heads, eps, rope_packed=None, quant="none",
+                    attn_impl="ulysses"):
     """WanSelfAttention.  With `rope_packed` (fast path) q/k weights are in
-    split-pair layout and rope is applied by the attention call; otherwise
-    it is applied here from the interleaved tables."""
+    split-pair layout and rope is applied by the attention call (by this
+    function before the ring under attn_impl="ring", as in the JAX
+    package); otherwise it is applied here from the interleaved tables.
+    `freqs` / `rope_packed` cover the whole sequence; under sequence
+    parallelism x holds this rank's tokens (see the module docstring)."""
     b, l, dim = x.shape
     d = dim // num_heads
+    sp = _seq_shard(l)
+    freqs_local, rope_local = _rope_rows(freqs, rope_packed, sp)
     q = rms_norm(apply_linear(p["q"], x), p["norm_q"]["w"], eps).reshape(b, l, num_heads, d)
     k = rms_norm(apply_linear(p["k"], x), p["norm_k"]["w"], eps).reshape(b, l, num_heads, d)
     v = apply_linear(p["v"], x).reshape(b, l, num_heads, d)
     if rope_packed is None:
-        q = rope_apply(q, freqs).to(x.dtype)
-        k = rope_apply(k, freqs).to(x.dtype)
+        q = rope_apply(q, freqs_local).to(x.dtype)
+        k = rope_apply(k, freqs_local).to(x.dtype)
+    elif attn_impl == "ring":
+        # positions are global and K/V move between ranks: rope first
+        q = rope_apply_split(q, rope_local).to(x.dtype)
+        k = rope_apply_split(k, rope_local).to(x.dtype)
+        rope_packed = None
     else:
         q = q.to(x.dtype)
         k = k.to(x.dtype)
-    out = attention(q, k, v, rope=rope_packed, quant=quant)
+    if sp is None:
+        out = attention(q, k, v, rope=rope_packed, quant=quant)
+    elif attn_impl == "ring":
+        out = ring_attention(q, k, v, group=sp.group, quant=quant)
+    else:
+        q, k, v = (_seq_to_heads(t, sp) for t in (q, k, v))
+        out = _heads_to_seq(attention(q, k, v, rope=rope_packed, quant=quant), sp)
     return apply_linear(p["o"], out.reshape(b, l, dim))
 
 
@@ -135,7 +233,8 @@ def _cross_attention(p, x, context_text, context_img, vocal_context, vocal_k_len
                      num_heads, latents_num_frames, eps, fused=False):
     """Text + image + per-frame vocal cross-attention, summed; bf16 (no int8
     attention) as in the JAX package.  `fused` takes the K5 kernel for the
-    text + image pair."""
+    text + image pair.  Under sequence parallelism x holds this rank's
+    tokens, which may start and end inside a latent frame."""
     b, l, dim = x.shape
     d = dim // num_heads
     f = latents_num_frames
@@ -162,12 +261,25 @@ def _cross_attention(p, x, context_text, context_img, vocal_context, vocal_k_len
         vv = apply_linear(p["v_vocal"], vocal_context[:, 0]).reshape(b, -1, num_heads, d)
         voc = attention(q, vk, vv)
     else:
-        # vocal branch: per-latent-frame attention, q regrouped to [b*f, l/f, ...]
-        vq = q.reshape(b * f, l // f, num_heads, d)
-        vk = apply_linear(p["k_vocal"], vocal_context).reshape(b * f, -1, num_heads, d)
-        vv = apply_linear(p["v_vocal"], vocal_context).reshape(b * f, -1, num_heads, d)
-        klens = None if vocal_k_lens is None else vocal_k_lens.repeat(b)
-        voc = attention(vq, vk, vv, k_lens=klens).reshape(b, l, num_heads, d)
+        # vocal branch: per-latent-frame attention, q regrouped to [b*nf,
+        # tokens per frame, ...] over the frames this rank's tokens touch (all
+        # f without sequence parallelism); a slice that starts or ends inside
+        # a frame is zero-padded to whole frames, the padding rows dropped
+        sp = _seq_shard(l)
+        start, total = (0, l) if sp is None else (sp.start, sp.total)
+        per = total // f
+        f0, f1 = start // per, -(-(start + l) // per)
+        off, nf = start - f0 * per, f1 - f0
+        vq = q if (off, nf * per) == (0, l) else torch.cat(
+            [q.new_zeros((b, off, num_heads, d)), q,
+             q.new_zeros((b, nf * per - off - l, num_heads, d))], dim=1)
+        vq = vq.reshape(b * nf, per, num_heads, d)
+        vc = vocal_context[:, f0:f1]
+        vk = apply_linear(p["k_vocal"], vc).reshape(b * nf, -1, num_heads, d)
+        vv = apply_linear(p["v_vocal"], vc).reshape(b * nf, -1, num_heads, d)
+        klens = None if vocal_k_lens is None else vocal_k_lens[f0:f1].repeat(b)
+        voc = attention(vq, vk, vv, k_lens=klens).reshape(b, nf * per, num_heads, d)
+        voc = voc[:, off:off + l]
 
     out = txt_img.reshape(b, l, dim) + voc.reshape(b, l, dim)
     return apply_linear(p["o"], out)
@@ -175,14 +287,15 @@ def _cross_attention(p, x, context_text, context_img, vocal_context, vocal_k_len
 
 def apply_block(p, x, e0, context_text, context_img, vocal_context, vocal_k_lens,
                 freqs: RopeFreqs, cfg, latents_num_frames: int, rope_packed=None,
-                attn_quant="none", fuse_cross=False):
-    """WanAttentionBlock."""
+                attn_quant="none", attn_impl="ulysses", fuse_cross=False):
+    """WanAttentionBlock; x holds this rank's tokens under sequence
+    parallelism, `attn_impl` picks its self-attention strategy."""
     e = p["modulation"].to(e0.dtype) + e0  # [B, 6, dim]
     e = [e[:, i : i + 1] for i in range(6)]
 
     temp = (layer_norm(x, eps=cfg.eps) * (1 + e[1]) + e[0]).to(x.dtype)
     y = _self_attention(p["self_attn"], temp, freqs, cfg.num_heads, cfg.eps,
-                        rope_packed=rope_packed, quant=attn_quant)
+                        rope_packed=rope_packed, quant=attn_quant, attn_impl=attn_impl)
     x = x + y * e[2]
 
     normed = layer_norm(x, p["norm3"]["w"], p["norm3"]["b"], eps=cfg.eps)
@@ -288,11 +401,34 @@ def dit_prologue(params, cfg, x, t, text_embeds, clip_fea, y, vocal_embeddings,
             rope_packed, grid, latents_num_frames)
 
 
+def _sp_check(cfg, n_tokens: int, attn_impl: str) -> Optional[int]:
+    """The sp size when the blocks run sequence-parallel (None otherwise),
+    after checking that it splits what it has to split."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {attn_impl!r}; one of {ATTN_IMPLS}")
+    w = axis_size("sp")
+    if w == 1:
+        return None
+    if n_tokens % w:
+        raise ValueError(f"sequence parallelism over {w} ranks needs the token count to be a "
+                         f"multiple of {w}: {n_tokens} tokens")
+    if attn_impl == "ulysses" and cfg.num_heads % w:
+        raise ValueError(f"Ulysses over {w} ranks needs the head count to be a multiple of {w}: "
+                         f"{cfg.num_heads} heads (attn_impl='ring' splits tokens only)")
+    return w
+
+
+def _top_params(params):
+    """The parameters outside the block stack, gathered where sharded."""
+    return gather_block({k: v for k, v in params.items() if k != "blocks"})
+
+
 def dit_forward(params, cfg, x, t, text_embeds, clip_fea, y, vocal_embeddings,
                 video_sample_n_frames: int = 81, vocal_cfg_tile: bool = False,
                 is_clip_level_modeling: bool = False, freqs: Optional[RopeFreqs] = None,
                 remat: bool = False, rope_split: bool = False, attn_quant: str = "none",
-                honor_vocal_k_lens: bool = True, return_residual: bool = False):
+                attn_impl: str = "ulysses", honor_vocal_k_lens: bool = True,
+                return_residual: bool = False):
     """One denoise evaluation; returns the velocity [B, 16, F, H, W] in fp32.
 
     x [B, 16, F, H, W], t [B], text_embeds [B, text_len, text_dim], clip_fea
@@ -305,27 +441,38 @@ def dit_forward(params, cfg, x, t, text_embeds, clip_fea, y, vocal_embeddings,
     `attn_quant` in {"none", "qk", "qkv", "qkpv"} picks the self-attention
     kernel (K1, or K2 / K2v / K3 by `ops/flash_attention.py:STATIC_MAX`), and
     the fused cross-attention kernel K5 is on exactly when it is not "none"
-    (the JAX package's `fuse_cross_attn` auto rule).
+    (the JAX package's `fuse_cross_attn` auto rule).  `attn_impl`
+    ("ulysses" | "ring") is the sequence-parallel self-attention under a
+    mesh with more than one 'sp' rank (module docstring).
     `honor_vocal_k_lens=False` drops the vocal padding masks like the
     reference's SDPA deployment.  `return_residual` also returns the block
     stack's delta [B, L, dim] (TeaCache's cached residual).
     """
+    top = _top_params(params)
     (tokens, e, e0, context_text, context_img, vocal_context, vocal_k_lens, freqs,
      rope_packed, grid, latents_num_frames) = dit_prologue(
-        params, cfg, x, t, text_embeds, clip_fea, y, vocal_embeddings,
+        top, cfg, x, t, text_embeds, clip_fea, y, vocal_embeddings,
         video_sample_n_frames=video_sample_n_frames, vocal_cfg_tile=vocal_cfg_tile,
         is_clip_level_modeling=is_clip_level_modeling, freqs=freqs,
         rope_split=rope_split, honor_vocal_k_lens=honor_vocal_k_lens)
 
     tokens_in = tokens
+    w = _sp_check(cfg, tokens.shape[1], attn_impl)
+    if w is not None:
+        lw = tokens.shape[1] // w
+        r = axis_rank("sp")
+        tokens = tokens[:, r * lw:(r + 1) * lw]
     for bp in params["blocks"]:
         block = functools.partial(
-            apply_block, bp, e0=e0, context_text=context_text, context_img=context_img,
-            vocal_context=vocal_context, vocal_k_lens=vocal_k_lens, freqs=freqs, cfg=cfg,
-            latents_num_frames=latents_num_frames, rope_packed=rope_packed,
-            attn_quant=attn_quant, fuse_cross=attn_quant != "none")
+            apply_block, gather_block(bp), e0=e0, context_text=context_text,
+            context_img=context_img, vocal_context=vocal_context, vocal_k_lens=vocal_k_lens,
+            freqs=freqs, cfg=cfg, latents_num_frames=latents_num_frames,
+            rope_packed=rope_packed, attn_quant=attn_quant, attn_impl=attn_impl,
+            fuse_cross=attn_quant != "none")
         tokens = checkpoint(block, tokens, use_reentrant=False) if remat else block(tokens)
-    out = _apply_head(params, cfg, tokens, e, grid)
+    if w is not None:
+        tokens = _gather_seq(tokens, _seq_shard(tokens.shape[1]))
+    out = _apply_head(top, cfg, tokens, e, grid)
     if return_residual:
         return out, tokens - tokens_in
     return out
@@ -342,12 +489,15 @@ def _apply_head(params, cfg, tokens, e, grid):
 
 def dit_time_e0(params, cfg, t: torch.Tensor, dtype=torch.bfloat16):
     """The modulated time embedding e0 [B, 6, dim]: TeaCache's input."""
-    return time_embeddings(params, cfg, t, dtype)[1]
+    return time_embeddings(_top_params(params), cfg, t, dtype)[1]
 
 
 def dit_forward_skip(params, cfg, x, t, y, residual):
     """TeaCache's skip path: patch embedding + the cached block-stack
-    residual [B, L, dim] + head, no blocks."""
+    residual [B, L, dim] + head, no blocks.  It has no attention, so under
+    sequence parallelism it runs whole on every rank on the whole residual
+    (which `dit_forward` returns gathered)."""
+    params = _top_params(params)
     b, _, f, h, w = x.shape
     pt, ph, pw = cfg.patch_size
     grid = (f // pt, h // ph, w // pw)

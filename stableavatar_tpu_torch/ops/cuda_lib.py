@@ -43,11 +43,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # q, k, v, k_lens, out, lse, B, Lq, Lk, N, D, scale_log2, stream
     "sa_flash_fwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    # q8, k8, v, sqk, k_lens, out, B, Lq, Lk, N, D, stream
-    "sa_flash_fwd_int8_qk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # q8, k8, v8, sv, sqk, k_lens, out, B, Lq, Lk, N, D, stream
-    "sa_flash_fwd_int8_qkv": [_P] * 7 + [_I] * 5 + [_P],
-    "sa_flash_fwd_int8_qkpv": [_P] * 7 + [_I] * 5 + [_P],
+    # q8, k8, v, sqk, k_lens, out, lse, B, Lq, Lk, N, D, stream
+    "sa_flash_fwd_int8_qk": [_P] * 7 + [_I] * 5 + [_P],
+    # q8, k8, v8, sv, sqk, k_lens, out, lse, B, Lq, Lk, N, D, stream
+    "sa_flash_fwd_int8_qkv": [_P] * 8 + [_I] * 5 + [_P],
+    # q8, k8, v8, sv, sqk, k_lens, out, lse, B, Lq, Lk, N, D, pv_block, stream
+    "sa_flash_fwd_int8_qkpv": [_P] * 8 + [_I] * 6 + [_P],
     # q8, k8, v, sqk, mstat, k_lens, out, lse, B, Lq, Lk, N, D, stream
     "sa_flash_fwd_int8_static_qk": [_P] * 8 + [_I] * 5 + [_P],
     # q8, k8, v8, sv, sqk, mstat, k_lens, out, lse, B, Lq, Lk, N, D, stream

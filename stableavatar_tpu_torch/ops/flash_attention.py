@@ -1,6 +1,7 @@
 """Flash attention: kernels K1 (bf16 forward, optional LSE), K2 (int8 Q.K^T
-forward), K2v (K2 with int8 V: "qkv", "qkpv"), K3 (K2 / K2v-qkv with the
-static-bound softmax) and K4 (the bf16 backward).
+forward), K2v (K2 with int8 V: "qkv", "qkpv"), K2-LSE (K2 / K2v with the LSE
+output), K3 (K2 / K2v-qkv with the static-bound softmax) and K4 (the bf16
+backward).
 
 Port of `stableavatar_tpu/ops/flash_attention.py`.  On a CUDA tensor
 `flash_attention` launches a hand-written Hopper kernel
@@ -23,10 +24,13 @@ are roped (split-pair layout) in fp32 and quantised to int8 with ONE absmax
 scale per (batch, head) over the whole sequence (`_quant_slab`), and the
 kernel multiplies the int32 logits by sqk = sq * sk * scale * log2(e).
 "qkv" / "qkpv" also quantise V per channel (`quantize_v`); the output keeps
-the unquantised V's dtype.  `STATIC_MAX` (env `STABLEAVATAR_STATIC_MAX=1`,
-read at import as in the JAX package) or `static_max=True` replaces the
-online max of "qk" / "qkv" by K3's precomputed bound (`static_bound`);
-"qkpv" ignores it.
+the unquantised V's dtype.  "qkpv" quantises P per row against its maximum
+over the JAX package's key block, `min(1536, round_up(Lk, 128))` in
+`flash_attention` and `min(1024, round_up(Lk, 128))` in
+`flash_attention_with_stats` (`jax_key_block`), on the CPU and on the card.
+`STATIC_MAX` (env `STABLEAVATAR_STATIC_MAX=1`, read at import as in the JAX
+package) or `static_max=True` replaces the online max of "qk" / "qkv" by
+K3's precomputed bound (`static_bound`); "qkpv" ignores it.
 
 The plain versions reproduce the kernels' arithmetic exactly where it is
 exact (int8 products are integers, exact in fp32 up to 2^24; bf16 products
@@ -53,18 +57,30 @@ LN2 = 0.6931471805599453
 # JAX package)
 STATIC_MAX = os.environ.get("STABLEAVATAR_STATIC_MAX", "0") == "1"
 
-# kernel launches, counted where each wrapper launches its kernel; K1 with
-# and without its LSE output count apart
+# kernel launches, counted where each wrapper launches its kernel; K1 and
+# the online int8 kernels with and without their LSE output count apart
 launch_counts = {"flash_fwd_bf16": 0, "flash_fwd_bf16_lse": 0, "flash_fwd_int8_qk": 0,
                  "flash_fwd_int8_qkv": 0, "flash_fwd_int8_qkpv": 0,
+                 "flash_fwd_int8_qk_lse": 0, "flash_fwd_int8_qkv_lse": 0,
+                 "flash_fwd_int8_qkpv_lse": 0,
                  "flash_fwd_int8_static_qk": 0, "flash_fwd_int8_static_qkv": 0,
                  "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+
+# the JAX package's default key blocks of the int8 paths: `flash_attention`
+# and `flash_attention_with_stats`, each capped to Lk rounded up to 128
+INT8_BLOCK_K = 1536
+STATS_BLOCK_K = 1024
 
 # query rows per thread block of the CUDA kernels: K3's bound is per block
 KERNEL_BLOCK_Q = 64
 
 # bytes of fp32 logits one plain-version chunk may hold
 _PLAIN_CHUNK_BYTES = 1 << 30
+
+
+def jax_key_block(lk: int, block_k: int) -> int:
+    """The JAX package's effective key block: min(block_k, round_up(lk, 128))."""
+    return min(block_k, -(-lk // 128) * 128)
 
 
 def _quant_slab(x: torch.Tensor):
@@ -186,14 +202,17 @@ def _flash_bwd_plain(q, k, v, k_lens, out, lse, g, scale=None):
 
 
 def _flash_int8_plain(q8, k8, v, sqk, k_lens=None, quant: str = "qk", sv=None,
-                      block_k: int = 1536, out_dtype=None):
-    """Plain K2 and its off-slice variants on prepared int8 operands.
+                      block_k: int = INT8_BLOCK_K, out_dtype=None, with_lse: bool = False):
+    """Plain K2, K2v and K2-LSE on prepared int8 operands.
 
     q8/k8 int8 [B, L, N, D]; v [B, Lk, N, D] in the output dtype for "qk",
     int8 with per-channel scales `sv` [B, 1, N, D] for "qkv" / "qkpv";
     sqk [B*N] fp32 (sq * sk * scale * log2 e).  "qkpv" quantises P per row to
-    its block max (as the TPU body does), so its result depends on block_k.
-    out_dtype defaults to v's dtype (pass the unquantised V's for "qkv"/"qkpv").
+    its maximum within each key block of `block_k` keys (as the TPU body
+    does), so its result depends on block_k: pass the JAX package's block
+    (`jax_key_block`).  out_dtype defaults to v's dtype (pass the
+    unquantised V's for "qkv"/"qkpv").  With `with_lse` also returns the
+    natural-log LSE [B, N, Lq] fp32, m * ln2 + log(max(l, 1e-30)).
     """
     b, lq, n, d = q8.shape
     lk = k8.shape[1]
@@ -220,11 +239,13 @@ def _flash_int8_plain(q8, k8, v, sqk, k_lens=None, quant: str = "qk", sv=None,
         pb = p.to(torch.bfloat16 if quant == "qkv" else v.dtype).float()
         return pb @ vb, p.sum(-1, keepdim=True)
 
-    out = _online_softmax_plain(logits, k_lens, lq, lk, min(block_k, lk),
-                                (b, n, lq, d), pv, q8.device)
+    res = _online_softmax_plain(logits, k_lens, lq, lk, min(block_k, lk),
+                                (b, n, lq, d), pv, q8.device, with_lse=with_lse)
+    out, lse = res if with_lse else (res, None)
     if quant in ("qkv", "qkpv"):
         out = out * sv.permute(0, 2, 1, 3)
-    return out.to(out_dtype).permute(0, 2, 1, 3)
+    out = out.to(out_dtype).permute(0, 2, 1, 3)
+    return (out, lse) if with_lse else out
 
 
 def static_bound(q8, k8, sqk, block_q: int = KERNEL_BLOCK_Q):
@@ -398,17 +419,18 @@ class _Flash(torch.autograd.Function):
 
 
 def _flash_int8_cuda(q8, k8, v, sqk, k_lens, quant: str = "qk", sv=None,
-                     mstat=None, with_lse: bool = False):
+                     mstat=None, with_lse: bool = False, pv_block: Optional[int] = None):
     """K2 ("qk"), K2v ("qkv", "qkpv") or, given K3's bound `mstat` (the
     prep's `static_bound`), K3 ("qk" / "qkv") on prepared operands: v bf16
-    for "qk", int8 with scales sv [B, 1, N, D] otherwise.  Returns bf16 out,
-    and with `with_lse` (K3 only) the LSE [B, N, Lq] fp32."""
+    for "qk", int8 with scales sv [B, 1, N, D] otherwise.  "qkpv" quantises
+    P on key blocks of `pv_block` keys (default: `flash_attention`'s JAX
+    block).  Returns bf16 out, and with `with_lse` (K2-LSE, or K3's LSE) the
+    LSE [B, N, Lq] fp32."""
     b, lq, n, d = q8.shape
     lk = k8.shape[1]
     static = mstat is not None
-    if (static and quant == "qkpv") or (with_lse and not static):
-        raise ValueError(f"no int8 kernel for quant={quant!r}, static={static}, "
-                         f"with_lse={with_lse} (K2-LSE: ROADMAP queue 2)")
+    if static and quant == "qkpv":
+        raise ValueError(f"no int8 kernel for quant={quant!r}, static={static}")
     _check("q8", q8, torch.int8)
     _check("k8", k8, torch.int8, (b, lk, n, d))
     _check("sqk", sqk, torch.float32, (b * n,))
@@ -423,13 +445,48 @@ def _flash_int8_cuda(q8, k8, v, sqk, k_lens, quant: str = "qk", sv=None,
         ptrs.append(mstat.data_ptr())
     out = torch.empty(q8.shape, dtype=torch.bfloat16, device=q8.device)
     lse = torch.empty((b, n, lq), dtype=torch.float32, device=q8.device) if with_lse else None
-    ptrs += [None if k_lens is None else k_lens.data_ptr(), out.data_ptr()]
-    if static:
-        ptrs.append(None if lse is None else lse.data_ptr())
+    ptrs += [None if k_lens is None else k_lens.data_ptr(), out.data_ptr(),
+             None if lse is None else lse.data_ptr()]
+    dims = [b, lq, lk, n, d]
+    if quant == "qkpv":
+        pv_block = jax_key_block(lk, INT8_BLOCK_K) if pv_block is None else pv_block
+        if pv_block <= 0 or pv_block % 64:
+            raise ValueError(f"pv_block {pv_block}: the kernel takes positive multiples of 64")
+        dims.append(pv_block)
     name = f"flash_fwd_int8_{'static_' if static else ''}{quant}"
-    cuda_lib.launch(f"sa_{name}", *ptrs, b, lq, lk, n, d)
+    cuda_lib.launch(f"sa_{name}", *ptrs, *dims)
+    name += "_lse" if with_lse and not static else ""
     launch_counts[name] += 1
     return (out, lse) if with_lse else out
+
+
+def _flash_int8(q, k, v, k_lens, scale, rope, quant, static_max, block_k, with_lse=False):
+    """The int8 paths of `flash_attention` and `flash_attention_with_stats`:
+    the plain-torch prep, then the kernel (CUDA) or its plain version (CPU).
+    `block_k` is the JAX entry point's default key block, on which "qkpv"
+    quantises P."""
+    if quant not in ("qk", "qkv", "qkpv"):
+        raise ValueError(f"unknown quant {quant!r}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise ValueError(f"quant={quant!r}: the int8 flash paths are not differentiable "
+                         "(inference only, as in the JAX package)")
+    static = bool(STATIC_MAX if static_max is None else static_max) and quant != "qkpv"
+    pv_block = jax_key_block(k.shape[1], block_k)
+    q8, k8, sqk = prepare_int8(q, k, rope, scale)
+    sv, out_dtype = None, v.dtype
+    if q.is_cuda and out_dtype != torch.bfloat16:
+        raise TypeError(f"v: the int8 kernels write bf16 outputs, got v in {out_dtype}")
+    if quant != "qk":
+        v, sv = quantize_v(v)
+    if q.is_cuda:
+        mstat = static_bound(q8, k8, sqk) if static else None
+        return _flash_int8_cuda(q8, k8, v, sqk, k_lens, quant=quant, sv=sv, mstat=mstat,
+                                with_lse=with_lse, pv_block=pv_block)
+    if static:
+        return _flash_int8_static_plain(q8, k8, v, sqk, k_lens, quant=quant, sv=sv,
+                                        out_dtype=out_dtype, with_lse=with_lse)
+    return _flash_int8_plain(q8, k8, v, sqk, k_lens, quant=quant, sv=sv, block_k=pv_block,
+                             out_dtype=out_dtype, with_lse=with_lse)
 
 
 def flash_attention(
@@ -466,40 +523,25 @@ def flash_attention(
         if q.is_cuda:
             return _flash_fwd_cuda(q, k, v, k_lens, scale)
         return _flash_fwd_plain(q, k, v, k_lens, scale)
-    if quant not in ("qk", "qkv", "qkpv"):
-        raise ValueError(f"unknown quant {quant!r}")
-    if needs_grad:
-        raise ValueError(f"quant={quant!r}: the int8 flash paths are not differentiable "
-                         "(inference only, as in the JAX package)")
-    static = bool(STATIC_MAX if static_max is None else static_max) and quant != "qkpv"
-    q8, k8, sqk = prepare_int8(q, k, rope, scale)
-    sv, out_dtype = None, v.dtype
-    if q.is_cuda and out_dtype != torch.bfloat16:
-        raise TypeError(f"v: the int8 kernels write bf16 outputs, got v in {out_dtype}")
-    if quant != "qk":
-        v, sv = quantize_v(v)
-    if q.is_cuda:
-        mstat = static_bound(q8, k8, sqk) if static else None
-        return _flash_int8_cuda(q8, k8, v, sqk, k_lens, quant=quant, sv=sv, mstat=mstat)
-    if static:
-        return _flash_int8_static_plain(q8, k8, v, sqk, k_lens, quant=quant, sv=sv,
-                                        out_dtype=out_dtype)
-    return _flash_int8_plain(q8, k8, v, sqk, k_lens, quant=quant, sv=sv, out_dtype=out_dtype)
+    return _flash_int8(q, k, v, k_lens, scale, rope, quant, static_max, INT8_BLOCK_K)
 
 
 def flash_attention_with_stats(q, k, v, *, k_lens=None, scale=None, rope=None,
-                               quant: str = "none"):
+                               quant: str = "none", static_max: Optional[bool] = None):
     """Forward returning (out [B, Lq, N, D], lse [B, Lq, N] fp32, natural
     log): the combinable partials ring attention merges (JAX
-    `flash_attention_with_stats`).  K1 with its LSE output on CUDA; the int8
-    paths need K2-LSE, not ported yet (ROADMAP queue 2)."""
-    if quant != "none":
-        raise NotImplementedError(
-            f"quant={quant!r}: the int8 partials need K2-LSE, K2's LSE output, which is not "
-            "ported yet (ROADMAP queue 2)")
+    `flash_attention_with_stats`).  "none" runs K1 with its LSE output;
+    "qk" / "qkv" / "qkpv" run K2-LSE (or K3 with its LSE under `static_max`
+    / `STATIC_MAX`, "qkpv" excepted), with "qkpv" quantising P on the JAX
+    function's key block of min(1024, round_up(Lk, 128)).  Not
+    differentiable."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no flash attention path for device {q.device}")
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    if quant != "none":
+        out, lse = _flash_int8(q, k, v, k_lens, scale, rope, quant, static_max, STATS_BLOCK_K,
+                               with_lse=True)
+        return out, lse.transpose(1, 2)
     if rope is not None:
         dt = q.dtype
         q = rope_apply_split(q, rope).to(dt)

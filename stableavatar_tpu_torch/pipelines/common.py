@@ -42,6 +42,8 @@ class WanModels:
     # inference fast path: dit_params prepared by utils/fastpath.py
     rope_split: bool = False
     attn_quant: str = "none"
+    # sequence-parallel self-attention under an sp mesh: "ulysses" | "ring"
+    attn_impl: str = "ulysses"
     # False reproduces the reference's SDPA deployment (vocal padding masks dropped)
     honor_vocal_k_lens: bool = True
     # the card unless the caller asks for the CPU (as the CPU tests do)

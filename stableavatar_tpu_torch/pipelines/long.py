@@ -13,6 +13,10 @@ the final window is shifted back to full size, the final window's audio is
 truncated at the track end, latents are bf16 between steps, each window
 carries its own multistep history, and the TeaCache counter advances once
 per window call.
+
+Under a mesh (`parallel/mesh.py:mesh_context`) every rank runs this same
+sweep on the same latents, noise and solver state; only the DiT inside it
+splits its work over the ranks (`models/dit.py`, `models.attn_impl`).
 """
 
 from __future__ import annotations
@@ -157,7 +161,8 @@ def _sweep_step(models: WanModels, latents_all, y_full, text_ctx, clip_ctx, voca
                 models.dit_params, cfg, lat3, tb, text_ctx, clip_ctx, y_full[:, :, :f],
                 vocal_embs[wi], video_sample_n_frames=(f - 1) * temporal_ratio + 1,
                 vocal_cfg_tile=True, rope_split=models.rope_split,
-                attn_quant=models.attn_quant, honor_vocal_k_lens=models.honor_vocal_k_lens,
+                attn_quant=models.attn_quant, attn_impl=models.attn_impl,
+                honor_vocal_k_lens=models.honor_vocal_k_lens,
                 return_residual=compute_flags is not None)
             noise_pred, residual = out if compute_flags is not None else (out, residual)
         v = guidance_combine_long(noise_pred, text_scale, audio_scale)

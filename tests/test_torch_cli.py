@@ -123,18 +123,26 @@ def test_load_models_places_t5_as_the_memory_mode_says(monkeypatch):
     assert "w8" in fast.dit_params["blocks"][0]["ffn"]["fc1"]
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--model_family", "14B"], "open item 4: 14B"),
-    (["--GPU_memory_mode", "sequential_cpu_offload"], "open item 3: streamed offload"),
-    (["--ulysses_degree", "2"], "open item 5: multi-GPU"),
-    (["--ring_degree", "2"], "open item 5: multi-GPU"),
-    (["--num_processes", "2"], "open item 5: multi-GPU"),
+@pytest.mark.parametrize("argv,exc,match", [
+    (["--model_family", "14B"], NotImplementedError, "ROADMAP queue 1, open item 4: 14B"),
+    (["--GPU_memory_mode", "sequential_cpu_offload"], NotImplementedError,
+     "ROADMAP queue 1, open item 3: streamed offload"),
+    (["--ulysses_degree", "2"], ValueError, "= 2 needs 2 processes"),
+    (["--ring_degree", "2"], ValueError, "= 2 needs 2 processes"),
+    (["--coordinator_address", "localhost:29400"], ValueError, "number of processes"),
 ], ids=["14B", "sequential", "ulysses", "ring", "processes"])
-def test_unported_options_raise(argv, match):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {match}"):
-        tcli.load_models(_args(*argv), device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        tcli.main(argv, device="cpu")
+def test_unported_options_raise(synth_inputs, argv, exc, match):
+    """The unported options raise with their ROADMAP item, in load_models and
+    in main.  Sequence parallelism is ported (tests/test_torch_parallel.py):
+    in one process its degrees, and a coordinator without a process count,
+    raise before any model loads."""
+    ref, wav = synth_inputs
+    if exc is NotImplementedError:
+        with pytest.raises(exc, match=match):
+            tcli.load_models(_args(*argv), device="cpu")
+    with pytest.raises(exc, match=match):
+        tcli.main(["--validation_reference_path", ref, "--validation_driven_audio_path", wav,
+                   *argv], device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["root", "transformer", "wav2vec"])

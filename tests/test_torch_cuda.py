@@ -10,8 +10,10 @@ repository root:
 is held against its plain PyTorch version in the same module at rel-L2 1e-2,
 the bound `chip_smoke.py` uses: bf16 outputs, summed in another order, with P
 rounded to bf16 at other places.  K1's and K3's LSE (fp32, from fp32 row
-statistics) are held to max-abs 1e-3.  K2v-qkpv is held against its plain
-version at the kernel's key tile of 64 (its result depends on the tile).
+statistics) are held to max-abs 1e-3, and so is K2-LSE's (the int8 kernels'
+LSE output).  K2v-qkpv is held against its plain version on the same key
+block (its result depends on the block): the JAX package's, or the one
+given.
 """
 
 import pytest
@@ -143,10 +145,12 @@ def test_attention_dispatch_on_cuda(gen):
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     q = _randn(gen, 1, 2048, 2, 128)
-    with pytest.raises(NotImplementedError, match="K2-LSE"):
-        fa.flash_attention_with_stats(q, q, q, quant="qkv")
+    with pytest.raises(ValueError, match="unknown quant"):
+        fa.flash_attention_with_stats(q, q, q, quant="int4")
     q8, k8, sqk = fa.prepare_int8(q, q, None, 128 ** -0.5)
     v8, sv = fa.quantize_v(q)
+    with pytest.raises(ValueError, match="pv_block"):
+        fa._flash_int8_cuda(q8, k8, v8, sqk, None, quant="qkpv", sv=sv, pv_block=100)
     with pytest.raises(ValueError, match="no int8 kernel"):
         fa._flash_int8_cuda(q8, k8, v8, sqk, None, quant="qkpv", sv=sv,
                             mstat=fa.static_bound(q8, k8, sqk))
@@ -207,7 +211,54 @@ def test_int8_variant_kernels_match_plain(gen, b, l, n, d, k_lens, variant):
         assert torch.equal(out, got)
         assert lse.shape == (b, n, l) and float((lse - want_lse).abs().max()) < 1e-3
     else:
-        want = fa._flash_int8_plain(q8, k8, v_in, sqk, kl, quant=quant, sv=sv, block_k=64,
+        want = fa._flash_int8_plain(q8, k8, v_in, sqk, kl, quant=quant, sv=sv,
+                                    block_k=fa.jax_key_block(l, fa.INT8_BLOCK_K),
                                     out_dtype=torch.bfloat16)
+    assert _rel(got, want) < REL_TOL, _rel(got, want)
+    assert float((got.float() - want.float()).abs().max()) < 6e-2
+
+
+@pytest.mark.parametrize("b,l,n,d,k_lens", [(2, 3000, 2, 128, [2500, 3000]),
+                                            (1, 2100, 3, 64, None),
+                                            (2, 2100, 2, 128, [1280, 700])])
+@pytest.mark.parametrize("quant", ["qk", "qkv", "qkpv"])
+def test_k2_lse_matches_plain(gen, b, l, n, d, k_lens, quant):
+    """K2-LSE through `flash_attention_with_stats` (its key block of 1024 for
+    "qkpv") against the plain version, output and LSE; the ragged cases skip
+    whole key tiles, and 700 of 2100 skips whole 1024-key blocks."""
+    q, k, v = (_randn(gen, b, l, n, d) for _ in range(3))
+    kl = None if k_lens is None else torch.tensor(k_lens, dtype=torch.int32, device="cuda")
+    q8, k8, sqk = fa.prepare_int8(q, k, None, d ** -0.5)
+    v_in, sv = (v, None) if quant == "qk" else fa.quantize_v(v)
+    name = f"flash_fwd_int8_{quant}_lse"
+    before = dict(fa.launch_counts)
+    got, lse = fa.flash_attention_with_stats(q, k, v, k_lens=kl, quant=quant, static_max=False)
+    assert fa.launch_counts[name] == before[name] + 1
+    assert fa.launch_counts[f"flash_fwd_int8_{quant}"] == before[f"flash_fwd_int8_{quant}"]
+    want, want_lse = fa._flash_int8_plain(q8, k8, v_in, sqk, kl, quant=quant, sv=sv,
+                                          block_k=fa.jax_key_block(l, fa.STATS_BLOCK_K),
+                                          out_dtype=torch.bfloat16, with_lse=True)
+    assert got.dtype == torch.bfloat16 and lse.shape == (b, l, n)
+    assert _rel(got, want) < REL_TOL, _rel(got, want)
+    assert float((lse - want_lse.transpose(1, 2)).abs().max()) < 1e-3
+    # the output equals the kernel's without the LSE write
+    out = fa._flash_int8_cuda(q8, k8, v_in, sqk, kl, quant=quant, sv=sv,
+                              pv_block=fa.jax_key_block(l, fa.STATS_BLOCK_K))
+    assert torch.equal(out, got)
+
+
+@pytest.mark.parametrize("pv_block", [1536, 1024, 256, 64])
+def test_k2v_qkpv_kernel_on_any_block(gen, pv_block):
+    """The regrouped qkpv kernel quantises P on the block it is given (a
+    first sweep per block takes the row max) and agrees with the plain
+    version on the same block; ragged keys end inside a block."""
+    b, l, n, d = 2, 4000, 2, 128
+    q, k, v = (_randn(gen, b, l, n, d) for _ in range(3))
+    kl = torch.tensor([3333, 4000], dtype=torch.int32, device="cuda")
+    q8, k8, sqk = fa.prepare_int8(q, k, None, d ** -0.5)
+    v8, sv = fa.quantize_v(v)
+    got = fa._flash_int8_cuda(q8, k8, v8, sqk, kl, quant="qkpv", sv=sv, pv_block=pv_block)
+    want = fa._flash_int8_plain(q8, k8, v8, sqk, kl, quant="qkpv", sv=sv, block_k=pv_block,
+                                out_dtype=torch.bfloat16)
     assert _rel(got, want) < REL_TOL, _rel(got, want)
     assert float((got.float() - want.float()).abs().max()) < 6e-2

@@ -97,7 +97,8 @@ def test_flash_wrapper_routes_cpu_to_plain():
     assert qg.grad is not None
     assert set(tfa.launch_counts) == {
         "flash_fwd_bf16", "flash_fwd_bf16_lse", "flash_fwd_int8_qk", "flash_fwd_int8_qkv",
-        "flash_fwd_int8_qkpv", "flash_fwd_int8_static_qk", "flash_fwd_int8_static_qkv",
+        "flash_fwd_int8_qkpv", "flash_fwd_int8_qk_lse", "flash_fwd_int8_qkv_lse",
+        "flash_fwd_int8_qkpv_lse", "flash_fwd_int8_static_qk", "flash_fwd_int8_static_qkv",
         "flash_bwd_dkdv", "flash_bwd_dq"}
     assert not any(tfa.launch_counts.values())
 
@@ -159,8 +160,65 @@ def test_int8_flash_refuses_grad():
     q, k, v = _qkv(5, lq=64, lk=64)
     with pytest.raises(ValueError, match="not differentiable"):
         tfa.flash_attention(t(q).requires_grad_(), t(k), t(v), quant="qk")
-    with pytest.raises(NotImplementedError, match="K2-LSE"):
-        tfa.flash_attention_with_stats(t(q), t(k), t(v), quant="qk")
+    with pytest.raises(ValueError, match="not differentiable"):
+        tfa.flash_attention_with_stats(t(q), t(k).requires_grad_(), t(v), quant="qk")
+    with pytest.raises(ValueError, match="unknown quant"):
+        tfa.flash_attention_with_stats(t(q), t(k), t(v), quant="int4")
+
+
+# ragged keys over two of flash_attention_with_stats' 1024-key blocks
+STATS_K_LENS = np.array([1100, 1300], np.int32)
+
+
+@pytest.mark.parametrize("quant", ["qk", "qkv", "qkpv"])
+def test_k2_lse_plain_matches_pallas_with_stats(quant):
+    """K2-LSE: the port's `flash_attention_with_stats(quant=...)` (plain
+    version on CPU tensors) against the JAX function with its Pallas int8
+    kernel in interpret mode, at the JAX defaults (block 1024, so "qkpv"
+    quantises P on two key blocks) with ragged keys; the K2 test's
+    tolerance on the output, 1e-3 on the LSE."""
+    q, k, v = _qkv(21, lq=256, lk=1300)
+    with pallas_interpret():
+        want, want_lse = jfa.flash_attention_with_stats(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), k_lens=jnp.asarray(STATS_K_LENS),
+            quant=quant, static_max=False)
+    got, lse = tfa.flash_attention_with_stats(t(q), t(k), t(v), k_lens=t(STATS_K_LENS),
+                                              quant=quant, static_max=False)
+    assert got.dtype == torch.float32 and lse.shape == (2, 256, 2) and lse.dtype == torch.float32
+    want = np.asarray(want)
+    assert rel_l2(got.numpy(), want) < 1e-3
+    assert np.max(np.abs(got.numpy() - want)) < 1e-2
+    assert np.max(np.abs(lse.numpy() - np.asarray(want_lse))) <= 1e-3
+
+
+def test_k2v_qkpv_quantises_on_the_jax_block():
+    """The qkpv fault of the kernel's first port and its repair: P is
+    quantised per row against its maximum over the JAX package's key block.
+    At Lk = 512 with the JAX block of 256, the plain qkpv on that block
+    matches Pallas interpret at 256, and the tile-wise form (the 64-key
+    tile the card used to quantise on) does not."""
+    q, k, v = _qkv(22, b=1, lq=256, lk=512)
+    with pallas_interpret():
+        want = np.asarray(jfa.flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), quant="qkpv", block_q=128,
+            block_k=256))
+    q8, k8, sqk = tfa.prepare_int8(t(q), t(k), None, 64 ** -0.5)
+    v8, sv = tfa.quantize_v(t(v))
+
+    def plain(block_k):
+        return tfa._flash_int8_plain(q8, k8, v8, sqk, quant="qkpv", sv=sv, block_k=block_k,
+                                     out_dtype=torch.float32).numpy()
+
+    assert rel_l2(plain(256), want) < 1e-5
+    assert rel_l2(plain(64), want) > 1e-3
+    # the wrappers pick the JAX blocks: 512 in flash_attention, 512 here too
+    # in flash_attention_with_stats (min(1024, 512))
+    assert tfa.jax_key_block(512, tfa.INT8_BLOCK_K) == tfa.jax_key_block(512, 1024) == 512
+    assert tfa.jax_key_block(21504, tfa.INT8_BLOCK_K) == 1536
+    assert tfa.jax_key_block(5376, tfa.STATS_BLOCK_K) == 1024
+    assert torch.equal(tfa.flash_attention(t(q), t(k), t(v), quant="qkpv"),
+                       tfa._flash_int8_plain(q8, k8, v8, sqk, quant="qkpv", sv=sv, block_k=512,
+                                             out_dtype=torch.float32))
 
 
 def _mk(b=2, lq=256, l1=96, l2=33, n=2, d=64, seed=0):

@@ -10,6 +10,7 @@ subprocess per test run (`jax_reference`) serves this module and the
 solver and TeaCache comparisons.
 """
 
+import contextlib
 import fcntl
 import os
 import pickle
@@ -17,6 +18,7 @@ import subprocess
 import sys
 import tempfile
 from pathlib import Path
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -167,17 +169,42 @@ def _solver_kw(run):
                 solver_type=run.get("solver_type"))
 
 
+@contextlib.contextmanager
+def pallas_k5():
+    """The JAX fused cross-attention through its Pallas kernel K5 in
+    interpret mode (`STABLEAVATAR_DUAL_CROSS=pallas`, `pl.pallas_call` with
+    interpret=True, the patch of tests/test_ops.py:203-213), instead of its
+    CPU fallback `_dual_reference` (two XLA attentions, each rounded to
+    bf16, then summed): the port's K5 sums the two contexts once in fp32, as
+    the kernel does."""
+    import jax.experimental.pallas as pl
+
+    orig = pl.pallas_call
+
+    def interp_call(*args, **kwargs):
+        kwargs["interpret"] = True
+        return orig(*args, **kwargs)
+
+    with mock.patch.dict(os.environ, {"STABLEAVATAR_DUAL_CROSS": "pallas"}), \
+            mock.patch.object(pl, "pallas_call", interp_call):
+        yield
+
+
 def jax_generate_long(runs):
     """The JAX generate_long for each named run (a dict: fast, and
     optionally scheduler, solver_order, solver_type, num_inference_steps,
     teacache, output_type): its per-step and final latents, video and
-    TeaCache skipped_calls, with the models as numpy trees."""
+    TeaCache skipped_calls, with the models as numpy trees.  The fast runs
+    take the Pallas K5 (`pallas_k5`)."""
+    import time
+
     from stableavatar_tpu.models.teacache import TeaCache as JTeaCache
 
     jax_models = make_jax_models()
     ref, wav, text_ctx, latents = _inputs()
     out = {}
     for name, run in runs.items():
+        t0 = time.perf_counter()
         fast = run["fast"]
         teacache = _teacache(run.get("teacache"), JTeaCache)
         jdit = jprepare(jax_models["dit"], DIT_E2E, quant=True) if fast else jax_models["dit"]
@@ -187,14 +214,16 @@ def jax_generate_long(runs):
             wav2vec_params=jax_models["w2v"], wav2vec_cfg=W2V_E2E, rope_split=fast,
             attn_quant="qk" if fast else "none", teacache=teacache)
         steps = []
-        want = jlong.generate_long(
-            jm, text_ctx=jnp.asarray(text_ctx), ref_image=ref, vocal_waveform=wav,
-            clip_length=9, overlap_window_length=1, initial_latents=latents,
-            step_callback=lambda i, x: steps.append(np.asarray(x, np.float32)),
-            output_type=run.get("output_type", "numpy"), **_solver_kw(run))
+        with pallas_k5() if fast else contextlib.nullcontext():
+            want = jlong.generate_long(
+                jm, text_ctx=jnp.asarray(text_ctx), ref_image=ref, vocal_waveform=wav,
+                clip_length=9, overlap_window_length=1, initial_latents=latents,
+                step_callback=lambda i, x: steps.append(np.asarray(x, np.float32)),
+                output_type=run.get("output_type", "numpy"), **_solver_kw(run))
         out[name] = dict(steps=steps, latents=np.asarray(want.latents),
                          videos=None if want.videos is None else np.asarray(want.videos),
-                         skipped=None if teacache is None else teacache.skipped_calls)
+                         skipped=None if teacache is None else teacache.skipped_calls,
+                         seconds=time.perf_counter() - t0)
     return dict(models=to_numpy_tree(jax_models), runs=out)
 
 
@@ -232,11 +261,11 @@ def _run_both(jax_models, jax_runs, fast: bool):
 # Latent tolerance per path, above the error measured with XLA's excess
 # precision off (my CPU run): bf16 4.6e-4 / 8.6e-4 after steps 1 / 2 (the
 # port's bf16 ops round where XLA's then round; 0.0085 / 0.0092 with excess
-# precision on).  The fast path measures 0.0114 / 0.0120 and misses the 1e-2
-# target (ROADMAP queue 3): the JAX package's CPU fallback of the fused
-# cross-attention (two XLA attentions, each rounded to bf16, then summed)
-# differs from K5's plain version (one fp32 sum), and W8A8 activation
-# quantisation turns that difference into int8 rounding flips.
+# precision on).  The fast path, with the JAX side on its Pallas K5
+# (`pallas_k5`, as the port follows the kernel), measures 0.0101 / 0.0106
+# (0.0114 / 0.0120 against the two-call CPU fallback) and still misses the
+# 1e-2 target (ROADMAP queue 3): W8A8 activation quantisation turns the two
+# sides' bf16 rounding differences into int8 rounding flips.
 LATENT_TOL = {False: 2e-3, True: 1.5e-2}
 
 
