@@ -57,10 +57,21 @@ exits non-zero):
                (NCCL puts one rank on a card); the CPU tests hold them with
                gloo (tests/test_torch_parallel.py).
 
-Phases 5-6, 7, 8, 9 and 10's one-rank ring drive the paths: the launch
-counts are set to 0 just before each and read just after.  The line before
-the last is a JSON object with one entry per kernel; the last line is
-{"ok": true, "device": {...}}.
+11. remaining -- the entry points of the last kernels: K1-rope (with and
+               without its LSE) and K4's rope branch against their plain
+               versions (and K1 behind two out-of-kernel rotation passes),
+               the probes S1-S3 (`ops/probes.py`: the GEMM's four epilogues,
+               int8 outputs exactly, with torch.matmul / torch._int_mm as
+               yardsticks, and the dots probes); then
+               `flash_attention(rope=)` forward, with stats and under
+               autograd, and each probe script's `main` with its own CH
+               (`stableavatar_tpu_torch/scripts/`), each with exact launch
+               counts.
+
+Phases 5-6, 7, 8, 9, 10's one-rank ring and 11's entry points drive the
+paths: the launch counts are set to 0 just before each and read just
+after.  The line before the last is a JSON object with one entry per
+kernel; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -120,6 +131,30 @@ KERNEL_SOURCES = {
                                "stableavatar_tpu/ops/flash_attention.py:1073"),
     "flash_fwd_int8_qkpv_lse": ("stableavatar_tpu_torch/csrc/flash_attention.cu",
                                 "stableavatar_tpu/ops/flash_attention.py:1073"),
+    # K1-rope: `_rot` applied in `_fwd_body` (:142-143), reached from
+    # flash_attention(rope=) / flash_attention_with_stats(rope=)
+    "flash_fwd_bf16_rope": ("stableavatar_tpu_torch/csrc/flash_attention.cu",
+                            "stableavatar_tpu/ops/flash_attention.py:142"),
+    "flash_fwd_bf16_rope_lse": ("stableavatar_tpu_torch/csrc/flash_attention.cu",
+                                "stableavatar_tpu/ops/flash_attention.py:142"),
+    # K4's rope branch: `_rot` on the tiles, `_rot_inv` on dK / dQ
+    "flash_bwd_dkdv_rope": ("stableavatar_tpu_torch/csrc/flash_attention_bwd.cu",
+                            "stableavatar_tpu/ops/flash_attention.py:731"),
+    "flash_bwd_dq_rope": ("stableavatar_tpu_torch/csrc/flash_attention_bwd.cu",
+                          "stableavatar_tpu/ops/flash_attention.py:804"),
+    # S1-S3, the probe scripts' Pallas kernels
+    "mm_probe_bf16": ("stableavatar_tpu_torch/csrc/probes.cu",
+                      "scripts/microbench_pallas_int8.py:19"),
+    "mm_probe_int8": ("stableavatar_tpu_torch/csrc/probes.cu",
+                      "scripts/microbench_pallas_int8.py:19"),
+    "mm_probe_requant": ("stableavatar_tpu_torch/csrc/probes.cu",
+                         "scripts/microbench_pallas_int8_variants.py:55"),
+    "mm_probe_scaled": ("stableavatar_tpu_torch/csrc/probes.cu",
+                        "scripts/microbench_pallas_int8_variants.py:64"),
+    "dots_probe_bf16": ("stableavatar_tpu_torch/csrc/probes.cu",
+                        "scripts/bench_attn_blocks.py:61"),
+    "dots_probe_int8": ("stableavatar_tpu_torch/csrc/probes.cu",
+                        "scripts/bench_attn_blocks.py:119"),
 }
 INFERENCE_KERNELS = ("flash_fwd_bf16", "flash_fwd_int8_qk", "dual_context")
 CLI_KERNELS = ("flash_fwd_int8_static_qk",)
@@ -1179,6 +1214,288 @@ def phase_ring_path(reset_counts, counts):
     return launches
 
 
+# phase 11: the entry points of the remaining kernels
+ROPE_KERNELS = ("flash_fwd_bf16_rope", "flash_fwd_bf16_rope_lse", "flash_bwd_dkdv_rope",
+                "flash_bwd_dq_rope")
+PROBE_KERNELS = ("mm_probe_bf16", "mm_probe_int8", "mm_probe_requant", "mm_probe_scaled",
+                 "dots_probe_bf16", "dots_probe_int8")
+
+
+def phase_rope_kernels(results, l=21504, grid=(21, 32, 32)):
+    """K1-rope (with and without its LSE) and K4's rope branch against their
+    plain versions (rotate, plain K1 / K4, inverse-rotate dQ and dK): at the
+    DiT self-attention shape [3, 21504, 12, 128] for the forward, the
+    training shape [1, 21504, 12, 128] for K1-rope-LSE and K4-rope, and one
+    ragged case each; times with their bounds (K1's and K4's work plus the
+    fp32 table read once), and K1 behind two out-of-kernel rotation passes
+    (`rope_apply_split` x 2 + K1), the dispatch `ops/attention.py` keeps."""
+    import torch
+
+    from stableavatar_tpu_torch.ops import cuda_lib
+    from stableavatar_tpu_torch.ops import flash_attention as fa
+    from stableavatar_tpu_torch.ops.rope import pack_split, rope_apply_split, rope_freqs_3d
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bf16 = torch.bfloat16
+    n, d = 12, 128
+    rope = pack_split(rope_freqs_3d(grid, d, device="cuda"))
+    table_bytes = 4.0 * l * d
+
+    def record(name, err, ms=None, plain_ms=None, bound=None, tag=""):
+        entry = results.setdefault(name, {"max_abs_err": 0.0})
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if ms is not None:
+            entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                         library_ms=None)
+            log(f"  {name} {tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{bound[0]:.3f} ms ({bound[1]}), library —")
+
+    # K1-rope at the DiT self-attention shape
+    b = 3
+    q, k, v = (_rand(gen, (b, l, n, d), bf16) for _ in range(3))
+    scale = d ** -0.5
+    tag = f"[{b},{l},{n},{d}]"
+    got = fa._flash_fwd_cuda(q, k, v, None, scale, rope=rope)
+    want = fa._flash_fwd_plain(q, k, v, None, scale, rope=rope)
+    err = compare(f"flash_fwd_bf16_rope {tag}", got, want)
+    del want
+    fwd_ops = 4.0 * b * n * l * l * d
+    ms = time_ms(lambda: fa._flash_fwd_cuda(q, k, v, None, scale, rope=rope), 5)
+    record("flash_fwd_bf16_rope", err, ms,
+           time_ms(lambda: fa._flash_fwd_plain(q, k, v, None, scale, rope=rope), 3),
+           bound_ms(fwd_ops, 2.0 * 4 * b * l * n * d + table_bytes), tag)
+
+    def out_of_kernel():
+        qr = rope_apply_split(q, rope).to(bf16)
+        kr = rope_apply_split(k, rope).to(bf16)
+        return fa._flash_fwd_cuda(qr, kr, v, None, scale)
+
+    compare(f"rope_apply_split x 2 + flash_fwd_bf16 {tag} against K1-rope", out_of_kernel(), got)
+    k1_ms = time_ms(lambda: fa._flash_fwd_cuda(q, k, v, None, scale), 5)
+    rot_ms = time_ms(lambda: rope_apply_split(q, rope).to(bf16), 5)
+    log(f"  K1-rope {tag}: {ms:.3f} ms in one kernel; out of the kernel "
+        f"{time_ms(out_of_kernel, 5):.3f} ms (rope_apply_split + cast {rot_ms:.3f} ms per "
+        f"tensor, K1 {k1_ms:.3f} ms)")
+    del q, k, v, got
+
+    # K1-rope-LSE and K4-rope at the training shape, and a ragged case each
+    for (b, l_, n_, d_), k_lens in (((1, l, n, d), None), ((2, 3000, 2, 128), [2500, 3000]),
+                                    ((1, 2100, 3, 64), None)):
+        q, k, v, do = (_rand(gen, (b, l_, n_, d_), bf16) for _ in range(4))
+        kl = None if k_lens is None else torch.tensor(k_lens, dtype=torch.int32, device="cuda")
+        # the ragged cases take a table of 3 x 32 x 32 = 3072 positions
+        tbl = rope if (b, l_) == (1, l) else pack_split(
+            rope_freqs_3d((3, 32, 32), d_, device="cuda"))
+        scale = d_ ** -0.5
+        tag = f"[{b},{l_},{n_},{d_}]" + ("" if k_lens is None else f" k_lens={k_lens}")
+        out, lse = fa._flash_fwd_cuda(q, k, v, kl, scale, with_lse=True, rope=tbl)
+        want_out, want_lse = fa._flash_fwd_plain(q, k, v, kl, scale, with_lse=True, rope=tbl)
+        err_fwd = max(compare(f"flash_fwd_bf16_rope_lse {tag}", out, want_out),
+                      compare_lse(f"flash_fwd_bf16_rope_lse {tag}", lse, want_lse))
+        grads = fa._flash_bwd_cuda(q, k, v, kl, out, lse, do, scale, rope=tbl)
+        want = fa._flash_bwd_plain(q, k, v, kl, out, lse, do, scale, rope=tbl)
+        errs = [compare_grad(f"flash_bwd rope {name} {tag}", g, w)
+                for name, g, w in zip(("dq", "dk", "dv"), grads, want)]
+        del grads, want, want_out, want_lse
+        if (b, l_) != (1, l):
+            record("flash_fwd_bf16_rope_lse", err_fwd)
+            record("flash_bwd_dkdv_rope", max(errs[1:]))
+            record("flash_bwd_dq_rope", errs[0])
+            continue
+        prod = 2.0 * b * n_ * l_ * l_ * d_
+        qkvo = 2.0 * b * n_ * d_ * 4 * l_
+        stats = 4.0 * b * n_ * l_ * 2
+        record("flash_fwd_bf16_rope_lse", err_fwd,
+               time_ms(lambda: fa._flash_fwd_cuda(q, k, v, kl, scale, with_lse=True, rope=tbl), 5),
+               time_ms(lambda: fa._flash_fwd_plain(q, k, v, kl, scale, with_lse=True, rope=tbl), 3),
+               bound_ms(2 * prod, qkvo + stats / 2 + table_bytes), tag)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), None, tbl.data_ptr())
+        dims = (b, l_, l_, n_, d_, float(scale), float(scale * fa.LOG2E))
+
+        def k4a():
+            cuda_lib.launch("sa_flash_bwd_dkdv_rope", *args, dk.data_ptr(), dv.data_ptr(), *dims)
+
+        def k4b():
+            cuda_lib.launch("sa_flash_bwd_dq_rope", *args, dq.data_ptr(), *dims)
+
+        plain = time_ms(lambda: fa._flash_bwd_plain(q, k, v, kl, out, lse, do, scale, rope=tbl), 3)
+        record("flash_bwd_dkdv_rope", max(errs[1:]), time_ms(k4a, 5), plain,
+               bound_ms(4 * prod, qkvo + stats + 2.0 * 2 * b * n_ * l_ * d_ + table_bytes), tag)
+        record("flash_bwd_dq_rope", errs[0], time_ms(k4b, 5), plain,
+               bound_ms(3 * prod, qkvo + stats + 2.0 * b * n_ * l_ * d_ + table_bytes), tag)
+        log("  (K4a-rope and K4b-rope plain_ms is one whole plain backward with rope)")
+        del dq, dk, dv, delta
+    del q, k, v, do, out, lse
+    torch.cuda.synchronize()
+
+
+def phase_probe_kernels(results):
+    """The probes against their plain versions on one call with sane inputs
+    (the scripts' chains overflow): the GEMM's four epilogues at the
+    scripts' [21504, 1536] . [1536, 1536] (int8 outputs equal on the
+    scripts' own int8 inputs; bf16 within REL_TOL and ABS_TOL with `a`
+    scaled by K^-1/2, so that the outputs have the unit size the absolute
+    bound assumes), with `torch.matmul` (bf16) and `torch._int_mm` (int8, B
+    taken column-major as cuBLASLt wants it, prepared outside the timing) as
+    library yardsticks; the dots probes at S3's [36, 21504, 128], their
+    inputs scaled for unit-size P and outputs in the same way.  The times
+    do not depend on the values."""
+    import torch
+
+    from stableavatar_tpu_torch.ops import probes
+    from stableavatar_tpu_torch.scripts import bench_attn_blocks as s3
+    from stableavatar_tpu_torch.scripts import microbench_int8 as s1
+
+    a16, b16, a8, b8 = s1.inputs()
+    m, kk, n = s1.M, s1.K, s1.N
+    a16 = (a16.float() * kk ** -0.5).bfloat16()
+    ops = 2.0 * m * kk * n
+    b8_cm = b8.t().contiguous().t()
+    lib = {"bf16": time_ms(lambda: torch.matmul(a16, b16), 20),
+           "int8": time_ms(lambda: torch._int_mm(a8, b8_cm), 20)}
+    for epilogue in probes.EPILOGUES:
+        name = f"mm_probe_{epilogue}"
+        a, b = (a16, b16) if epilogue == "bf16" else (a8, b8)
+        got, want = probes.mm_probe(a, b, epilogue), probes._mm_plain(a, b, epilogue)
+        tag = f"[{m},{kk}] . [{kk},{n}]"
+        if epilogue == "bf16":
+            err = compare(f"{name} {tag}", got, want)
+            bound = bound_ms(ops, 2.0 * (m * kk + kk * n + m * n))
+        else:
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} {tag}: the int8 outputs differ from the plain "
+                                     f"version in {int((got != want).sum())} places")
+            err = 0.0
+            log(f"  {name} {tag}: equal to its plain version (exact integer sums)")
+            out_bytes = 2.0 if epilogue == "scaled" else 1.0
+            bound = bound_ms(0.0, m * kk + kk * n + out_bytes * m * n, ops_int8=ops)
+        library = lib["bf16" if epilogue == "bf16" else "int8"]
+        entry = results.setdefault(name, {"max_abs_err": 0.0})
+        entry.update(max_abs_err=err, ms=time_ms(lambda: probes.mm_probe(a, b, epilogue), 20),
+                     plain_ms=time_ms(lambda: probes._mm_plain(a, b, epilogue), 5),
+                     bound_ms=bound[0], bound_by=bound[1], library_ms=library)
+        log(f"  {name} {tag}: kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms, "
+            f"bound {bound[0]:.3f} ms ({bound[1]}), library {library:.3f} ms")
+    ratio = results["mm_probe_int8"]["ms"] / results["mm_probe_bf16"]["ms"]
+    log(f"  int8 : bf16 GEMM time: mm_probe {ratio:.3f}, "
+        f"cuBLAS (_int_mm : matmul) {lib['int8'] / lib['bf16']:.3f}")
+    del a16, b16, a8, b8, b8_cm
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    bh, l, d = s3.B * s3.N, s3.L, s3.D
+    fwd_ops = 4.0 * bh * l * l * d
+    # P of unit size (bf16: q, k times D^-1/4; int8: |q8 . k8| >> 7 about 1)
+    # and V times L^-1/2: unit-size outputs
+    v = (_rand(gen, (bh, l, d), torch.float32) * l ** -0.5).bfloat16()
+    for int8 in (False, True):
+        name = f"dots_probe_{'int8' if int8 else 'bf16'}"
+        if int8:
+            q, k = ((_rand(gen, (bh, l, d), torch.float32) * 3.4).to(torch.int8)
+                    for _ in range(2))
+            bound = bound_ms(fwd_ops / 2, bh * l * d * (1 + 1 + 2 + 2.0), ops_int8=fwd_ops / 2)
+        else:
+            q, k = ((_rand(gen, (bh, l, d), torch.float32) * d ** -0.25).bfloat16()
+                    for _ in range(2))
+            bound = bound_ms(fwd_ops, 2.0 * 4 * bh * l * d)
+        tag = f"[{bh},{l},{d}]"
+        err = compare(f"{name} {tag}", probes.dots_probe(q, k, v, int8=int8),
+                      probes._dots_plain(q, k, v, int8))
+        entry = results.setdefault(name, {"max_abs_err": 0.0})
+        entry.update(max_abs_err=err, ms=time_ms(lambda: probes.dots_probe(q, k, v, int8=int8), 5),
+                     plain_ms=time_ms(lambda: probes._dots_plain(q, k, v, int8), 3),
+                     bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+        log(f"  {name} {tag}: kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms, "
+            f"bound {bound[0]:.3f} ms ({bound[1]}), library —")
+        del q, k
+    torch.cuda.synchronize()
+
+
+def phase_remaining_paths(l=21504, grid=(21, 32, 32)):
+    """The entry points of the remaining kernels, each driven with every
+    launch count set to 0 just before it and checked exactly just after:
+    `flash_attention(rope=)` forward at [3, 21504, 12, 128] (its output
+    equal to K1-rope's), `flash_attention_with_stats(rope=)`, the same under
+    autograd at [1, 21504, 12, 128] (finite gradients), and each probe
+    script's `main` with its own CH.  Returns the launches per kernel."""
+    import contextlib
+    import io
+
+    import torch
+
+    from stableavatar_tpu_torch.ops import cross_attention as ca
+    from stableavatar_tpu_torch.ops import flash_attention as fa
+    from stableavatar_tpu_torch.ops import probes
+    from stableavatar_tpu_torch.ops.rope import pack_split, rope_freqs_3d
+    from stableavatar_tpu_torch.scripts import bench_attn_blocks as s3
+    from stableavatar_tpu_torch.scripts import microbench_int8 as s1
+    from stableavatar_tpu_torch.scripts import microbench_int8_variants as s2
+
+    tables = (fa.launch_counts, ca.launch_counts, probes.launch_counts)
+    launches = {}
+
+    def drive(what, fn, want):
+        for table in tables:
+            for key in table:
+                table[key] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            result = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = {key: c for table in tables for key, c in table.items() if c}
+        for line in printed.getvalue().splitlines():
+            log(f"    {line}")
+        log(f"  {what}: {seconds:.3f} s, launches {got}")
+        if got != want:
+            raise AssertionError(f"{what}: launch counts {got} != {want}")
+        for key, c in got.items():
+            launches[key] = launches.get(key, 0) + c
+        return result
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    n, d = 12, 128
+    rope = pack_split(rope_freqs_3d(grid, d, device="cuda"))
+    q, k, v = (_rand(gen, (3, l, n, d), torch.bfloat16) for _ in range(3))
+    with torch.no_grad():
+        out = drive(f"flash_attention(rope=) [3,{l},{n},{d}]",
+                    lambda: fa.flash_attention(q, k, v, rope=rope), {"flash_fwd_bf16_rope": 1})
+        if not torch.equal(out, fa._flash_fwd_cuda(q, k, v, None, d ** -0.5, rope=rope)):
+            raise AssertionError("flash_attention(rope=) differs from its K1-rope launch")
+        out, lse = drive(f"flash_attention_with_stats(rope=) [3,{l},{n},{d}]",
+                         lambda: fa.flash_attention_with_stats(q, k, v, rope=rope),
+                         {"flash_fwd_bf16_rope_lse": 1})
+    if not (torch.isfinite(out).all() and torch.isfinite(lse).all() and lse.shape == (3, l, n)):
+        raise AssertionError("flash_attention_with_stats(rope=): non-finite or misshapen output")
+    del q, k, v, out, lse
+    q, k, v = (_rand(gen, (1, l, n, d), torch.bfloat16).requires_grad_() for _ in range(3))
+    g = _rand(gen, (1, l, n, d), torch.bfloat16)
+
+    def train_step():
+        fa.flash_attention(q, k, v, rope=rope).backward(g)
+
+    drive(f"flash_attention(rope=) under autograd [1,{l},{n},{d}]", train_step,
+          {"flash_fwd_bf16_rope_lse": 1, "flash_bwd_dkdv_rope": 1, "flash_bwd_dq_rope": 1})
+    if not all(x.grad is not None and torch.isfinite(x.grad).all() for x in (q, k, v)):
+        raise AssertionError("flash_attention(rope=): non-finite gradients")
+    del q, k, v, g
+    torch.cuda.empty_cache()
+
+    drive(f"scripts.microbench_int8.main (CH {s1.CH})", s1.main,
+          {"mm_probe_bf16": 2 * s1.CH, "mm_probe_int8": 2 * s1.CH})
+    drive(f"scripts.microbench_int8_variants.main (CH {s2.CH})", s2.main,
+          {"mm_probe_requant": 2 * s2.CH, "mm_probe_scaled": 2 * s2.CH,
+           "mm_probe_bf16": 2 * s2.CH})
+    drive(f"scripts.bench_attn_blocks.main (CH {s3.CH})", lambda: s3.main([]),
+          {"dots_probe_bf16": 2 * s3.CH, "dots_probe_int8": 2 * s3.CH,
+           "flash_fwd_bf16": 2 * s3.CH})
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1268,11 +1585,21 @@ def main() -> int:
     phase_ring_kernels(results)
     phase_ring_merge()
     ring = phase_ring_path(reset_counts, counts)
+
+    # path 6, the entry points of the remaining kernels: counts set to 0
+    # inside, just before each
+    log("== remaining kernels: K1-rope, K4-rope and the probes against their plain versions")
+    phase_rope_kernels(results)
+    phase_probe_kernels(results)
+    log("== remaining entry points: flash_attention(rope=) forward, with stats and under "
+        "autograd, and the probe scripts' main")
+    remaining = phase_remaining_paths()
     launches = {**{k: inference[k] for k in INFERENCE_KERNELS},
                 **{k: cli[k] for k in CLI_KERNELS},
                 **{k: variants[k] for k in VARIANT_KERNELS},
                 **{k: training[k] for k in TRAIN_KERNELS},
-                **{k: ring[k] for k in RING_KERNELS}}
+                **{k: ring[k] for k in RING_KERNELS},
+                **{k: remaining.get(k, 0) for k in ROPE_KERNELS + PROBE_KERNELS}}
     idle = [k for k, n in launches.items() if n == 0]
     if idle:
         raise AssertionError(f"kernels of the main paths never launched: {idle}")

@@ -1,5 +1,6 @@
-// Shared building blocks of the hand-written Hopper attention kernels
-// (flash_attention.cu, cross_attention.cu).
+// Shared building blocks of the hand-written Hopper kernels
+// (flash_attention.cu, flash_attention_bwd.cu, cross_attention.cu and the
+// dots probe of probes.cu).
 //
 // Tiling, common to all three kernels: one thread block of 4 warps owns 64
 // query rows of one (batch, head); each warp owns 16 of them and keeps its
@@ -234,6 +235,117 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* o, long long rs, int r
       *reinterpret_cast<uint32_t*>(o + row_a * rs + c) = pack_bf16(val[nd][0], val[nd][1]);
     if (row_b < Lq)
       *reinterpret_cast<uint32_t*>(o + row_b * rs + c) = pack_bf16(val[nd][2], val[nd][3]);
+  }
+}
+
+
+// --------------------------------------------------------------------------
+// split-pair rope inside the kernels (TPU `_rot` / `_rot_inv`,
+// stableavatar_tpu/ops/flash_attention.py:87-101): pair j of a row sits at
+// channels (j, j + D/2); `rope` is the packed fp32 table [L, D] of the
+// positions, cos in columns [0, D/2) and sin in [D/2, D).  Products and
+// sums are rounded one by one (no fused multiply-add), as the plain PyTorch
+// version computes them, and a rotated operand is rounded to bf16 once.
+// --------------------------------------------------------------------------
+
+// (x0, x1) -> (x0 c - x1 s, x0 s + x1 c)
+__device__ __forceinline__ void rot_pair(float& x0, float& x1, float c, float s) {
+  const float y0 = __fsub_rn(__fmul_rn(x0, c), __fmul_rn(x1, s));
+  const float y1 = __fadd_rn(__fmul_rn(x0, s), __fmul_rn(x1, c));
+  x0 = y0;
+  x1 = y1;
+}
+
+// the inverse (transpose): (g0, g1) -> (g0 c + g1 s, -g0 s + g1 c)
+__device__ __forceinline__ void rot_inv_pair(float& g0, float& g1, float c, float s) {
+  const float y0 = __fadd_rn(__fmul_rn(g0, c), __fmul_rn(g1, s));
+  const float y1 = __fadd_rn(__fmul_rn(-g0, s), __fmul_rn(g1, c));
+  g0 = y0;
+  g1 = y1;
+}
+
+// load_q_bf16 with the rotation applied in fp32 on the way into the A
+// fragments: the thread that holds channel j of a row (fragment kk < D/32)
+// also holds j + D/2 (fragment kk + D/32), so each pair rotates in
+// registers.  Rows >= Lq read as zero; rope rows are the query positions.
+template <int D>
+__device__ __forceinline__ void load_q_bf16_rope(uint32_t (&qa)[D / 16][4],
+                                                 const __nv_bfloat16* q, long long rs, int row_a,
+                                                 int Lq, const float* __restrict__ rope) {
+  constexpr int kHalf = D / 2, kH16 = D / 32;
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int kk = 0; kk < kH16; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // register e: row a / b (e & 1), column + 0 / 8 (e >> 1)
+      const int row = row_a + (e & 1) * 8;
+      const int c = kk * 16 + t * 2 + (e >> 1) * 8;
+      uint32_t lo = 0u, hi = 0u;
+      if (row < Lq) {
+        const __nv_bfloat16* qr = q + row * rs + c;
+        float2 x0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qr));
+        float2 x1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qr + kHalf));
+        const float* tr = rope + (long long)row * D + c;
+        const float2 cs = *reinterpret_cast<const float2*>(tr);
+        const float2 sn = *reinterpret_cast<const float2*>(tr + kHalf);
+        rot_pair(x0.x, x1.x, cs.x, sn.x);
+        rot_pair(x0.y, x1.y, cs.y, sn.y);
+        lo = pack_bf16(x0.x, x0.y);
+        hi = pack_bf16(x1.x, x1.y);
+      }
+      qa[kk][e] = lo;
+      qa[kk + kH16][e] = hi;
+    }
+  }
+}
+
+// Rotate a 64-row bf16 tile in shared memory (pitch D + 8 elements, as
+// load_tile<2 D> leaves it) in place; tile row r is position row0 + r, and
+// rows at or past L (zero-filled) are left alone.  The caller synchronises
+// before and after.
+template <int D>
+__device__ __forceinline__ void rope_tile(unsigned short* tile, const float* __restrict__ rope,
+                                          int row0, int L) {
+  constexpr int kPitch = D + 8, kHalf = D / 2, kSteps = D / 4;  // two pairs a step
+#pragma unroll 4
+  for (int i = threadIdx.x; i < kBlockK * kSteps; i += kThreads) {
+    const int r = i / kSteps, j = (i % kSteps) * 2;
+    if (row0 + r >= L) continue;
+    const float* tr = rope + (long long)(row0 + r) * D + j;
+    const float2 cs = *reinterpret_cast<const float2*>(tr);
+    const float2 sn = *reinterpret_cast<const float2*>(tr + kHalf);
+    __nv_bfloat162* lo = reinterpret_cast<__nv_bfloat162*>(tile + r * kPitch + j);
+    __nv_bfloat162* hi = reinterpret_cast<__nv_bfloat162*>(tile + r * kPitch + kHalf + j);
+    float2 a = __bfloat1622float2(*lo), b = __bfloat1622float2(*hi);
+    rot_pair(a.x, b.x, cs.x, sn.x);
+    rot_pair(a.y, b.y, cs.y, sn.y);
+    *lo = __floats2bfloat162_rn(a.x, a.y);
+    *hi = __floats2bfloat162_rn(b.x, b.y);
+  }
+}
+
+// Inverse-rotate an fp32 accumulator [16, D] in C-fragment layout (rows
+// row_a and row_a + 8 of this thread, columns nd * 8 + 2t and + 1): the
+// partner of column j < D/2 is fragment nd + D/16 of the same thread.
+// Rows at or past L are left alone (they are never stored).
+template <int D>
+__device__ __forceinline__ void rope_inv_acc(float (&acc)[D / 8][4], const float* __restrict__ rope,
+                                             int row_a, int L) {
+  constexpr int kHalf = D / 2, kHN = D / 16;
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + r * 8;
+    if (row >= L) continue;
+    const float* tr = rope + (long long)row * D;
+#pragma unroll
+    for (int nd = 0; nd < kHN; ++nd) {
+      const int c = nd * 8 + t * 2;
+      const float2 cs = *reinterpret_cast<const float2*>(tr + c);
+      const float2 sn = *reinterpret_cast<const float2*>(tr + kHalf + c);
+      rot_inv_pair(acc[nd][2 * r], acc[nd + kHN][2 * r], cs.x, sn.x);
+      rot_inv_pair(acc[nd][2 * r + 1], acc[nd + kHN][2 * r + 1], cs.y, sn.y);
+    }
   }
 }
 

@@ -3,7 +3,12 @@
 //
 // K1 replaces stableavatar_tpu/ops/flash_attention.py:_flash_fwd_impl (body
 // `_fwd_body`): softmax(q k^T * scale) v over [B, L, N, D] bf16 with keys at
-// or past k_lens[b] masked, rope applied by the caller.  With a non-null
+// or past k_lens[b] masked.  K1-rope (ROPE, `flash_attention(rope=)`) is the
+// same kernel with the split-pair rotation of `_fwd_body`'s `rope=` branch
+// (`_rot`, :142-143) inside: Q is rotated in fp32 on its way into the A
+// fragments, each K tile in place in shared memory after it lands, both
+// rounded to bf16 once as `_rot(...).astype(dt)` does; the mma loop is
+// K1's.  Without ROPE the caller applies rope first.  With a non-null
 // `lse` it also writes the natural-log log-sum-exp of every query row,
 // m * ln2 + log(max(l, 1e-30)) as `_fwd_body` finalizes it, in fp32 laid out
 // [B, N, Lq] (no 128-lane broadcast); the backward (K4,
@@ -51,12 +56,12 @@
 
 namespace sa {
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, const int* __restrict__ k_lens,
-                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Lq, int Lk,
-                      int N, float scale_log2) {
+template <int D, bool ROPE>
+__device__ __forceinline__ void flash_fwd_bf16_body(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ k_lens,
+    const float* __restrict__ rope, __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+    int Lq, int Lk, int N, float scale_log2) {
   constexpr int kPitch = D + 8;
   __shared__ __align__(16) unsigned short Ks[kBlockK * kPitch];
   __shared__ __align__(16) unsigned short Vs[kBlockK * kPitch];
@@ -68,7 +73,11 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   const int klen = k_lens ? min(k_lens[b], Lk) : Lk;
 
   uint32_t qa[D / 16][4];
-  load_q_bf16<D>(qa, q + ((long long)b * Lq * N + h) * D, rs, row_a, Lq);
+  if constexpr (ROPE) {
+    load_q_bf16_rope<D>(qa, q + ((long long)b * Lq * N + h) * D, rs, row_a, Lq, rope);
+  } else {
+    load_q_bf16<D>(qa, q + ((long long)b * Lq * N + h) * D, rs, row_a, Lq);
+  }
 
   const char* kb = reinterpret_cast<const char*>(k + ((long long)b * Lk * N + h) * D);
   const char* vb = reinterpret_cast<const char*>(v + ((long long)b * Lk * N + h) * D);
@@ -87,6 +96,10 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
+    if constexpr (ROPE) {
+      rope_tile<D>(Ks, rope, k0, Lk);
+      __syncthreads();
+    }
 
     float s[kNT][4];
     qk_bf16<D>(s, qa, Ks);
@@ -120,6 +133,28 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     if (row_a < Lq) lse_bh[row_a] = m[0] * kLn2 + logf(l0);
     if (row_a + 8 < Lq) lse_bh[row_a + 8] = m[1] * kLn2 + logf(l1);
   }
+}
+
+// K1 (and K1-LSE)
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, const int* __restrict__ k_lens,
+                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Lq, int Lk,
+                      int N, float scale_log2) {
+  flash_fwd_bf16_body<D, false>(q, k, v, k_lens, nullptr, out, lse, Lq, Lk, N, scale_log2);
+}
+
+// K1-rope (and its LSE): at most 168 registers, so that 3 blocks of 128
+// threads share an SM as K1's do (the rotation's loads would take more)
+template <int D>
+__global__ void __launch_bounds__(kThreads, 3)
+flash_fwd_bf16_rope_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v, const int* __restrict__ k_lens,
+                           const float* __restrict__ rope, __nv_bfloat16* __restrict__ out,
+                           float* __restrict__ lse, int Lq, int Lk, int N, float scale_log2) {
+  flash_fwd_bf16_body<D, true>(q, k, v, k_lens, rope, out, lse, Lq, Lk, N, scale_log2);
 }
 
 // V path and softmax of the int8 kernels (template parameters).
@@ -444,20 +479,30 @@ flash_fwd_int8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ 
 // (every key valid), and so may lse (no LSE output).
 // --------------------------------------------------------------------------
 
-extern "C" int sa_flash_fwd_bf16(const void* q, const void* k, const void* v, const void* k_lens,
-                                 void* out, void* lse, int B, int Lq, int Lk, int N, int D,
-                                 float scale_log2, void* stream) {
+namespace {
+
+template <bool ROPE>
+int launch_bf16(const void* q, const void* k, const void* v, const void* k_lens,
+                const void* rope, void* out, void* lse, int B, int Lq, int Lk, int N, int D,
+                float scale_log2, void* stream) {
   const dim3 grid((Lq + sa::kBlockQ - 1) / sa::kBlockQ, B * N);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto q_ = static_cast<const __nv_bfloat16*>(q);
   auto k_ = static_cast<const __nv_bfloat16*>(k);
   auto v_ = static_cast<const __nv_bfloat16*>(v);
   auto kl = static_cast<const int*>(k_lens);
+  auto r_ = static_cast<const float*>(rope);
   auto o_ = static_cast<__nv_bfloat16*>(out);
   auto lse_ = static_cast<float*>(lse);
-  if (D == 128) {
+  if (D == 128 && ROPE) {
+    sa::flash_fwd_bf16_rope_kernel<128><<<grid, sa::kThreads, 0, st>>>(
+        q_, k_, v_, kl, r_, o_, lse_, Lq, Lk, N, scale_log2);
+  } else if (D == 128) {
     sa::flash_fwd_bf16_kernel<128><<<grid, sa::kThreads, 0, st>>>(q_, k_, v_, kl, o_, lse_, Lq,
                                                                   Lk, N, scale_log2);
+  } else if (D == 64 && ROPE) {
+    sa::flash_fwd_bf16_rope_kernel<64><<<grid, sa::kThreads, 0, st>>>(
+        q_, k_, v_, kl, r_, o_, lse_, Lq, Lk, N, scale_log2);
   } else if (D == 64) {
     sa::flash_fwd_bf16_kernel<64><<<grid, sa::kThreads, 0, st>>>(q_, k_, v_, kl, o_, lse_, Lq,
                                                                  Lk, N, scale_log2);
@@ -465,6 +510,27 @@ extern "C" int sa_flash_fwd_bf16(const void* q, const void* k, const void* v, co
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K1 (K1-LSE with a non-null lse [B, N, Lq]); q and k roped by the caller
+extern "C" int sa_flash_fwd_bf16(const void* q, const void* k, const void* v, const void* k_lens,
+                                 void* out, void* lse, int B, int Lq, int Lk, int N, int D,
+                                 float scale_log2, void* stream) {
+  return launch_bf16<false>(q, k, v, k_lens, nullptr, out, lse, B, Lq, Lk, N, D, scale_log2,
+                            stream);
+}
+
+// K1-rope: q and k in split-pair layout, rotated in the kernel by the packed
+// fp32 table rope [L, D] (L >= Lq and L >= Lk; row i is position i)
+extern "C" int sa_flash_fwd_bf16_rope(const void* q, const void* k, const void* v,
+                                      const void* k_lens, const void* rope, void* out, void* lse,
+                                      int B, int Lq, int Lk, int N, int D, float scale_log2,
+                                      void* stream) {
+  if (rope == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bf16<true>(q, k, v, k_lens, rope, out, lse, B, Lq, Lk, N, D, scale_log2,
+                           stream);
 }
 
 namespace {

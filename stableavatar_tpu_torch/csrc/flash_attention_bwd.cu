@@ -22,6 +22,15 @@
 // K4b: one block owns 64 query rows and loops over the key tiles below
 // k_lens[b]: dQ += bf16(dS) . K in fp32 registers.
 //
+// The rope branch (ROPE; `flash_attention(rope=)` under autograd) takes
+// unrotated split-pair q and k and the packed fp32 table [L, D], as the TPU
+// bodies do (`_rot` at :731-732 / :804-805, `_rot_inv` at :771 / :837):
+// every q and k tile is rotated in place in shared memory where it is
+// staged (rope_tile, fp32, one bf16 rounding), so the main loop and its
+// registers are the unroped kernel's, and the fp32 dK (K4a) and dQ (K4b)
+// accumulators are inverse-rotated once before the store.  dV and delta
+// do not change.
+//
 // Layout: the kernels read q/k/v/dO straight from the [B, L, N, D]
 // activations and write dq/dk/dv in bf16 the same way; ragged Lq and Lk are
 // masked in-kernel (no padding or transpose pass).  The four 64-row operand
@@ -69,12 +78,13 @@ __device__ __forceinline__ void mm_rows(float (&s)[kNT][4], const unsigned short
   }
 }
 
-template <int D>
+template <int D, bool ROPE>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
-                      const int* __restrict__ k_lens, __nv_bfloat16* __restrict__ dk,
+                      const int* __restrict__ k_lens, const float* __restrict__ rope,
+                      __nv_bfloat16* __restrict__ dk,
                       __nv_bfloat16* __restrict__ dv, int Lq, int Lk, int N, float scale,
                       float scale_log2) {
   constexpr int kPitch = D + 8;
@@ -108,6 +118,12 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     load_tile<D * 2>(reinterpret_cast<char*>(Vs), reinterpret_cast<const char*>(v + k_off),
                      rs * 2, kb0, Lk);
     cp_async_commit();
+    if constexpr (ROPE) {
+      // the block's keys, rotated once (read after the loop's first barrier)
+      cp_async_wait<0>();
+      __syncthreads();
+      rope_tile<D>(Ks, rope, kb0, Lk);
+    }
     const float* lse_bh = lse + (long long)bh * Lq;
     const float* delta_bh = delta + (long long)bh * Lq;
     const unsigned short* Kw = Ks + warp * 16 * kPitch;
@@ -132,6 +148,10 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
       }
       cp_async_wait<1>();
       __syncthreads();
+      if constexpr (ROPE) {
+        rope_tile<D>(Qs, rope, q0, Lq);
+        __syncthreads();
+      }
 
       // P^T [16 keys, 64 queries]
       float p[kNT][4];
@@ -164,16 +184,18 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
       __syncthreads();
     }
   }
+  if constexpr (ROPE) rope_inv_acc<D>(dk_acc, rope, key_a, Lk);
   store_rows<D>(dk + k_off, rs, key_a, Lk, dk_acc);
   store_rows<D>(dv + k_off, rs, key_a, Lk, dv_acc);
 }
 
-template <int D>
+template <int D, bool ROPE>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    const int* __restrict__ k_lens, __nv_bfloat16* __restrict__ dq, int Lq,
+                    const int* __restrict__ k_lens, const float* __restrict__ rope,
+                    __nv_bfloat16* __restrict__ dq, int Lq,
                     int Lk, int N, float scale, float scale_log2) {
   constexpr int kPitch = D + 8;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -208,6 +230,12 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     l2[i] = lv > kNegInf * 0.5f ? lv * kLog2e : pos_inf();
     dl[i] = r < Lq ? delta_bh[r] : 0.f;
   }
+  if constexpr (ROPE) {
+    // the block's queries, rotated once (read after the loop's first barrier)
+    cp_async_wait<0>();
+    __syncthreads();
+    rope_tile<D>(Qs, rope, q0, Lq);
+  }
   const unsigned short* Qw = Qs + warp * 16 * kPitch;
   const unsigned short* dOw = dOs + warp * 16 * kPitch;
 
@@ -226,6 +254,10 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
+    if constexpr (ROPE) {
+      rope_tile<D>(Ks, rope, k0, Lk);
+      __syncthreads();
+    }
 
     float p[kNT][4];
     mm_rows<D>(p, Qw, Ks);  // S [16 queries, 64 keys]
@@ -254,6 +286,7 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     pv_bf16<D>(dq_acc, p, Ks);  // dQ += dS . K
     __syncthreads();
   }
+  if constexpr (ROPE) rope_inv_acc<D>(dq_acc, rope, row_a, Lq);
   store_rows<D>(dq + q_off, rs, row_a, Lq, dq_acc);
 }
 
@@ -269,13 +302,17 @@ int allow_smem(Kernel kernel, int smem) {
 // --------------------------------------------------------------------------
 // plain C entry points (loaded with ctypes).  Each launches on `stream`,
 // allocates nothing and returns the first CUDA error (0 on success).  k_lens
-// may be NULL (every key valid); lse and delta are [B, N, Lq] fp32.
+// may be NULL (every key valid); lse and delta are [B, N, Lq] fp32; the
+// rope entry points take the packed fp32 table rope [L, D] (L >= Lq, Lk).
 // --------------------------------------------------------------------------
 
-extern "C" int sa_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
-                                 const void* lse, const void* delta, const void* k_lens,
-                                 void* dk, void* dv, int B, int Lq, int Lk, int N, int D,
-                                 float scale, float scale_log2, void* stream) {
+namespace {
+
+template <bool ROPE>
+int launch_dkdv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                const void* delta, const void* k_lens, const void* rope, void* dk, void* dv,
+                int B, int Lq, int Lk, int N, int D, float scale, float scale_log2,
+                void* stream) {
   const dim3 grid((Lk + sa::kBlockK - 1) / sa::kBlockK, B * N);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto q_ = static_cast<const __nv_bfloat16*>(q);
@@ -285,29 +322,30 @@ extern "C" int sa_flash_bwd_dkdv(const void* q, const void* k, const void* v, co
   auto l_ = static_cast<const float*>(lse);
   auto d_ = static_cast<const float*>(delta);
   auto kl = static_cast<const int*>(k_lens);
+  auto r_ = static_cast<const float*>(rope);
   auto dk_ = static_cast<__nv_bfloat16*>(dk);
   auto dv_ = static_cast<__nv_bfloat16*>(dv);
   int rc;
   if (D == 128) {
     constexpr int smem = sa::bwd_smem_bytes<128>();
-    if ((rc = sa::allow_smem(sa::flash_bwd_dkdv_kernel<128>, smem))) return rc;
-    sa::flash_bwd_dkdv_kernel<128><<<grid, sa::kThreads, smem, st>>>(
-        q_, k_, v_, do_, l_, d_, kl, dk_, dv_, Lq, Lk, N, scale, scale_log2);
+    if ((rc = sa::allow_smem(sa::flash_bwd_dkdv_kernel<128, ROPE>, smem))) return rc;
+    sa::flash_bwd_dkdv_kernel<128, ROPE><<<grid, sa::kThreads, smem, st>>>(
+        q_, k_, v_, do_, l_, d_, kl, r_, dk_, dv_, Lq, Lk, N, scale, scale_log2);
   } else if (D == 64) {
     constexpr int smem = sa::bwd_smem_bytes<64>();
-    if ((rc = sa::allow_smem(sa::flash_bwd_dkdv_kernel<64>, smem))) return rc;
-    sa::flash_bwd_dkdv_kernel<64><<<grid, sa::kThreads, smem, st>>>(
-        q_, k_, v_, do_, l_, d_, kl, dk_, dv_, Lq, Lk, N, scale, scale_log2);
+    if ((rc = sa::allow_smem(sa::flash_bwd_dkdv_kernel<64, ROPE>, smem))) return rc;
+    sa::flash_bwd_dkdv_kernel<64, ROPE><<<grid, sa::kThreads, smem, st>>>(
+        q_, k_, v_, do_, l_, d_, kl, r_, dk_, dv_, Lq, Lk, N, scale, scale_log2);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int sa_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                               const void* lse, const void* delta, const void* k_lens, void* dq,
-                               int B, int Lq, int Lk, int N, int D, float scale, float scale_log2,
-                               void* stream) {
+template <bool ROPE>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, const void* k_lens, const void* rope, void* dq, int B, int Lq,
+              int Lk, int N, int D, float scale, float scale_log2, void* stream) {
   const dim3 grid((Lq + sa::kBlockQ - 1) / sa::kBlockQ, B * N);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto q_ = static_cast<const __nv_bfloat16*>(q);
@@ -317,20 +355,61 @@ extern "C" int sa_flash_bwd_dq(const void* q, const void* k, const void* v, cons
   auto l_ = static_cast<const float*>(lse);
   auto d_ = static_cast<const float*>(delta);
   auto kl = static_cast<const int*>(k_lens);
+  auto r_ = static_cast<const float*>(rope);
   auto dq_ = static_cast<__nv_bfloat16*>(dq);
   int rc;
   if (D == 128) {
     constexpr int smem = sa::bwd_smem_bytes<128>();
-    if ((rc = sa::allow_smem(sa::flash_bwd_dq_kernel<128>, smem))) return rc;
-    sa::flash_bwd_dq_kernel<128><<<grid, sa::kThreads, smem, st>>>(
-        q_, k_, v_, do_, l_, d_, kl, dq_, Lq, Lk, N, scale, scale_log2);
+    if ((rc = sa::allow_smem(sa::flash_bwd_dq_kernel<128, ROPE>, smem))) return rc;
+    sa::flash_bwd_dq_kernel<128, ROPE><<<grid, sa::kThreads, smem, st>>>(
+        q_, k_, v_, do_, l_, d_, kl, r_, dq_, Lq, Lk, N, scale, scale_log2);
   } else if (D == 64) {
     constexpr int smem = sa::bwd_smem_bytes<64>();
-    if ((rc = sa::allow_smem(sa::flash_bwd_dq_kernel<64>, smem))) return rc;
-    sa::flash_bwd_dq_kernel<64><<<grid, sa::kThreads, smem, st>>>(
-        q_, k_, v_, do_, l_, d_, kl, dq_, Lq, Lk, N, scale, scale_log2);
+    if ((rc = sa::allow_smem(sa::flash_bwd_dq_kernel<64, ROPE>, smem))) return rc;
+    sa::flash_bwd_dq_kernel<64, ROPE><<<grid, sa::kThreads, smem, st>>>(
+        q_, k_, v_, do_, l_, d_, kl, r_, dq_, Lq, Lk, N, scale, scale_log2);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int sa_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
+                                 const void* lse, const void* delta, const void* k_lens,
+                                 void* dk, void* dv, int B, int Lq, int Lk, int N, int D,
+                                 float scale, float scale_log2, void* stream) {
+  return launch_dkdv<false>(q, k, v, dout, lse, delta, k_lens, nullptr, dk, dv, B, Lq, Lk, N, D,
+                            scale, scale_log2, stream);
+}
+
+extern "C" int sa_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                               const void* lse, const void* delta, const void* k_lens, void* dq,
+                               int B, int Lq, int Lk, int N, int D, float scale, float scale_log2,
+                               void* stream) {
+  return launch_dq<false>(q, k, v, dout, lse, delta, k_lens, nullptr, dq, B, Lq, Lk, N, D, scale,
+                          scale_log2, stream);
+}
+
+// K4a with the rope branch: q and k unrotated (split-pair), dK inverse-rotated
+extern "C" int sa_flash_bwd_dkdv_rope(const void* q, const void* k, const void* v,
+                                      const void* dout, const void* lse, const void* delta,
+                                      const void* k_lens, const void* rope, void* dk, void* dv,
+                                      int B, int Lq, int Lk, int N, int D, float scale,
+                                      float scale_log2, void* stream) {
+  if (rope == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dkdv<true>(q, k, v, dout, lse, delta, k_lens, rope, dk, dv, B, Lq, Lk, N, D,
+                           scale, scale_log2, stream);
+}
+
+// K4b with the rope branch: dQ inverse-rotated
+extern "C" int sa_flash_bwd_dq_rope(const void* q, const void* k, const void* v,
+                                    const void* dout, const void* lse, const void* delta,
+                                    const void* k_lens, const void* rope, void* dq, int B, int Lq,
+                                    int Lk, int N, int D, float scale, float scale_log2,
+                                    void* stream) {
+  if (rope == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dq<true>(q, k, v, dout, lse, delta, k_lens, rope, dq, B, Lq, Lk, N, D, scale,
+                         scale_log2, stream);
 }

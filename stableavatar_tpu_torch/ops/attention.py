@@ -38,12 +38,18 @@ def attention(
     quant: "none" | "qk" (| "qkv" | "qkpv") for the flash path; the
     short-query path ignores it.
     """
-    if _use_flash(q):
+    if _use_flash(q) and quant != "none":
+        # int8 paths: rope goes into the quantisation prep
         return flash_attention(q, k, v, k_lens=k_lens, scale=scale, rope=rope, quant=quant)
     if rope is not None:
+        # one rotation pass per tensor before K1 or the short-query path, as
+        # the JAX package's `attention()` does; `flash_attention(rope=)`
+        # rotates inside the kernel instead
         dt = q.dtype
         q = rope_apply_split(q, rope).to(dt)
         k = rope_apply_split(k, rope).to(dt)
+    if _use_flash(q):
+        return flash_attention(q, k, v, k_lens=k_lens, scale=scale)
     return short_attention(q, k, v, k_lens=k_lens, scale=scale)
 
 

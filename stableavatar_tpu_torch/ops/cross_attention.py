@@ -5,12 +5,14 @@ out = attn(q, k1, v1) + attn(q, k2, v2) with a separate softmax per context
 (text L1 = 512, CLIP image L2 = 257 at the Wan token budgets).  On a CUDA
 tensor it launches the hand-written Hopper kernel (`csrc/cross_attention.cu`,
 an online softmax per segment with two accumulators); on a CPU tensor it
-runs `_dual_plain`, the two-call form of the JAX package's `_dual_reference`.
+runs `_dual_plain`, the TPU kernel's arithmetic (`_dual_body`).
 
-The TPU kernel normalises P per segment before one bf16 P.V product; the
-Hopper kernel divides by the row sums at the end, so the two agree up to
-bf16 rounding of P (the chip check holds it to rel-L2 1e-2 / max-abs 6e-2
-in bf16).  Inference only: no gradient.
+The TPU kernel normalises P per segment, rounds it to the value dtype and
+runs one P.V over both segments; `_dual_plain` rounds at the same points.
+The Hopper kernel rounds the unnormalised P and divides by the row sums at
+the end, so it agrees with both up to bf16 rounding of P (the chip check
+holds it to rel-L2 1e-2 / max-abs 6e-2 in bf16).  Inference only: no
+gradient.
 """
 
 from __future__ import annotations
@@ -21,20 +23,38 @@ import torch
 
 from stableavatar_tpu_torch.ops import cuda_lib
 from stableavatar_tpu_torch.ops.flash_attention import (
+    _PLAIN_CHUNK_BYTES,
     LOG2E,
+    _acc_dtype,
     _check,
-    _flash_fwd_plain,
 )
 
 launch_counts = {"dual_context": 0}
 
 
 def _dual_plain(q, k1, v1, k2, v2, scale):
-    """attn(q, k1, v1) + attn(q, k2, v2): two plain softmax attentions (each
-    one key block, i.e. an exact softmax), summed in fp32."""
-    a = _flash_fwd_plain(q.float(), k1.float(), v1.float(), scale=scale, block_k=k1.shape[1])
-    b = _flash_fwd_plain(q.float(), k2.float(), v2.float(), scale=scale, block_k=k2.shape[1])
-    return (a + b).to(q.dtype)
+    """attn(q, k1, v1) + attn(q, k2, v2) as the TPU body `_dual_body`
+    computes it: fp32 logits of both segments in the base-2 domain, an
+    exact softmax per segment whose P is normalised by the reciprocal of its
+    row sum and rounded to v's dtype, then one P.V over both segments summed
+    in fp32 and rounded once; in chunks of queries."""
+    b, lq, n, d = q.shape
+    l1 = k1.shape[1]
+    acc = _acc_dtype(q)
+    qf = q.permute(0, 2, 1, 3).to(acc)
+    kt = torch.cat([k1, k2], dim=1).permute(0, 2, 3, 1).to(acc)  # [B, N, D, L1 + L2]
+    vc = torch.cat([v1, v2], dim=1).permute(0, 2, 1, 3)
+    vf = vc.to(acc)
+    out = torch.empty((b, n, lq, d), dtype=acc, device=q.device)
+    qc = max(1, _PLAIN_CHUNK_BYTES // (4 * b * n * kt.shape[-1]))
+    for q0 in range(0, lq, qc):
+        s = (qf[:, :, q0:q0 + qc] @ kt) * (scale * LOG2E)
+        p = []
+        for seg in (s[..., :l1], s[..., l1:]):
+            e = torch.exp2(seg - seg.amax(dim=-1, keepdim=True))
+            p.append(e * (1.0 / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)))
+        out[:, :, q0:q0 + qc] = torch.cat(p, dim=-1).to(vc.dtype).to(acc) @ vf
+    return out.to(q.dtype).permute(0, 2, 1, 3)
 
 
 def _dual_cuda(q, k1, v1, k2, v2, scale):

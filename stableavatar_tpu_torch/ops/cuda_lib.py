@@ -27,7 +27,7 @@ import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
-SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "cross_attention.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "cross_attention.cu", "probes.cu")
 HEADERS = ("attention_common.cuh",)
 BUILD_ROOT = PACKAGE_DIR / "_build"
 LIB_NAME = "libsa_kernels.so"
@@ -43,6 +43,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # q, k, v, k_lens, out, lse, B, Lq, Lk, N, D, scale_log2, stream
     "sa_flash_fwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, k_lens, rope, out, lse, B, Lq, Lk, N, D, scale_log2, stream
+    "sa_flash_fwd_bf16_rope": [_P] * 7 + [_I] * 5 + [_F, _P],
     # q8, k8, v, sqk, k_lens, out, lse, B, Lq, Lk, N, D, stream
     "sa_flash_fwd_int8_qk": [_P] * 7 + [_I] * 5 + [_P],
     # q8, k8, v8, sv, sqk, k_lens, out, lse, B, Lq, Lk, N, D, stream
@@ -57,8 +59,16 @@ SIGNATURES = {
     "sa_flash_bwd_dkdv": [_P] * 9 + [_I] * 5 + [_F, _F, _P],
     # q, k, v, dout, lse, delta, k_lens, dq, B, Lq, Lk, N, D, scale, scale_log2, stream
     "sa_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
+    # q, k, v, dout, lse, delta, k_lens, rope, dk, dv, B, Lq, Lk, N, D, scale, scale_log2, stream
+    "sa_flash_bwd_dkdv_rope": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
+    # q, k, v, dout, lse, delta, k_lens, rope, dq, B, Lq, Lk, N, D, scale, scale_log2, stream
+    "sa_flash_bwd_dq_rope": [_P] * 9 + [_I] * 5 + [_F, _F, _P],
     # q, k1, v1, k2, v2, out, B, Lq, L1, L2, N, D, scale_log2, stream
     "sa_dual_context": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # a, b, out, M, N, K, epilogue, stream
+    "sa_mm_probe": [_P] * 3 + [_I] * 4 + [_P],
+    # q, k, v, out, BH, L, D, int8, stream
+    "sa_dots_probe": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,8 @@
-"""Flash attention: kernels K1 (bf16 forward, optional LSE), K2 (int8 Q.K^T
-forward), K2v (K2 with int8 V: "qkv", "qkpv"), K2-LSE (K2 / K2v with the LSE
-output), K3 (K2 / K2v-qkv with the static-bound softmax) and K4 (the bf16
-backward).
+"""Flash attention: kernels K1 (bf16 forward, optional LSE), K1-rope (K1
+with the split-pair rotation inside), K2 (int8 Q.K^T forward), K2v (K2 with
+int8 V: "qkv", "qkpv"), K2-LSE (K2 / K2v with the LSE output), K3 (K2 /
+K2v-qkv with the static-bound softmax) and K4 (the bf16 backward, with its
+rope branch).
 
 Port of `stableavatar_tpu/ops/flash_attention.py`.  On a CUDA tensor
 `flash_attention` launches a hand-written Hopper kernel
@@ -15,6 +16,10 @@ with grad enabled and an input that requires grad, the forward launches K1
 with its natural-log LSE and the backward launches K4a (dK, dV) and K4b
 (dQ), which recompute P from that LSE.  Otherwise K1 runs without the LSE
 write, as the JAX primal does.  The int8 paths are not differentiable.
+With `rope=` the bf16 path rotates q and k inside the kernels (K1-rope,
+and K4's rope branch, which inverse-rotates dQ and dK), as the JAX
+package's `flash_attention(rope=)` does; `ops/attention.py` rotates before
+K1 instead, as the JAX package's `attention()` does.
 
 Semantics kept from the JAX package: q/k/v [B, L, N, D]; keys at or past
 `k_lens[b]` are masked with -1e30; the online softmax runs in base 2 with
@@ -47,7 +52,7 @@ from typing import Optional
 import torch
 
 from stableavatar_tpu_torch.ops import cuda_lib
-from stableavatar_tpu_torch.ops.rope import rope_apply_split
+from stableavatar_tpu_torch.ops.rope import rope_apply_split, rope_apply_split_inv
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
@@ -64,7 +69,9 @@ launch_counts = {"flash_fwd_bf16": 0, "flash_fwd_bf16_lse": 0, "flash_fwd_int8_q
                  "flash_fwd_int8_qk_lse": 0, "flash_fwd_int8_qkv_lse": 0,
                  "flash_fwd_int8_qkpv_lse": 0,
                  "flash_fwd_int8_static_qk": 0, "flash_fwd_int8_static_qkv": 0,
-                 "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+                 "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
+                 "flash_fwd_bf16_rope": 0, "flash_fwd_bf16_rope_lse": 0,
+                 "flash_bwd_dkdv_rope": 0, "flash_bwd_dq_rope": 0}
 
 # the JAX package's default key blocks of the int8 paths: `flash_attention`
 # and `flash_attention_with_stats`, each capped to Lk rounded up to 128
@@ -135,13 +142,23 @@ def _online_softmax_plain(logits_fn, k_lens, lq, lk, block_k, out_shape,
     return (acc_out, lse) if with_lse else acc_out
 
 
+def _rope_rows(x, rope):
+    """x [B, L, N, D] rotated by the first L rows of the packed split-pair
+    table in fp32 and rounded to x's dtype once (JAX `_rot(...).astype(dt)`)."""
+    return rope_apply_split(x, rope[: x.shape[1]]).to(x.dtype)
+
+
 def _flash_fwd_plain(q, k, v, k_lens=None, scale=None, block_k: int = 1024,
-                     with_lse: bool = False):
+                     with_lse: bool = False, rope=None):
     """Plain K1: bf16 (or fp32) flash forward, [B, L, N, D] in and out; with
-    `with_lse` also the natural-log LSE [B, N, Lq] (fp32)."""
+    `with_lse` also the natural-log LSE [B, N, Lq] (fp32).  With `rope` (plain
+    K1-rope) q and k are rotated first, q by the table's rows [0, Lq), k by
+    [0, Lk)."""
     b, lq, n, d = q.shape
     lk = k.shape[1]
     scale = d ** -0.5 if scale is None else scale
+    if rope is not None:
+        q, k = _rope_rows(q, rope), _rope_rows(k, rope)
     acc = _acc_dtype(q)
     qf = q.permute(0, 2, 1, 3).to(acc)
     kf = k.permute(0, 2, 1, 3).to(acc)
@@ -162,7 +179,7 @@ def _flash_fwd_plain(q, k, v, k_lens=None, scale=None, block_k: int = 1024,
     return (out, lse) if with_lse else out
 
 
-def _flash_bwd_plain(q, k, v, k_lens, out, lse, g, scale=None):
+def _flash_bwd_plain(q, k, v, k_lens, out, lse, g, scale=None, rope=None):
     """Plain K4: the flash backward from the forward's LSE [B, N, Lq], in
     chunks of queries so no [B, N, Lq, Lk] tensor is materialised.
 
@@ -170,10 +187,15 @@ def _flash_bwd_plain(q, k, v, k_lens, out, lse, g, scale=None):
     lse * log2 e) with masked keys and rows with lse <= NEG_INF / 2 at 0,
     delta = rowsum(dO * O), ds = p * (dp - delta) * scale; P and dS are
     rounded to the input dtype before their products (dV = P^T dO,
-    dK = dS^T Q, dQ = dS K).  Returns dq, dk, dv [B, L, N, D] in q's dtype."""
+    dK = dS^T Q, dQ = dS K).  With `rope` (the rope branch) q and k are the
+    unrotated inputs: both are rotated as the forward rotates them, and dQ
+    and dK are inverse-rotated in fp32 before the final rounding.  Returns
+    dq, dk, dv [B, L, N, D] in q's dtype."""
     b, lq, n, d = q.shape
     lk = k.shape[1]
     scale = d ** -0.5 if scale is None else scale
+    if rope is not None:
+        q, k = _rope_rows(q, rope), _rope_rows(k, rope)
     dt, acc = q.dtype, _acc_dtype(q)
     qf, kf, vf, gf, of = (x.permute(0, 2, 1, 3).to(acc) for x in (q, k, v, g, out))
     delta = (gf * of).sum(-1, keepdim=True)  # [B, N, Lq, 1]
@@ -198,7 +220,11 @@ def _flash_bwd_plain(q, k, v, k_lens, out, lse, g, scale=None):
         ds = (p * (dp - delta[:, :, q0:q1]) * scale).to(dt).to(acc)
         dk += ds.transpose(-1, -2) @ qf[:, :, q0:q1]
         dq[:, :, q0:q1] = ds @ kf
-    return tuple(x.to(dt).permute(0, 2, 1, 3) for x in (dq, dk, dv))
+    dq, dk, dv = (x.permute(0, 2, 1, 3) for x in (dq, dk, dv))
+    if rope is not None:
+        dq = rope_apply_split_inv(dq, rope[:lq])
+        dk = rope_apply_split_inv(dk, rope[:lk])
+    return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
 def _flash_int8_plain(q8, k8, v, sqk, k_lens=None, quant: str = "qk", sv=None,
@@ -348,8 +374,19 @@ def _check_cuda_common(q, k, v, k_lens, v_dtype=torch.bfloat16):
             raise ValueError("k_lens must be on the same device as q")
 
 
-def _flash_fwd_cuda(q, k, v, k_lens, scale, with_lse: bool = False):
-    """K1; with `with_lse` returns (out, lse [B, N, Lq] fp32)."""
+def _check_rope(rope, q, lk):
+    """The packed split-pair table [L, D] fp32 on q's device, L >= Lq, Lk."""
+    lq, d = q.shape[1], q.shape[3]
+    _check("rope", rope, torch.float32)
+    if rope.device != q.device:
+        raise ValueError("rope must be on the same device as q")
+    if rope.dim() != 2 or rope.shape[1] != d or rope.shape[0] < max(lq, lk):
+        raise ValueError(f"rope: expected [L >= {max(lq, lk)}, {d}], got {tuple(rope.shape)}")
+
+
+def _flash_fwd_cuda(q, k, v, k_lens, scale, with_lse: bool = False, rope=None):
+    """K1, or K1-rope given the packed table `rope`; with `with_lse` returns
+    (out, lse [B, N, Lq] fp32)."""
     b, lq, n, d = q.shape
     lk = k.shape[1]
     _check("q", q, torch.bfloat16)
@@ -357,17 +394,23 @@ def _flash_fwd_cuda(q, k, v, k_lens, scale, with_lse: bool = False):
     _check_cuda_common(q, k, v, k_lens)
     out = torch.empty_like(q)
     lse = torch.empty((b, n, lq), dtype=torch.float32, device=q.device) if with_lse else None
-    cuda_lib.launch(
-        "sa_flash_fwd_bf16", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if k_lens is None else k_lens.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), b, lq, lk, n, d, float(scale * LOG2E),
-    )
-    launch_counts["flash_fwd_bf16_lse" if with_lse else "flash_fwd_bf16"] += 1
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if k_lens is None else k_lens.data_ptr()]
+    name = "flash_fwd_bf16"
+    if rope is not None:
+        _check_rope(rope, q, lk)
+        ptrs.append(rope.data_ptr())
+        name += "_rope"
+    cuda_lib.launch(f"sa_{name}", *ptrs, out.data_ptr(),
+                    None if lse is None else lse.data_ptr(), b, lq, lk, n, d,
+                    float(scale * LOG2E))
+    launch_counts[name + ("_lse" if with_lse else "")] += 1
     return (out, lse) if with_lse else out
 
 
-def _flash_bwd_cuda(q, k, v, k_lens, out, lse, g, scale):
-    """K4a then K4b: (dq, dk, dv) in bf16 from the forward's LSE."""
+def _flash_bwd_cuda(q, k, v, k_lens, out, lse, g, scale, rope=None):
+    """K4a then K4b: (dq, dk, dv) in bf16 from the forward's LSE; given the
+    packed table `rope`, their rope branch on the unrotated q and k."""
     b, lq, n, d = q.shape
     lk = k.shape[1]
     _check("q", q, torch.bfloat16)
@@ -380,42 +423,49 @@ def _flash_bwd_cuda(q, k, v, k_lens, out, lse, g, scale):
     delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     kl = None if k_lens is None else k_lens.data_ptr()
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), kl)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), kl]
+    suffix = ""
+    if rope is not None:
+        _check_rope(rope, q, lk)
+        args.append(rope.data_ptr())
+        suffix = "_rope"
     dims = (b, lq, lk, n, d, float(scale), float(scale * LOG2E))
-    cuda_lib.launch("sa_flash_bwd_dkdv", *args, dk.data_ptr(), dv.data_ptr(), *dims)
-    launch_counts["flash_bwd_dkdv"] += 1
-    cuda_lib.launch("sa_flash_bwd_dq", *args, dq.data_ptr(), *dims)
-    launch_counts["flash_bwd_dq"] += 1
+    cuda_lib.launch(f"sa_flash_bwd_dkdv{suffix}", *args, dk.data_ptr(), dv.data_ptr(), *dims)
+    launch_counts[f"flash_bwd_dkdv{suffix}"] += 1
+    cuda_lib.launch(f"sa_flash_bwd_dq{suffix}", *args, dq.data_ptr(), *dims)
+    launch_counts[f"flash_bwd_dq{suffix}"] += 1
     return dq, dk, dv
 
 
-def _flash_fwd_with_lse(q, k, v, k_lens, scale):
+def _flash_fwd_with_lse(q, k, v, k_lens, scale, rope=None):
     if q.is_cuda:
-        return _flash_fwd_cuda(q, k, v, k_lens, scale, with_lse=True)
-    return _flash_fwd_plain(q, k, v, k_lens, scale, with_lse=True)
+        return _flash_fwd_cuda(q, k, v, k_lens, scale, with_lse=True, rope=rope)
+    return _flash_fwd_plain(q, k, v, k_lens, scale, with_lse=True, rope=rope)
 
 
 class _Flash(torch.autograd.Function):
     """The custom VJP of the JAX package's `_flash` (flash_attention.py:967):
-    forward K1 with LSE, backward K4 (plain versions on CPU tensors)."""
+    forward K1 (K1-rope given `rope`) with LSE, backward K4 (its rope branch
+    given `rope`, from the saved unrotated q and k); plain versions on CPU
+    tensors."""
 
     @staticmethod
-    def forward(ctx, q, k, v, k_lens, scale):
-        out, lse = _flash_fwd_with_lse(q, k, v, k_lens, scale)
-        ctx.save_for_backward(q, k, v, k_lens, out, lse)
+    def forward(ctx, q, k, v, k_lens, scale, rope=None):
+        out, lse = _flash_fwd_with_lse(q, k, v, k_lens, scale, rope)
+        ctx.save_for_backward(q, k, v, k_lens, out, lse, rope)
         ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, k_lens, out, lse = ctx.saved_tensors
+        q, k, v, k_lens, out, lse, rope = ctx.saved_tensors
         g = g.contiguous()
         if q.is_cuda:
-            dq, dk, dv = _flash_bwd_cuda(q, k, v, k_lens, out, lse, g, ctx.scale)
+            dq, dk, dv = _flash_bwd_cuda(q, k, v, k_lens, out, lse, g, ctx.scale, rope)
         else:
-            dq, dk, dv = _flash_bwd_plain(q, k, v, k_lens, out, lse, g, ctx.scale)
-        return dq, dk, dv, None, None
+            dq, dk, dv = _flash_bwd_plain(q, k, v, k_lens, out, lse, g, ctx.scale, rope)
+        return dq, dk, dv, None, None, None
 
 
 def _flash_int8_cuda(q8, k8, v, sqk, k_lens, quant: str = "qk", sv=None,
@@ -504,9 +554,10 @@ def flash_attention(
 
     quant: "none" (K1) | "qk" (K2) | "qkv" | "qkpv" (K2v).  static_max
     (None: `STATIC_MAX`) takes K3 for "qk" / "qkv"; "qkpv" ignores it.
-    rope: packed split-pair [L, D] table; on the bf16 path it is applied
-    before the kernel, on the int8 paths inside the quantisation prep.  Only
-    "none" is differentiable (K1 with LSE forward, K4 backward).
+    rope: packed split-pair [L, D] fp32 table (row i: position i, L >= Lq,
+    Lk); on the bf16 path the kernels rotate q and k (K1-rope, K4's rope
+    branch), on the int8 paths the quantisation prep does.  Only "none" is
+    differentiable (K1 with LSE forward, K4 backward).
     """
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no flash attention path for device {q.device}")
@@ -514,15 +565,11 @@ def flash_attention(
     scale = d ** -0.5 if scale is None else float(scale)
     needs_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
     if quant == "none":
-        if rope is not None:
-            dt = q.dtype
-            q = rope_apply_split(q, rope).to(dt)
-            k = rope_apply_split(k, rope).to(dt)
         if needs_grad:
-            return _Flash.apply(q, k, v, k_lens, scale)
+            return _Flash.apply(q, k, v, k_lens, scale, rope)
         if q.is_cuda:
-            return _flash_fwd_cuda(q, k, v, k_lens, scale)
-        return _flash_fwd_plain(q, k, v, k_lens, scale)
+            return _flash_fwd_cuda(q, k, v, k_lens, scale, rope=rope)
+        return _flash_fwd_plain(q, k, v, k_lens, scale, rope=rope)
     return _flash_int8(q, k, v, k_lens, scale, rope, quant, static_max, INT8_BLOCK_K)
 
 
@@ -530,7 +577,8 @@ def flash_attention_with_stats(q, k, v, *, k_lens=None, scale=None, rope=None,
                                quant: str = "none", static_max: Optional[bool] = None):
     """Forward returning (out [B, Lq, N, D], lse [B, Lq, N] fp32, natural
     log): the combinable partials ring attention merges (JAX
-    `flash_attention_with_stats`).  "none" runs K1 with its LSE output;
+    `flash_attention_with_stats`).  "none" runs K1 (K1-rope given `rope`)
+    with its LSE output;
     "qk" / "qkv" / "qkpv" run K2-LSE (or K3 with its LSE under `static_max`
     / `STATIC_MAX`, "qkpv" excepted), with "qkpv" quantising P on the JAX
     function's key block of min(1024, round_up(Lk, 128)).  Not
@@ -542,9 +590,5 @@ def flash_attention_with_stats(q, k, v, *, k_lens=None, scale=None, rope=None,
         out, lse = _flash_int8(q, k, v, k_lens, scale, rope, quant, static_max, STATS_BLOCK_K,
                                with_lse=True)
         return out, lse.transpose(1, 2)
-    if rope is not None:
-        dt = q.dtype
-        q = rope_apply_split(q, rope).to(dt)
-        k = rope_apply_split(k, rope).to(dt)
-    out, lse = _flash_fwd_with_lse(q, k, v, k_lens, scale)
+    out, lse = _flash_fwd_with_lse(q, k, v, k_lens, scale, rope)
     return out, lse.transpose(1, 2)

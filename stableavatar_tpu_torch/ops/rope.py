@@ -113,3 +113,15 @@ def rope_apply_split(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     c = packed[None, :, None, :half]
     s = packed[None, :, None, half:]
     return torch.cat([x0 * c - x1 * s, x0 * s + x1 * c], dim=-1)
+
+
+def rope_apply_split_inv(g: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+    """Inverse (transpose) of `rope_apply_split` on g [B, L, N, D]: the
+    gradient of the rotation with respect to its input (JAX
+    `ops/flash_attention.py:_rot_inv`); returns fp32."""
+    half = g.shape[-1] // 2
+    gf = g.float()
+    g0, g1 = gf[..., :half], gf[..., half:]
+    c = packed[None, :, None, :half]
+    s = packed[None, :, None, half:]
+    return torch.cat([g0 * c + g1 * s, -g0 * s + g1 * c], dim=-1)

@@ -52,7 +52,10 @@ def int8_linear(x: torch.Tensor, w8, b=None) -> torch.Tensor:
     if x.is_cuda and (d_in % 8 or d_out % 8):
         raise ValueError(f"int8_linear on CUDA needs d_in, d_out multiples of 8, got {d_in}, {d_out}")
     xf = x.float()
-    sx = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-10)
+    # times the fp32 reciprocal of 127: XLA compiles the JAX package's
+    # `/ 127.0` so (its simplifier turns a division by a constant into a
+    # product), and a scale one ulp off flips int8 roundings downstream
+    sx = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) * (1.0 / 127.0), min=1e-10)
     xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8).reshape(-1, d_in)
     rows = xq.shape[0]
     if xq.is_cuda and rows < _INT_MM_MIN_ROWS:

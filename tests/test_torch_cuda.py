@@ -13,7 +13,10 @@ rounded to bf16 at other places.  K1's and K3's LSE (fp32, from fp32 row
 statistics) are held to max-abs 1e-3, and so is K2-LSE's (the int8 kernels'
 LSE output).  K2v-qkpv is held against its plain version on the same key
 block (its result depends on the block): the JAX package's, or the one
-given.
+given.  K1-rope and K4's rope branch are held to the same bounds, their
+gradients to rel-L2 1e-2; the probes' int8 GEMM outputs (`ops/probes.py`)
+must equal their plain version exactly, and the bf16 GEMM and the dots
+probes stay within rel-L2 1e-2.
 """
 
 import pytest
@@ -21,7 +24,9 @@ import torch
 
 from stableavatar_tpu_torch.ops import cross_attention as ca
 from stableavatar_tpu_torch.ops import flash_attention as fa
+from stableavatar_tpu_torch.ops import probes
 from stableavatar_tpu_torch.ops.attention import attention
+from stableavatar_tpu_torch.ops.rope import pack_split, rope_freqs_3d
 from stableavatar_tpu_torch.utils.quantization import int8_linear, quantize_weight_for_compute
 
 pytestmark = pytest.mark.cuda
@@ -262,3 +267,121 @@ def test_k2v_qkpv_kernel_on_any_block(gen, pv_block):
                                 out_dtype=torch.bfloat16)
     assert _rel(got, want) < REL_TOL, _rel(got, want)
     assert float((got.float() - want.float()).abs().max()) < 6e-2
+
+
+def _rope(l, d):
+    """A packed split-pair table of at least l positions (a 3 x 32 x 32
+    grid: 3072)."""
+    table = pack_split(rope_freqs_3d((3, 32, 32), d, device="cuda"))
+    assert table.shape[0] >= l
+    return table
+
+
+@pytest.mark.parametrize("b,l,n,d,k_lens", [(2, 3000, 2, 128, [2500, 3000]),
+                                            (1, 2100, 3, 64, None)])
+def test_k1_rope_and_k4_rope_match_plain(gen, b, l, n, d, k_lens):
+    """`flash_attention(rope=)` forward, with stats and under autograd:
+    K1-rope (with and without its LSE), K4a-rope and K4b-rope against the
+    plain versions (rotate, plain K1 / K4, inverse-rotate dQ and dK)."""
+    q, k, v, g = (_randn(gen, b, l, n, d) for _ in range(4))
+    kl = None if k_lens is None else torch.tensor(k_lens, dtype=torch.int32, device="cuda")
+    rope = _rope(l, d)
+    scale = d ** -0.5
+    before = dict(fa.launch_counts)
+    want_out, want_lse = fa._flash_fwd_plain(q, k, v, kl, scale, with_lse=True, rope=rope)
+    out = fa.flash_attention(q, k, v, k_lens=kl, rope=rope)
+    assert _rel(out, want_out) < REL_TOL
+    out, lse = fa.flash_attention_with_stats(q, k, v, k_lens=kl, rope=rope)
+    assert _rel(out, want_out) < REL_TOL
+    assert float((lse - want_lse.transpose(1, 2)).abs().max()) < 1e-3
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    out = fa.flash_attention(qg, kg, vg, k_lens=kl, rope=rope)
+    out.backward(g)
+    assert _rel(out.detach(), want_out) < REL_TOL
+    want = fa._flash_bwd_plain(q, k, v, kl, want_out, want_lse, g, scale, rope=rope)
+    for a, w in zip((qg.grad, kg.grad, vg.grad), want):
+        assert _rel(a, w) < REL_TOL, _rel(a, w)
+    counts = {name: fa.launch_counts[name] - before[name] for name in before}
+    assert {name: c for name, c in counts.items() if c} == {
+        "flash_fwd_bf16_rope": 1, "flash_fwd_bf16_rope_lse": 2, "flash_bwd_dkdv_rope": 1,
+        "flash_bwd_dq_rope": 1}
+
+
+def test_attention_rotates_before_k1(gen):
+    """`attention(rope=)` on the bf16 path keeps the JAX package's
+    dispatch: one rotation pass, then K1 (no K1-rope launch)."""
+    b, l, n, d = 1, 2048, 2, 128
+    q, k, v = (_randn(gen, b, l, n, d) for _ in range(3))
+    rope = _rope(l, d)[:l]
+    before = dict(fa.launch_counts)
+    out = attention(q, k, v, rope=rope)
+    assert fa.launch_counts["flash_fwd_bf16"] == before["flash_fwd_bf16"] + 1
+    assert fa.launch_counts["flash_fwd_bf16_rope"] == before["flash_fwd_bf16_rope"]
+    assert _rel(out, fa._flash_fwd_plain(q, k, v, rope=rope)) < REL_TOL
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 128, 128), (300, 192, 80), (130, 1536, 144)])
+@pytest.mark.parametrize("epilogue", probes.EPILOGUES)
+def test_mm_probe_matches_plain(gen, m, k, n, epilogue):
+    """The GEMM probe on ragged M and N: int8 epilogues exactly (sums up to
+    1536 * 127^2 in the last case, beyond fp32's 2^24), bf16 within rel-L2
+    1e-2."""
+    a = torch.randn((m, k), generator=gen, device="cuda")
+    b = torch.randn((k, n), generator=gen, device="cuda")
+    if epilogue == "bf16":
+        a, b = a.bfloat16(), b.bfloat16()
+    else:
+        a = (a * 60).clamp(-127, 127).to(torch.int8)
+        b = (b * 60).clamp(-127, 127).to(torch.int8)
+    name = f"mm_probe_{epilogue}"
+    before = probes.launch_counts[name]
+    got = probes.mm_probe(a, b, epilogue)
+    assert probes.launch_counts[name] == before + 1
+    want = probes._mm_plain(a, b, epilogue)
+    assert got.dtype == want.dtype and got.shape == (m, n)
+    if epilogue == "bf16":
+        assert _rel(got, want) < REL_TOL
+    else:
+        assert torch.equal(got, want)
+        assert torch.equal(got.cpu(), probes.mm_probe(a.cpu(), b.cpu(), epilogue))
+
+
+@pytest.mark.parametrize("bh,l,d", [(3, 1000, 128), (2, 700, 64)])
+@pytest.mark.parametrize("int8", [False, True])
+def test_dots_probe_matches_plain(gen, bh, l, d, int8):
+    q, k, v = (torch.randn((bh, l, d), generator=gen, device="cuda") for _ in range(3))
+    if int8:
+        q, k = ((x * 10).to(torch.int8) for x in (q, k))
+    else:
+        q, k = q.bfloat16(), k.bfloat16()
+    v = v.bfloat16()
+    name = f"dots_probe_{'int8' if int8 else 'bf16'}"
+    before = probes.launch_counts[name]
+    got = probes.dots_probe(q, k, v, int8=int8)
+    assert probes.launch_counts[name] == before + 1
+    assert _rel(got, probes._dots_plain(q, k, v, int8)) < REL_TOL
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    q = _randn(gen, 1, 2048, 2, 128)
+    rope = _rope(2048, 128)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, q, q, rope=rope.double())
+    with pytest.raises(ValueError, match="rope"):
+        fa.flash_attention(q, q, q, rope=rope[:1000])
+    with pytest.raises(ValueError, match="rope"):
+        fa.flash_attention(q, q, q, rope=rope.cpu())
+    a8 = torch.zeros((128, 96), dtype=torch.int8, device="cuda")
+    b8 = torch.zeros((96, 128), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="K % 64"):
+        probes.mm_probe(a8, b8, "int8")
+    wide = torch.zeros((128, 256), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        probes.mm_probe(wide[:, :128], wide[:, :128], "int8")
+    with pytest.raises(TypeError):
+        probes.mm_probe(a8.bfloat16(), b8.bfloat16(), "requant")
+    odd = torch.zeros((2, 128, 96), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        probes.dots_probe(odd, odd, odd)
+    with pytest.raises(ValueError, match="device"):
+        probes.dots_probe(odd, odd, odd.cpu())

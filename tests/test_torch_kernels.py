@@ -99,7 +99,8 @@ def test_flash_wrapper_routes_cpu_to_plain():
         "flash_fwd_bf16", "flash_fwd_bf16_lse", "flash_fwd_int8_qk", "flash_fwd_int8_qkv",
         "flash_fwd_int8_qkpv", "flash_fwd_int8_qk_lse", "flash_fwd_int8_qkv_lse",
         "flash_fwd_int8_qkpv_lse", "flash_fwd_int8_static_qk", "flash_fwd_int8_static_qkv",
-        "flash_bwd_dkdv", "flash_bwd_dq"}
+        "flash_bwd_dkdv", "flash_bwd_dq", "flash_fwd_bf16_rope", "flash_fwd_bf16_rope_lse",
+        "flash_bwd_dkdv_rope", "flash_bwd_dq_rope"}
     assert not any(tfa.launch_counts.values())
 
 
@@ -143,6 +144,67 @@ def test_k4_plain_matches_pallas_vjp(lq, lk, k_lens, d):
     np.testing.assert_allclose(got_out.detach().numpy(), np.asarray(out), rtol=2e-4, atol=2e-4)
     for name, a, w in zip(("dq", "dk", "dv"), (qt.grad, kt.grad, vt.grad), want):
         np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=2e-3, atol=2e-3, err_msg=name)
+
+
+ROPE_GRID = (4, 8, 8)  # 256 positions, tests/test_fastpath.py:57-112
+
+
+@pytest.mark.parametrize("stats", [False, True])
+def test_k1_rope_plain_matches_pallas(stats):
+    """K1-rope: `flash_attention(rope=)` and `flash_attention_with_stats(
+    rope=)` (plain K1 on the rotated q and k, fp32) against the Pallas
+    kernel's in-kernel rotation, tests/test_fastpath.py:57-76's sizes."""
+    rng = np.random.default_rng(1)
+    q, k, v = (rng.standard_normal((2, 256, 2, 64)).astype(np.float32) for _ in range(3))
+    jrope, trope = jpack(jfreqs(ROPE_GRID, 64)), pack_split(rope_freqs_3d(ROPE_GRID, 64))
+    fn = "flash_attention_with_stats" if stats else "flash_attention"
+    with pallas_interpret():
+        want = getattr(jfa, fn)(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), rope=jrope,
+                                block_q=128, block_k=128)
+    got = getattr(tfa, fn)(t(q), t(k), t(v), rope=trope)
+    for g, w in zip(got, want) if stats else [(got, want)]:
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("k_lens,d", [(None, 64), ([200], 128)])
+def test_k4_rope_plain_matches_pallas_vjp(k_lens, d):
+    """K4's rope branch: the port's backward with `rope=` (q and k rotated,
+    dQ and dK inverse-rotated) against `jax.vjp` of the Pallas kernels'
+    in-kernel rope (`_rot` / `_rot_inv`), tests/test_fastpath.py:79-112's
+    sizes, gradients at 2e-3."""
+    rng = np.random.default_rng(2)
+    q, k, v, g = (rng.standard_normal((1, 256, 2, d)).astype(np.float32) for _ in range(4))
+    jrope, trope = jpack(jfreqs(ROPE_GRID, d)), pack_split(rope_freqs_3d(ROPE_GRID, d))
+    kl = None if k_lens is None else np.array(k_lens, np.int32)
+    with pallas_interpret():
+        out, vjp = jax.vjp(lambda q, k, v: jfa.flash_attention(
+            q, k, v, k_lens=None if kl is None else jnp.asarray(kl), rope=jrope, block_q=128,
+            block_k=128), jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        want = vjp(jnp.asarray(g))
+    qt, kt, vt = (t(x).requires_grad_() for x in (q, k, v))
+    got_out = tfa.flash_attention(qt, kt, vt, k_lens=None if kl is None else t(kl), rope=trope)
+    got_out.backward(t(g))
+    np.testing.assert_allclose(got_out.detach().numpy(), np.asarray(out), rtol=2e-4, atol=2e-4)
+    for name, a, w in zip(("dq", "dk", "dv"), (qt.grad, kt.grad, vt.grad), want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=2e-3, atol=2e-3, err_msg=name)
+
+
+def test_rope_inverse_matches_jax_and_is_the_transpose():
+    """`rope_apply_split_inv` equals the JAX package's `_rot_inv` and is the
+    VJP of `rope_apply_split`."""
+    rng = np.random.default_rng(4)
+    x, g = (rng.standard_normal((1, 256, 2, 64)).astype(np.float32) for _ in range(2))
+    trope = pack_split(rope_freqs_3d(ROPE_GRID, 64))
+    jrope = np.asarray(jpack(jfreqs(ROPE_GRID, 64)))
+    from stableavatar_tpu_torch.ops.rope import rope_apply_split, rope_apply_split_inv
+
+    got = rope_apply_split_inv(t(g), trope)
+    want = np.stack([np.asarray(jfa._rot_inv(jnp.asarray(g[0, :, h]), jnp.asarray(jrope)))
+                     for h in range(2)], axis=1)[None]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    xt = t(x).requires_grad_()
+    rope_apply_split(xt, trope).backward(t(g))
+    np.testing.assert_allclose(xt.grad.numpy(), got.numpy(), rtol=1e-6, atol=1e-6)
 
 
 def test_flash_function_gradcheck():

@@ -50,6 +50,15 @@ def test_import_loads_no_jax_and_builds_nothing():
     assert out.stdout.startswith("ok")
 
 
+def test_import_check_covers_the_probes_and_their_scripts():
+    """The subprocess import check above walks every module of the package,
+    the probes' wrappers and the probe scripts included."""
+    assert {"stableavatar_tpu_torch.ops.probes", "stableavatar_tpu_torch.scripts",
+            "stableavatar_tpu_torch.scripts.microbench_int8",
+            "stableavatar_tpu_torch.scripts.microbench_int8_variants",
+            "stableavatar_tpu_torch.scripts.bench_attn_blocks"} <= set(_modules())
+
+
 def test_no_source_line_imports_jax():
     pattern = re.compile(r"^\s*(import jax|from jax|import stableavatar_tpu\b(?!_torch)"
                          r"|from stableavatar_tpu\b(?!_torch))")

@@ -5,6 +5,7 @@ plain kernel versions on CPU tensors.  Inputs are numpy arrays made from a
 seed and handed to both sides.
 """
 
+import os
 from contextlib import contextmanager
 from unittest import mock
 
@@ -25,6 +26,27 @@ def pallas_interpret():
         return orig(*args, **kwargs)
 
     with mock.patch.object(fa.pl, "pallas_call", interp_call):
+        yield
+
+
+@contextmanager
+def pallas_k5():
+    """The JAX fused cross-attention through its Pallas kernel K5 in
+    interpret mode (`STABLEAVATAR_DUAL_CROSS=pallas`, `pl.pallas_call` with
+    interpret=True, the patch of tests/test_ops.py:203-213), instead of its
+    CPU fallback `_dual_reference` (two XLA attentions, summed): the port's
+    K5 follows the kernel (one softmax per context, P normalised and
+    rounded to the value dtype, one P.V over both)."""
+    import jax.experimental.pallas as pl
+
+    orig = pl.pallas_call
+
+    def interp_call(*args, **kwargs):
+        kwargs["interpret"] = True
+        return orig(*args, **kwargs)
+
+    with mock.patch.dict(os.environ, {"STABLEAVATAR_DUAL_CROSS": "pallas"}), \
+            mock.patch.object(pl, "pallas_call", interp_call):
         yield
 
 
