@@ -13,7 +13,7 @@ exits non-zero):
                "qkpv"), K3 (static-bound softmax, "qk" and "qkv", with its
                LSE and the count of rows whose sum underflows), K5
                (dual-context cross-attention), K1 with its LSE output and
-               the K4 backward (K4a dK/dV, K4b dQ) against their plain
+               the fused K4 backward (dQ, dK, dV in one pass) against their plain
                PyTorch versions at the main-path shapes and on small ragged
                cases, with times, the least time the card could take (bound)
                and, where one PyTorch call computes the same function, that
@@ -44,7 +44,7 @@ exits non-zero):
                512x512, 81 frames, batch 1, remat, AdamW (the train CLI's
                defaults), one step in clip-level mode; checks finite losses,
                changed parameters, a checkpoint written and resumed at step
-               3, and the exact K1-LSE / K4a / K4b launch counts;
+               3, the train step time and the exact K1-LSE / K4 launch counts;
 10. ring    -- multi-GPU inference's pieces that one card holds: K2-LSE (the
                int8 kernels' LSE output, "qk", "qkv", "qkpv") against its
                plain version at the DiT self-attention shape and at the
@@ -111,10 +111,9 @@ KERNEL_SOURCES = {
                      "stableavatar_tpu/ops/cross_attention.py:112"),
     "flash_fwd_bf16_lse": ("stableavatar_tpu_torch/csrc/flash_attention.cu",
                            "stableavatar_tpu/ops/flash_attention.py:217"),
-    "flash_bwd_dkdv": ("stableavatar_tpu_torch/csrc/flash_attention_bwd.cu",
-                       "stableavatar_tpu/ops/flash_attention.py:905"),
-    "flash_bwd_dq": ("stableavatar_tpu_torch/csrc/flash_attention_bwd.cu",
-                     "stableavatar_tpu/ops/flash_attention.py:941"),
+    # the fused K4: both Pallas calls of _flash_bwd_impl (:905 dK/dV, :941 dQ)
+    "flash_bwd": ("stableavatar_tpu_torch/csrc/flash_attention_bwd.cu",
+                  "stableavatar_tpu/ops/flash_attention.py:905"),
     "flash_fwd_int8_qkv": ("stableavatar_tpu_torch/csrc/flash_attention.cu",
                            "stableavatar_tpu/ops/flash_attention.py:382"),
     "flash_fwd_int8_qkpv": ("stableavatar_tpu_torch/csrc/flash_attention.cu",
@@ -159,7 +158,7 @@ KERNEL_SOURCES = {
 INFERENCE_KERNELS = ("flash_fwd_bf16", "flash_fwd_int8_qk", "dual_context")
 CLI_KERNELS = ("flash_fwd_int8_static_qk",)
 VARIANT_KERNELS = ("flash_fwd_int8_qkv", "flash_fwd_int8_qkpv", "flash_fwd_int8_static_qkv")
-TRAIN_KERNELS = ("flash_fwd_bf16_lse", "flash_bwd_dkdv", "flash_bwd_dq")
+TRAIN_KERNELS = ("flash_fwd_bf16_lse", "flash_bwd")
 RING_KERNELS = ("flash_fwd_int8_qk_lse", "flash_fwd_int8_qkv_lse", "flash_fwd_int8_qkpv_lse")
 
 
@@ -266,6 +265,7 @@ def phase_kernels(results):
             log(f"  {name} {shape_tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
                 f"bound {bound[0]:.3f} ms ({bound[1]}){lib}")
 
+
     def sdpa_ms(q, k, v, backward=False):
         """The yardstick: one PyTorch SDPA call on [B, N, L, D] views of the
         same inputs (forward, or its autograd backward)."""
@@ -318,7 +318,7 @@ def phase_kernels(results):
                     2.0 * b * n * d * (2 * l + 2 * (512 + 257))))
     del q, k, v, k1, v1, k2, v2, got, want
 
-    phase_kernels_train(record, sdpa_ms, gen)
+    phase_kernels_train(record, sdpa_ms, gen, results)
 
     # small ragged cases: Lq, Lk not tile multiples, per-batch k_lens,
     # both head dims the kernels take
@@ -461,10 +461,11 @@ def compare_grad(name: str, got, want) -> float:
     return mx
 
 
-def phase_kernels_train(record, sdpa_ms, gen):
-    """K1 with LSE and the K4 backward at the training shapes: the DiT
+def phase_kernels_train(record, sdpa_ms, gen, results):
+    """K1 with LSE and the fused K4 backward at the training shapes: the DiT
     self-attention of one 512x512, 81-frame sample [1, 21504, 12, 128], the
-    text / image cross-attention (Lk 512, 257) and the ragged cases."""
+    text / image cross-attention (Lk 512, 257; their K4 times go to the
+    entry's "shapes", each with SDPA's backward) and the ragged cases."""
     import torch
 
     from stableavatar_tpu_torch.ops import flash_attention as fa
@@ -489,44 +490,40 @@ def phase_kernels_train(record, sdpa_ms, gen):
         errs = [compare_grad(f"flash_bwd {name} {tag}", g, w)
                 for name, g, w in zip(("dq", "dk", "dv"), grads, want)]
         del grads, want, want_out, want_lse
-        main = (b, lq, lk) == (1, 21504, 21504)
-        if not main:
-            for name, e in (("flash_fwd_bf16_lse", err), ("flash_bwd_dkdv", max(errs[1:])),
-                            ("flash_bwd_dq", errs[0])):
+        if k_lens is not None or d != 128:
+            for name, e in (("flash_fwd_bf16_lse", err), ("flash_bwd", max(errs))):
                 record(name, tag, e, None, None)
             continue
-        # keys never masked here: the work is the full L^2 per head
-        prod = 2.0 * b * n * lq * lk * d  # flops of one L x L x D product
-        qkvo = 2.0 * b * n * d * (2 * lq + 2 * lk)  # q, do (or out), k, v in bf16
+        # keys never masked here: the work is the full Lq x Lk per head
+        prod = 2.0 * b * n * lq * lk * d  # flops of one Lq x Lk x D product
         stats = 4.0 * b * n * lq * 2  # lse and delta, fp32
-        record("flash_fwd_bf16_lse", tag, err,
-               time_ms(lambda: fa._flash_fwd_cuda(q, k, v, kl, scale, with_lse=True), 5),
-               time_ms(lambda: fa._flash_fwd_plain(q, k, v, kl, scale, with_lse=True), 3),
-               bound_ms(2 * prod, 2.0 * b * n * d * (2 * lq + 2 * lk) + stats / 2),
-               sdpa_ms(q, k, v))
-        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), None)
-        dims = (b, lq, lk, n, d, float(scale), float(scale * fa.LOG2E))
-        from stableavatar_tpu_torch.ops import cuda_lib
-
-        def k4a():
-            cuda_lib.launch("sa_flash_bwd_dkdv", *args, dk.data_ptr(), dv.data_ptr(), *dims)
-
-        def k4b():
-            cuda_lib.launch("sa_flash_bwd_dq", *args, dq.data_ptr(), *dims)
-
-        plain = time_ms(lambda: fa._flash_bwd_plain(q, k, v, kl, out, lse, do, scale), 3)
+        # q, dO in and dq out (Lq rows), k, v in and dk, dv out (Lk rows), bf16
+        grad_bytes = 2.0 * b * n * d * (3 * lq + 4 * lk) + stats
         library = sdpa_ms(q, k, v, backward=True)
-        # K4a: S, dP, dV, dK (4 products); K4b: S, dP, dQ (3 products)
-        record("flash_bwd_dkdv", tag, max(errs[1:]), time_ms(k4a, 5), plain,
-               bound_ms(4 * prod, qkvo + stats + 2.0 * 2 * b * n * lk * d), library)
-        record("flash_bwd_dq", tag, errs[0], time_ms(k4b, 5), plain,
-               bound_ms(3 * prod, qkvo + stats + 2.0 * b * n * lq * d), library)
-        log("  (K4a and K4b plain_ms and library_ms are one whole backward each: the plain "
-            "version and SDPA compute dq, dk and dv together)")
-        del q, k, v, do, out, lse, delta, dq, dk, dv
+        if lk == lq:
+            record("flash_fwd_bf16_lse", tag, err,
+                   time_ms(lambda: fa._flash_fwd_cuda(q, k, v, kl, scale, with_lse=True), 5),
+                   time_ms(lambda: fa._flash_fwd_plain(q, k, v, kl, scale, with_lse=True), 3),
+                   bound_ms(2 * prod, 2.0 * b * n * d * (2 * lq + 2 * lk) + stats / 2),
+                   sdpa_ms(q, k, v))
+        # K4: S, dP, dV, dK, dQ -- five products
+        ms = time_ms(lambda: fa._flash_bwd_cuda(q, k, v, kl, out, lse, do, scale), 5)
+        plain = time_ms(lambda: fa._flash_bwd_plain(q, k, v, kl, out, lse, do, scale), 3)
+        bound = bound_ms(5 * prod, grad_bytes)
+        if lk == lq:
+            record("flash_bwd", tag, max(errs), ms, plain, bound, library)
+        else:
+            # the cross-attention shapes: beside the main entry, in "shapes"
+            splits = fa.bwd_splits(b * n, lq, lk,
+                                   torch.cuda.get_device_properties(0).multi_processor_count)
+            log(f"  flash_bwd {tag}: kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
+                f"{bound[0]:.3f} ms ({bound[1]}), library {library:.3f} ms "
+                f"(query splits {splits})")
+            record("flash_bwd", tag, max(errs), None, None)
+            results["flash_bwd"].setdefault("shapes", []).append(dict(
+                shape=[b, lq, lk, n, d], ms=ms, plain_ms=plain, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=library, query_splits=splits))
+        del q, k, v, do, out, lse
     torch.cuda.synchronize()
 
 
@@ -918,7 +915,8 @@ def train_batches(n, cfg):
     """Synthetic batches with the dataset's keys at the train CLI's defaults
     (512x512, 81 frames, batch 1): pixels in [-1, 1], the first frame
     visible, face and lip masks, 16 kHz audio for 81 frames at 25 fps and a
-    pre-encoded prompt (the port has no T5 yet)."""
+    pre-encoded prompt (the models carry no tokenizer here, so encode_batch
+    takes `prompt_embeds`)."""
     import numpy as np
     import torch
 
@@ -1001,6 +999,9 @@ def phase_train(models, dit_params, reset_counts, counts):
         launches = counts()
         log(f"  train(): {len(history)} steps in {time.perf_counter() - t0:.2f} s including the "
             f"asynchronous checkpoint; launches {launches}")
+        walls = sorted(s["wall_s"] for s in steps)
+        log(f"  train step time (encode + step): median {walls[len(walls) // 2]:.3f} s, "
+            f"steps {[round(s['wall_s'], 3) for s in steps]}")
         if len(steps) != TRAIN_STEPS or not all(
                 torch.isfinite(torch.tensor([s["loss"], s["grad_norm"], s["delta_norm"]])).all()
                 for s in steps):
@@ -1014,7 +1015,8 @@ def phase_train(models, dit_params, reset_counts, counts):
         # per layer 3 long-query attentions (self, text, image), 4 in
         # clip-level mode (global vocal); forward twice under remat, one backward
         calls = cfg.num_layers * (3 * TRAIN_STEPS + n_clip)
-        want = {"flash_fwd_bf16_lse": 2 * calls, "flash_bwd_dkdv": calls, "flash_bwd_dq": calls,
+        want = {"flash_fwd_bf16_lse": 2 * calls, "flash_bwd": calls,
+                "flash_bwd_dkdv_rope": 0, "flash_bwd_dq_rope": 0,
                 "flash_fwd_bf16": 0, "flash_fwd_int8_qk": 0, "dual_context": 0}
         if {k: launches[k] for k in want} != want:
             raise AssertionError(f"training launch counts {launches} != {want}")
@@ -1612,6 +1614,7 @@ def main() -> int:
             "launches": launches.get(name, 0), "max_abs_err": r.get("max_abs_err"),
             "ms": r.get("ms"), "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"), "library_ms": r.get("library_ms"),
+            **({"shapes": r["shapes"]} if "shapes" in r else {}),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

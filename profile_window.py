@@ -6,6 +6,7 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 profile_window.py          # generate_long, fast and bf16 paths
     python3 profile_window.py train    # train_step, 1.3B / 512x512 / 81 frames
     python3 profile_window.py kernels  # the int8 flash kernels alone
+    python3 profile_window.py backward # the flash backward (K4) and K5 alone
 
 It builds the random 1.3B / ViT-H / wav2vec2-base / VAE stack of
 `chip_smoke.py` and runs `generate_long` on chip_smoke's inputs (512x512,
@@ -34,6 +35,14 @@ operands: the median of 20 CUDA-event timings each, after a warm-up, as one
 JSON line.  It uses only wrapper arguments that every version of the
 template takes, so the same file compares two checkouts in one call (copy
 it into each and run it from there, in turns).
+
+`backward` times the flash backward at the training shapes [1, 21504, 12,
+128] with Lk 21504, 512 and 257 (self, text and image attention): the
+whole `_flash_bwd_cuda` call (delta, buffers and casts included) and its
+kernels alone -- the fused K4 where the checkout has it (`sa_flash_bwd`),
+else K4a and K4b -- beside SDPA's backward, and K5 at [3, 21504, 12, 128]
+x (512, 257): medians of 20 CUDA-event timings, one JSON line.  It too
+compares two checkouts in one call.
 """
 
 from __future__ import annotations
@@ -50,8 +59,9 @@ STEPS, WAIT, WARMUP = 6, 4, 1
 KINDS = (
     ("K2 / K2v / K2-LSE / K3 flash_fwd_int8", re.compile(r"flash_fwd_int8_kernel")),
     ("K1 flash_fwd_bf16 (with or without LSE)", re.compile(r"flash_fwd_bf16_kernel")),
-    ("K4a flash_bwd_dkdv", re.compile(r"flash_bwd_dkdv_kernel")),
-    ("K4b flash_bwd_dq", re.compile(r"flash_bwd_dq_kernel")),
+    ("K4 flash_bwd (fused)", re.compile(r"flash_bwd_fused_kernel")),
+    ("K4a flash_bwd_dkdv", re.compile(r"flash_bwd_dkdv")),
+    ("K4b flash_bwd_dq", re.compile(r"flash_bwd_dq")),
     ("K5 dual_context", re.compile(r"dual_context_kernel")),
     ("SDPA (VAE attention)", re.compile(r"fmha|pytorch_flash|flash_fwd_kernel|attention", re.I)),
     ("GEMM (cuBLAS: bf16 and _int_mm)", re.compile(r"gemm|cutlass|xmma|nvjet|cublas", re.I)),
@@ -173,6 +183,66 @@ def time_kernels():
           flush=True)
 
 
+def time_backward():
+    import torch
+
+    import chip_smoke
+    from stableavatar_tpu_torch.ops import cross_attention as ca
+    from stableavatar_tpu_torch.ops import cuda_lib
+    from stableavatar_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    fused = "sa_flash_bwd" in cuda_lib.SIGNATURES
+    res = {"k4": "fused" if fused else "K4a + K4b"}
+    lq, n, d = 21504, 12, 128
+    scale = d ** -0.5
+    for lk in (21504, 512, 257):
+        q, g = rand(1, lq, n, d), rand(1, lq, n, d)
+        k, v = rand(1, lk, n, d), rand(1, lk, n, d)
+        out, lse = fa._flash_fwd_cuda(q, k, v, None, scale, with_lse=True)
+        row = {"whole_ms": chip_smoke.time_ms(
+            lambda: fa._flash_bwd_cuda(q, k, v, None, out, lse, g, scale), 20)}
+        delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), None]
+        scales = (float(scale), float(scale * fa.LOG2E))
+        if fused:
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            splits = fa.bwd_splits(n, lq, lk, sms)
+            acc = torch.zeros((1, lq, n, d), dtype=torch.float32, device="cuda")
+            dk, dv = torch.empty_like(k), torch.empty_like(v)
+            part = [torch.empty((splits, 1, lk, n, d), dtype=torch.float32, device="cuda")
+                    for _ in range(2)] if splits > 1 else None
+            outs = ([None, None, part[0].data_ptr(), part[1].data_ptr()] if part else
+                    [dk.data_ptr(), dv.data_ptr(), None, None])
+            row["k4_ms"] = chip_smoke.time_ms(lambda: cuda_lib.launch(
+                "sa_flash_bwd", *args, acc.data_ptr(), *outs, 1, lq, lk, n, d, splits,
+                *scales), 20)
+            row["query_splits"] = splits
+        else:
+            dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+            dims = (1, lq, lk, n, d, *scales)
+            row["k4a_ms"] = chip_smoke.time_ms(lambda: cuda_lib.launch(
+                "sa_flash_bwd_dkdv", *args, dk.data_ptr(), dv.data_ptr(), *dims), 20)
+            row["k4b_ms"] = chip_smoke.time_ms(lambda: cuda_lib.launch(
+                "sa_flash_bwd_dq", *args, dq.data_ptr(), *dims), 20)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
+        gt = g.transpose(1, 2)
+        row["sdpa_bwd_ms"] = chip_smoke.time_ms(
+            lambda: torch.autograd.grad(o, (qt, kt, vt), gt, retain_graph=True), 20)
+        res[f"lk_{lk}"] = row
+        del q, g, k, v, out, lse, delta, qt, kt, vt, o
+    q = rand(3, lq, n, d)
+    k1, v1, k2, v2 = rand(3, 512, n, d), rand(3, 512, n, d), rand(3, 257, n, d), rand(3, 257, n, d)
+    res["k5_ms"] = chip_smoke.time_ms(lambda: ca._dual_cuda(q, k1, v1, k2, v2, scale), 20)
+    print(json.dumps(res), flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -190,6 +260,9 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     if sys.argv[1:] == ["kernels"]:
         time_kernels()
+        return 0
+    if sys.argv[1:] == ["backward"]:
+        time_backward()
         return 0
     models, dit_bf16 = chip_smoke.build_models("cuda")
     if sys.argv[1:] == ["train"]:

@@ -1,0 +1,209 @@
+// Hopper (sm_90a) building blocks for the hand-written kernels: shared-memory
+// addresses, mbarriers, TMA tensor loads and bulk reductions, wgmma
+// descriptors and products, named barriers and register hand-over
+// (setmaxnreg).  Used by flash_attention_bwd.cu (the fused K4); written so
+// that the forward kernels can take them up as they are.
+//
+// Shared-memory operands are stored in the 128-byte swizzle that TMA's
+// CU_TENSOR_MAP_SWIZZLE_128B writes: a tile of R rows x 64 bf16 (128 bytes a
+// row) whose 16-byte chunk c of row r lies at chunk c ^ (r % 8), the tile
+// based on a 1024-byte boundary.  A D-wide operand is D / 64 such tiles
+// ("halves" for D = 128) one after the other.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sa {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// --------------------------------------------------------------------------
+// mbarriers
+// --------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// one arrival that also announces `bytes` of asynchronous (TMA) traffic
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// --------------------------------------------------------------------------
+// TMA and bulk copies
+// --------------------------------------------------------------------------
+
+// a 3-D box [c0, c1, c2] (innermost first) of `map` into shared memory,
+// completion counted in bytes on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// make this thread's generic-proxy shared-memory writes visible to the async
+// proxy (wgmma operands, bulk copies)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// gmem[0, bytes) += smem[0, bytes) in fp32, asynchronously (bytes a multiple
+// of 16, both addresses 16-byte aligned)
+__device__ __forceinline__ void bulk_reduce_add_f32(float* gmem, const float* smem,
+                                                    uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(gmem),
+      "r"(smem_u32(smem)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// this thread's bulk operations have finished reading shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// ... and have completed
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// --------------------------------------------------------------------------
+// barriers among some warps, register hand-over
+// --------------------------------------------------------------------------
+
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+#define SA_SETMAXNREG_DEC(n) asm volatile("setmaxnreg.dec.sync.aligned.u32 " #n ";\n" ::: "memory")
+#define SA_SETMAXNREG_INC(n) asm volatile("setmaxnreg.inc.sync.aligned.u32 " #n ";\n" ::: "memory")
+
+// --------------------------------------------------------------------------
+// wgmma
+// --------------------------------------------------------------------------
+
+// Matrix descriptor of a 128-byte-swizzled operand in shared memory.
+// K-major (K contiguous): SBO = 1024 (8 rows of 128 bytes), LBO unused;
+// a K step of 16 elements inside a 64-element row adds 32 bytes.
+// MN-major (M or N contiguous, the transpose bit set): LBO = the stride
+// between 64-element chunks of M / N, SBO = 1024 (8 rows of K); a K step of
+// 16 rows adds 2048 bytes.
+__device__ __forceinline__ uint64_t make_desc(uint32_t smem_addr, uint32_t lbo, uint32_t sbo) {
+  uint64_t d = 0;
+  d |= static_cast<uint64_t>((smem_addr & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16;
+  d |= static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32;
+  d |= static_cast<uint64_t>(1) << 62;  // 128-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator registers across an
+// asynchronous wgmma (its writes are invisible to the compiler)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define SA_ACC8(i)                                                                     \
+  "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),      \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// D[64, 64] (+)= A . B^T, both operands in shared memory (bf16, fp32 sums);
+// TA / TB: the transpose (MN-major) bits of A / B
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : SA_ACC8(0), SA_ACC8(8), SA_ACC8(16), SA_ACC8(24)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// D[64, 64] (+)= A . B with A in registers (the accumulator layout packed to
+// bf16 pairs) and B in shared memory, MN-major
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : SA_ACC8(0), SA_ACC8(8), SA_ACC8(16), SA_ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// D[64, 128] (+)= A . B, A in registers, B in shared memory, MN-major
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : SA_ACC8(0), SA_ACC8(8), SA_ACC8(16), SA_ACC8(24), SA_ACC8(32), SA_ACC8(40), SA_ACC8(48),
+        SA_ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+#undef SA_ACC8
+
+}  // namespace sa

@@ -4,15 +4,15 @@ Port of `stableavatar_tpu/ops/cross_attention.py`:
 out = attn(q, k1, v1) + attn(q, k2, v2) with a separate softmax per context
 (text L1 = 512, CLIP image L2 = 257 at the Wan token budgets).  On a CUDA
 tensor it launches the hand-written Hopper kernel (`csrc/cross_attention.cu`,
-an online softmax per segment with two accumulators); on a CPU tensor it
-runs `_dual_plain`, the TPU kernel's arithmetic (`_dual_body`).
+two sweeps of each segment's keys: row statistics, then the normalised
+P.V); on a CPU tensor it runs `_dual_plain`, the TPU kernel's arithmetic
+(`_dual_body`).
 
 The TPU kernel normalises P per segment, rounds it to the value dtype and
-runs one P.V over both segments; `_dual_plain` rounds at the same points.
-The Hopper kernel rounds the unnormalised P and divides by the row sums at
-the end, so it agrees with both up to bf16 rounding of P (the chip check
-holds it to rel-L2 1e-2 / max-abs 6e-2 in bf16).  Inference only: no
-gradient.
+runs one P.V over both segments; `_dual_plain` and the Hopper kernel round
+at the same points, so the kernel differs from them only by the order of
+its fp32 sums (the chip check holds it to rel-L2 1e-2 / max-abs 6e-2 in
+bf16).  Inference only: no gradient.
 """
 
 from __future__ import annotations

@@ -28,7 +28,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "cross_attention.cu", "probes.cu")
-HEADERS = ("attention_common.cuh",)
+HEADERS = ("attention_common.cuh", "hopper_common.cuh")
 BUILD_ROOT = PACKAGE_DIR / "_build"
 LIB_NAME = "libsa_kernels.so"
 NVCC_FLAGS = (
@@ -55,10 +55,9 @@ SIGNATURES = {
     "sa_flash_fwd_int8_static_qk": [_P] * 8 + [_I] * 5 + [_P],
     # q8, k8, v8, sv, sqk, mstat, k_lens, out, lse, B, Lq, Lk, N, D, stream
     "sa_flash_fwd_int8_static_qkv": [_P] * 9 + [_I] * 5 + [_P],
-    # q, k, v, dout, lse, delta, k_lens, dk, dv, B, Lq, Lk, N, D, scale, scale_log2, stream
-    "sa_flash_bwd_dkdv": [_P] * 9 + [_I] * 5 + [_F, _F, _P],
-    # q, k, v, dout, lse, delta, k_lens, dq, B, Lq, Lk, N, D, scale, scale_log2, stream
-    "sa_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
+    # q, k, v, dout, lse, delta, k_lens, dq_acc, dk, dv, dk_part, dv_part,
+    # B, Lq, Lk, N, D, splits, scale, scale_log2, stream
+    "sa_flash_bwd": [_P] * 12 + [_I] * 6 + [_F, _F, _P],
     # q, k, v, dout, lse, delta, k_lens, rope, dk, dv, B, Lq, Lk, N, D, scale, scale_log2, stream
     "sa_flash_bwd_dkdv_rope": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
     # q, k, v, dout, lse, delta, k_lens, rope, dq, B, Lq, Lk, N, D, scale, scale_log2, stream

@@ -2,7 +2,7 @@
 with the split-pair rotation inside), K2 (int8 Q.K^T forward), K2v (K2 with
 int8 V: "qkv", "qkpv"), K2-LSE (K2 / K2v with the LSE output), K3 (K2 /
 K2v-qkv with the static-bound softmax) and K4 (the bf16 backward, with its
-rope branch).
+rope branch, K4a-rope / K4b-rope).
 
 Port of `stableavatar_tpu/ops/flash_attention.py`.  On a CUDA tensor
 `flash_attention` launches a hand-written Hopper kernel
@@ -13,11 +13,12 @@ There is no other path: a CUDA call that the kernels do not take raises.
 
 The bf16 path is differentiable like the JAX package's custom-VJP `_flash`:
 with grad enabled and an input that requires grad, the forward launches K1
-with its natural-log LSE and the backward launches K4a (dK, dV) and K4b
-(dQ), which recompute P from that LSE.  Otherwise K1 runs without the LSE
-write, as the JAX primal does.  The int8 paths are not differentiable.
-With `rope=` the bf16 path rotates q and k inside the kernels (K1-rope,
-and K4's rope branch, which inverse-rotates dQ and dK), as the JAX
+with its natural-log LSE and the backward launches K4, one fused pass that
+recomputes P from that LSE and writes dQ, dK and dV.  Otherwise K1 runs
+without the LSE write, as the JAX primal does.  The int8 paths are not
+differentiable.  With `rope=` the bf16 path rotates q and k inside the
+kernels (K1-rope, and K4's rope branch K4a-rope / K4b-rope, which
+inverse-rotates dQ and dK), as the JAX
 package's `flash_attention(rope=)` does; `ops/attention.py` rotates before
 K1 instead, as the JAX package's `attention()` does.
 
@@ -69,7 +70,7 @@ launch_counts = {"flash_fwd_bf16": 0, "flash_fwd_bf16_lse": 0, "flash_fwd_int8_q
                  "flash_fwd_int8_qk_lse": 0, "flash_fwd_int8_qkv_lse": 0,
                  "flash_fwd_int8_qkpv_lse": 0,
                  "flash_fwd_int8_static_qk": 0, "flash_fwd_int8_static_qkv": 0,
-                 "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
+                 "flash_bwd": 0,
                  "flash_fwd_bf16_rope": 0, "flash_fwd_bf16_rope_lse": 0,
                  "flash_bwd_dkdv_rope": 0, "flash_bwd_dq_rope": 0}
 
@@ -408,9 +409,28 @@ def _flash_fwd_cuda(q, k, v, k_lens, scale, with_lse: bool = False, rope=None):
     return (out, lse) if with_lse else out
 
 
+# the fused K4's tiles: keys per block and query rows per tile
+BWD_BLOCK_KEYS = 128
+BWD_BLOCK_Q = 64
+
+
+def bwd_splits(bn: int, lq: int, lk: int, sms: int) -> int:
+    """How many ways the fused K4 splits the query tiles: 1 where the key
+    blocks alone give at least two blocks per SM, else enough splits for
+    about four blocks per SM (the cross-attention shapes: 48 or 36 key
+    blocks for 132 SMs at Lk 512 / 257), at most one per query tile."""
+    blocks = -(-lk // BWD_BLOCK_KEYS) * bn
+    if blocks >= 2 * sms:
+        return 1
+    return max(1, min(-(-lq // BWD_BLOCK_Q), -(-4 * sms // blocks)))
+
+
 def _flash_bwd_cuda(q, k, v, k_lens, out, lse, g, scale, rope=None):
-    """K4a then K4b: (dq, dk, dv) in bf16 from the forward's LSE; given the
-    packed table `rope`, their rope branch on the unrotated q and k."""
+    """K4: (dq, dk, dv) in bf16 from the forward's LSE, in one fused pass;
+    given the packed table `rope`, K4a-rope then K4b-rope on the unrotated
+    q and k.  The fused pass adds dQ into a zeroed fp32 buffer (rounded to
+    bf16 here) and, where it splits the queries (`bwd_splits`), writes fp32
+    dK / dV partials that are summed here in a fixed order."""
     b, lq, n, d = q.shape
     lk = k.shape[1]
     _check("q", q, torch.bfloat16)
@@ -421,21 +441,38 @@ def _flash_bwd_cuda(q, k, v, k_lens, out, lse, g, scale, rope=None):
     _check("lse", lse, torch.float32, (b, n, lq))
     # delta = rowsum(dO * O) in fp32: a plain torch op, as on the TPU
     delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     kl = None if k_lens is None else k_lens.data_ptr()
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), kl]
-    suffix = ""
+    scales = (float(scale), float(scale * LOG2E))
     if rope is not None:
         _check_rope(rope, q, lk)
-        args.append(rope.data_ptr())
-        suffix = "_rope"
-    dims = (b, lq, lk, n, d, float(scale), float(scale * LOG2E))
-    cuda_lib.launch(f"sa_flash_bwd_dkdv{suffix}", *args, dk.data_ptr(), dv.data_ptr(), *dims)
-    launch_counts[f"flash_bwd_dkdv{suffix}"] += 1
-    cuda_lib.launch(f"sa_flash_bwd_dq{suffix}", *args, dq.data_ptr(), *dims)
-    launch_counts[f"flash_bwd_dq{suffix}"] += 1
-    return dq, dk, dv
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        dims = (b, lq, lk, n, d, *scales)
+        cuda_lib.launch("sa_flash_bwd_dkdv_rope", *args, rope.data_ptr(), dk.data_ptr(),
+                        dv.data_ptr(), *dims)
+        launch_counts["flash_bwd_dkdv_rope"] += 1
+        cuda_lib.launch("sa_flash_bwd_dq_rope", *args, rope.data_ptr(), dq.data_ptr(), *dims)
+        launch_counts["flash_bwd_dq_rope"] += 1
+        return dq, dk, dv
+    splits = bwd_splits(b * n, lq, lk,
+                        torch.cuda.get_device_properties(q.device).multi_processor_count)
+    dq_acc = torch.zeros((b, lq, n, d), dtype=torch.float32, device=q.device)
+    if splits > 1:
+        dk = dv = None
+        dk_part, dv_part = (torch.empty((splits, b, lk, n, d), dtype=torch.float32,
+                                        device=q.device) for _ in range(2))
+        outs = [dk_part.data_ptr(), dv_part.data_ptr()]
+    else:
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        outs = [None, None]
+    cuda_lib.launch("sa_flash_bwd", *args, dq_acc.data_ptr(),
+                    None if dk is None else dk.data_ptr(), None if dv is None else dv.data_ptr(),
+                    *outs, b, lq, lk, n, d, splits, *scales)
+    launch_counts["flash_bwd"] += 1
+    if splits > 1:
+        dk, dv = dk_part.sum(0).to(torch.bfloat16), dv_part.sum(0).to(torch.bfloat16)
+    return dq_acc.to(torch.bfloat16), dk, dv
 
 
 def _flash_fwd_with_lse(q, k, v, k_lens, scale, rope=None):

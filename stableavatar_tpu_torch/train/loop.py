@@ -23,7 +23,7 @@ import torch
 from stableavatar_tpu_torch.models.clip import clip_visual_forward, preprocess_reference_image
 from stableavatar_tpu_torch.models.vae import encode_video_sample
 from stableavatar_tpu_torch.models.wav2vec import normalize_waveform, wav2vec2_forward
-from stableavatar_tpu_torch.pipelines.common import WanModels, resolve_device
+from stableavatar_tpu_torch.pipelines.common import WanModels, encode_prompt_ids, resolve_device
 from stableavatar_tpu_torch.train.trainer import (
     TrainConfig,
     lr_multiplier_schedule,
@@ -72,8 +72,9 @@ def encode_batch(models: WanModels, batch: dict, rng: np.random.Generator,
     "normal"), the audio dropout, the clip-level flag (returned as
     "is_clip_level_modeling").  The VAE posterior noise is drawn from a
     generator seeded by one `rng` draw, or taken from `vae_noise` (a pair:
-    video, masked video).  `batch["prompt_embeds"]` is required: the port
-    has no T5 encoder yet (ROADMAP queue 1, item 1)."""
+    video, masked video).  With `models.tokenizer` set, `batch["text_prompt"]`
+    is tokenised and umT5-encoded (`encode_prompt_ids`); otherwise
+    `batch["prompt_embeds"]` is taken as it is."""
     device = resolve_device(models.device)
     pixels = torch.as_tensor(batch["pixel_values"], device=device)  # [B, 3, F, H, W]
     b = pixels.shape[0]
@@ -116,11 +117,12 @@ def encode_batch(models: WanModels, batch: dict, rng: np.random.Generator,
         vocal = torch.zeros_like(vocal)
     is_clip_level = bool(rng.random() < clip_level_prob)
 
-    if "prompt_embeds" not in batch:
-        raise NotImplementedError(
-            "encode_batch needs batch['prompt_embeds']: the port has no umT5 encoder yet "
-            "(ROADMAP queue 1, item 1)")
-    prompt_embeds = torch.as_tensor(batch["prompt_embeds"], device=device)
+    if models.tokenizer is not None:
+        ids, mask = zip(*(models.tokenizer(p) for p in batch["text_prompt"]))
+        with torch.no_grad():
+            prompt_embeds = encode_prompt_ids(models, np.stack(ids), np.stack(mask))
+    else:
+        prompt_embeds = torch.as_tensor(batch["prompt_embeds"], device=device)
 
     def latent_masks(key):
         mm = torch.as_tensor(batch[key], device=device)[:, 0].float()  # [B, F, H, W]
@@ -236,7 +238,7 @@ def log_validation(models: WanModels, validation_cfg: dict, output_dir: str, ste
     """In-training validation needs the single-clip pipeline, which the port
     does not have yet."""
     raise NotImplementedError(
-        "log_validation needs the single-clip pipeline (ROADMAP queue 1, item 3: "
+        "log_validation needs the single-clip pipeline (ROADMAP queue 1, open item 1: "
         "pipelines/single_clip.py), which the port does not have yet")
 
 

@@ -66,10 +66,12 @@ def test_flash_kernels_match_plain(gen, b, l, n, d, k_lens):
     assert fa.launch_counts["flash_fwd_int8_qk"] == before["flash_fwd_int8_qk"] + 1
 
 
-@pytest.mark.parametrize("b,lq,lk,n,d,k_lens", [(2, 3000, 3000, 2, 128, [2500, 3000]),
-                                               (1, 2100, 2100, 3, 64, None),
-                                               (1, 2048, 77, 2, 128, None),
-                                               (2, 700, 257, 2, 64, [200, 257])])
+K4_CASES = [(2, 3000, 3000, 2, 128, [2500, 3000]), (1, 2100, 2100, 3, 64, None),
+            (1, 2048, 77, 2, 128, None), (2, 700, 257, 2, 64, [200, 257]),
+            (1, 21504, 512, 12, 128, None), (1, 21504, 257, 12, 128, None)]
+
+
+@pytest.mark.parametrize("b,lq,lk,n,d,k_lens", K4_CASES)
 def test_k1_lse_and_k4_match_plain(gen, b, lq, lk, n, d, k_lens):
     q = _randn(gen, b, lq, n, d)
     k, v = _randn(gen, b, lk, n, d), _randn(gen, b, lk, n, d)
@@ -91,8 +93,28 @@ def test_k1_lse_and_k4_match_plain(gen, b, lq, lk, n, d, k_lens):
         assert float(got[1][0, k_lens[0]:].abs().max()) == 0.0
         assert float(got[2][0, k_lens[0]:].abs().max()) == 0.0
     assert fa.launch_counts["flash_fwd_bf16_lse"] == before["flash_fwd_bf16_lse"] + 1
-    assert fa.launch_counts["flash_bwd_dkdv"] == before["flash_bwd_dkdv"] + 1
-    assert fa.launch_counts["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert fa.launch_counts["flash_bwd"] == before["flash_bwd"] + 1
+
+
+@pytest.mark.parametrize("b,lq,lk,n,d,k_lens", [K4_CASES[0], K4_CASES[3], K4_CASES[4]])
+def test_k4_run_to_run(gen, b, lq, lk, n, d, k_lens):
+    """Two launches of the fused K4 on the same inputs: dK and dV are equal
+    (each block sums its keys' gradients in registers, and split partials
+    are summed in a fixed order); dQ is summed across key blocks by bulk
+    fp32 reductions in an order that changes, so two runs may differ by
+    the fp32 rounding of that sum (about 1e-5 of max |dQ| over 168 key
+    blocks) and then by one bf16 ulp of dQ (at most 2^-7 of |dQ|)."""
+    q = _randn(gen, b, lq, n, d)
+    k, v = _randn(gen, b, lk, n, d), _randn(gen, b, lk, n, d)
+    g = _randn(gen, b, lq, n, d)
+    kl = None if k_lens is None else torch.tensor(k_lens, dtype=torch.int32, device="cuda")
+    out, lse = fa._flash_fwd_cuda(q, k, v, kl, d ** -0.5, with_lse=True)
+    first = fa._flash_bwd_cuda(q, k, v, kl, out, lse, g, d ** -0.5)
+    second = fa._flash_bwd_cuda(q, k, v, kl, out, lse, g, d ** -0.5)
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+    a, c = first[0].float(), second[0].float()
+    bound = torch.maximum(a.abs(), c.abs()) * 2 ** -7 + 1e-5 * float(a.abs().max())
+    assert bool(((a - c).abs() <= bound).all()), float((a - c).abs().max())
 
 
 def test_backward_through_attention(gen):
@@ -106,8 +128,7 @@ def test_backward_through_attention(gen):
     out.backward(g)
     assert fa.launch_counts["flash_fwd_bf16_lse"] == before["flash_fwd_bf16_lse"] + 1
     assert fa.launch_counts["flash_fwd_bf16"] == before["flash_fwd_bf16"]
-    assert fa.launch_counts["flash_bwd_dkdv"] == before["flash_bwd_dkdv"] + 1
-    assert fa.launch_counts["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert fa.launch_counts["flash_bwd"] == before["flash_bwd"] + 1
     qc, kc, vc = (x.detach().cpu().requires_grad_() for x in (q, k, v))
     oc = fa.flash_attention(qc, kc, vc)
     oc.backward(g.cpu())
@@ -128,7 +149,12 @@ def test_dual_context_kernel_matches_plain(gen):
     k2, v2 = _randn(gen, b, 33, n, d), _randn(gen, b, 33, n, d)
     before = ca.launch_counts["dual_context"]
     out = ca.dual_context_attention(q, k1, v1, k2, v2)
-    assert _rel(out, ca._dual_plain(q, k1, v1, k2, v2, d ** -0.5)) < REL_TOL
+    want = ca._dual_plain(q, k1, v1, k2, v2, d ** -0.5)
+    # K5 rounds P where the plain version does: the two differ by the order
+    # of their fp32 sums, one bf16 ulp of the output (3.9e-3 on the H100)
+    max_abs = float((out.float() - want.float()).abs().max())
+    print(f"K5 against _dual_plain: max_abs {max_abs:.3e}")
+    assert _rel(out, want) < REL_TOL and max_abs < 1e-2
     assert ca.launch_counts["dual_context"] == before + 1
 
 

@@ -99,7 +99,7 @@ def test_flash_wrapper_routes_cpu_to_plain():
         "flash_fwd_bf16", "flash_fwd_bf16_lse", "flash_fwd_int8_qk", "flash_fwd_int8_qkv",
         "flash_fwd_int8_qkpv", "flash_fwd_int8_qk_lse", "flash_fwd_int8_qkv_lse",
         "flash_fwd_int8_qkpv_lse", "flash_fwd_int8_static_qk", "flash_fwd_int8_static_qkv",
-        "flash_bwd_dkdv", "flash_bwd_dq", "flash_fwd_bf16_rope", "flash_fwd_bf16_rope_lse",
+        "flash_bwd", "flash_fwd_bf16_rope", "flash_fwd_bf16_rope_lse",
         "flash_bwd_dkdv_rope", "flash_bwd_dq_rope"}
     assert not any(tfa.launch_counts.values())
 
@@ -147,6 +147,17 @@ def test_k4_plain_matches_pallas_vjp(lq, lk, k_lens, d):
 
 
 ROPE_GRID = (4, 8, 8)  # 256 positions, tests/test_fastpath.py:57-112
+
+
+@pytest.mark.parametrize("bn,lq,lk,want", [(12, 21504, 21504, 1), (12, 21504, 512, 11),
+                                            (12, 21504, 257, 15), (2, 2048, 77, 32),
+                                            (4, 3000, 3000, 6)])
+def test_k4_query_splits(bn, lq, lk, want):
+    """The fused K4 splits its query tiles only where the key blocks alone
+    give fewer than two blocks per SM (132 on the H100): the self-attention
+    shape runs unsplit, the cross-attention shapes (48 / 36 key blocks) about
+    four blocks per SM, never more splits than query tiles."""
+    assert tfa.bwd_splits(bn, lq, lk, 132) == want
 
 
 @pytest.mark.parametrize("stats", [False, True])

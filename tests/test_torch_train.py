@@ -4,6 +4,7 @@ loop.  Inputs are numpy arrays made from a seed and handed to both sides;
 where the JAX side draws from a key, the test recomputes its draws and hands
 them to the port."""
 
+import dataclasses
 import os
 import signal
 import types
@@ -24,8 +25,8 @@ from stableavatar_tpu_torch.train import losses as tlosses
 from stableavatar_tpu_torch.train import optim
 from stableavatar_tpu_torch.train import trainer as ttrainer
 from stableavatar_tpu_torch.utils.tree import tree_leaves
-from stableavatar_tpu_torch.utils.weights import dit_from_jax, from_jax_tree
-from tests.test_pipeline import CLIP_E2E, DIT_E2E, VAE_E2E, W2V_E2E
+from stableavatar_tpu_torch.utils.weights import dit_from_jax, from_jax_tree, t5_from_jax
+from tests.test_pipeline import CLIP_E2E, DIT_E2E, T5_E2E, VAE_E2E, W2V_E2E
 from tests.torch_parity import densify_dit, jit_init, pallas_interpret, rel_l2, t, to_numpy_tree
 
 # ---------------------------------------------------------------------------
@@ -346,18 +347,39 @@ def _raw_batches(n, b=1, frames=9, size=32, all_ones_row=False):
         }
 
 
-@pytest.mark.parametrize("seed", [0, 3])
-def test_encode_batch_matches_jax(jax_models, seed):
+def _byte_tokenizer(text):
+    """ids and mask of T5_E2E's context: the prompt's bytes folded into the
+    tiny vocabulary, zero-padded (the same numpy arrays for both sides)."""
+    raw = np.frombuffer(text.encode(), np.uint8)[:T5_E2E.text_len].astype(np.int32)
+    ids = np.zeros(T5_E2E.text_len, np.int32)
+    ids[:raw.size] = raw % (T5_E2E.vocab - 1) + 1
+    return ids, (ids > 0).astype(np.int32)
+
+
+@pytest.mark.parametrize("seed,tokenized", [pytest.param(0, False, id="0"),
+                                            pytest.param(3, False, id="3"),
+                                            pytest.param(0, True, id="0-tokenizer")])
+def test_encode_batch_matches_jax(jax_models, seed, tokenized):
     """Same batch, same host draws (a copy of the rng), the JAX VAE noise
-    handed to the port: every output agrees (fp32 encoders)."""
+    handed to the port: every output agrees (fp32 encoders).  With a
+    tokenizer both sides encode the batch's `text_prompt` through the tiny
+    umT5 instead of taking `prompt_embeds`."""
+    from stableavatar_tpu.models.t5 import init_t5
     from stableavatar_tpu.pipelines.common import WanModels as JaxModels
     from stableavatar_tpu.train.loop import encode_batch as jencode
     from stableavatar_tpu_torch.train.loop import encode_batch as tencode
 
+    t5 = {}
+    if tokenized:
+        t5 = dict(t5_params=jit_init(init_t5, T5_E2E, jax.random.PRNGKey(11)), t5_cfg=T5_E2E,
+                  tokenizer=_byte_tokenizer)
     jm = JaxModels(dit_params=jax_models["dit"], dit_cfg=DIT_E2E, vae_params=jax_models["vae"],
                    vae_cfg=VAE_E2E, clip_params=jax_models["clip"], clip_cfg=CLIP_E2E,
-                   wav2vec_params=jax_models["w2v"], wav2vec_cfg=W2V_E2E)
+                   wav2vec_params=jax_models["w2v"], wav2vec_cfg=W2V_E2E, **t5)
     batch = next(_raw_batches(1, b=2, all_ones_row=True))
+    if tokenized:
+        batch["text_prompt"] = ["A person is talking.", "a close-up of a singer"]
+        del batch["prompt_embeds"]
     want = jencode(jm, batch, np.random.default_rng(seed), t2v_zero_prob=0.5,
                    audio_dropout_prob=0.5)
     # the JAX VAE noise: keys from the rng's first draw, drawn channels-last
@@ -367,7 +389,11 @@ def test_encode_batch_matches_jax(jax_models, seed):
     cl = (shape[0], shape[2], shape[3], shape[4], shape[1])
     noise = tuple(t(jnp.transpose(jax.random.normal(k, cl), (0, 4, 1, 2, 3)))
                   for k in (k_lat, k_msk))
-    got = tencode(_port_models(jax_models), batch, np.random.default_rng(seed),
+    tm = _port_models(jax_models)
+    if tokenized:
+        tm = dataclasses.replace(tm, t5_params=t5_from_jax(to_numpy_tree(t5["t5_params"])),
+                                 t5_cfg=T5_E2E, tokenizer=_byte_tokenizer)
+    got = tencode(tm, batch, np.random.default_rng(seed),
                   t2v_zero_prob=0.5, audio_dropout_prob=0.5, vae_noise=noise)
     assert got.pop("is_clip_level_modeling") == want.pop("is_clip_level_modeling")
     assert set(got) == set(want)
@@ -454,5 +480,5 @@ def test_train_loop_end_to_end_and_resume(jax_models, tmp_path):
                           max_train_steps=4, checkpointing_steps=100, log_every=1,
                           resume_from_checkpoint="latest")
     assert [h["step"] for h in history] == [3, 4]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, open item 1"):
         log_validation(models, {}, out_dir, 1)

@@ -86,3 +86,56 @@ def densify_dit(params):
             node = node[part]
         node["w"] = jax.random.normal(jax.random.PRNGKey(key), node["w"].shape) * scale
     return params
+
+
+def _w8_key(q) -> tuple:
+    """A W8A8 weight's fingerprint (its dims in either layout and two
+    integer sums), the same for the JAX copy [d_in, d_out] and the port's."""
+    q = np.asarray(q).astype(np.int64)
+    return tuple(sorted(q.shape)), int(q.sum()), int((q * q).sum())
+
+
+def _quant_rows(x) -> np.ndarray:
+    """int8 activations of the W8A8 linears: per row amax * fp32(1/127),
+    round half to even (both sides' arithmetic)."""
+    sx = np.maximum(np.abs(x).max(-1, keepdims=True) * np.float32(1.0 / 127.0), np.float32(1e-10))
+    return np.clip(np.round(x / sx.astype(np.float32)), -127, 127)
+
+
+def int8_activation_flips(jax_fn, port_fn):
+    """Run the JAX and the port forward (`jax_fn()`, `port_fn()`) recording
+    the input of every W8A8 linear (`int8_linear` of both packages), pair
+    the calls by weight fingerprint and input shape (in order), and count
+    the int8 activations that differ.  Returns (outputs of both, [(weight
+    shape, flipped, count, max |dx| of the inputs)] in the port's call
+    order); raises if a port call has no JAX partner."""
+    from stableavatar_tpu.utils import quantization as jq
+    from stableavatar_tpu_torch.models import vocal_projector as tvp
+
+    rec_j, rec_t = [], []
+    orig_j, orig_t = jq.int8_linear, tvp.int8_linear
+
+    def record_j(x, w8, b=None):
+        jax.debug.callback(lambda xv, qv: rec_j.append((_w8_key(qv), np.asarray(xv, np.float32))),
+                           x, w8["q"])
+        return orig_j(x, w8, b)
+
+    def record_t(x, w8, b=None):
+        rec_t.append((_w8_key(w8["q"].numpy()), x.float().numpy().copy()))
+        return orig_t(x, w8, b)
+
+    with mock.patch.object(jq, "int8_linear", record_j):
+        want = jax_fn()
+    with mock.patch.object(tvp, "int8_linear", record_t):
+        got = port_fn()
+    pool = {}
+    for key, x in rec_j:
+        pool.setdefault((key, x.shape), []).append(x)
+    flips = []
+    for key, xt in rec_t:
+        xj = pool.get((key, xt.shape), []).pop(0) if pool.get((key, xt.shape)) else None
+        if xj is None:
+            raise AssertionError(f"no JAX W8A8 call with weight {key[0]} and input {xt.shape}")
+        flips.append((key[0], int((_quant_rows(xj) != _quant_rows(xt)).sum()), xt.size,
+                      float(np.abs(xj - xt).max())))
+    return (want, got), flips
