@@ -14,10 +14,11 @@ exits non-zero):
                LSE and the count of rows whose sum underflows), K5
                (dual-context cross-attention), K1 with its LSE output and
                the fused K4 backward (dQ, dK, dV in one pass) against their plain
-               PyTorch versions at the main-path shapes and on small ragged
-               cases, with times, the least time the card could take (bound)
-               and, where one PyTorch call computes the same function, that
-               call's time;
+               PyTorch versions at the main-path shapes (K1, K1-LSE and K4
+               also at the cross-attention shapes, Lk 512 and 257) and on
+               small ragged cases, with times, the least time the card could
+               take (bound) and, where one PyTorch call computes the same
+               function, that call's time;
 3. reference -- the fast-path DiT (2 blocks, full width) on a small window:
                the card's output against the CPU's (plain versions);
 4. train reference -- one train step of the bf16 DiT (2 blocks, full width)
@@ -244,6 +245,30 @@ def _rand(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
 
 
+def fwd_shape_entry(q, k, v, with_lse: bool, library_ms: float) -> dict:
+    """K1 (or K1-LSE) at a cross-attention shape, timed beside its plain
+    version: an entry of the kernel's "shapes", with the query rows a block
+    owns and the key tiles it sweeps (Lk 257 pads to three tiles of 128)."""
+    from stableavatar_tpu_torch.ops import flash_attention as fa
+
+    b, lq, n, d = q.shape
+    lk = k.shape[1]
+    scale = d ** -0.5
+    ms = time_ms(lambda: fa._flash_fwd_cuda(q, k, v, None, scale, with_lse=with_lse), 5)
+    plain = time_ms(lambda: fa._flash_fwd_plain(q, k, v, None, scale, with_lse=with_lse), 3)
+    # q, k, v in and out, bf16; the fp32 LSE out
+    bound = bound_ms(4.0 * b * n * lq * lk * d,
+                     2.0 * b * n * d * (2 * lq + 2 * lk) + (4.0 * b * n * lq if with_lse else 0))
+    tiles = -(-lk // fa.FWD_BLOCK_KEYS)
+    name = "flash_fwd_bf16_lse" if with_lse else "flash_fwd_bf16"
+    log(f"  {name} [{b},{lq},{n},{d}] x Lk {lk}: kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+        f"bound {bound[0]:.3f} ms ({bound[1]}), library {library_ms:.3f} ms "
+        f"({fa.FWD_BLOCK_Q} query rows a block, {tiles} key tiles)")
+    return dict(shape=[b, lq, lk, n, d], ms=ms, plain_ms=plain, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=library_ms, query_rows_per_block=fa.FWD_BLOCK_Q,
+                key_tiles=tiles)
+
+
 def phase_kernels(results):
     import torch
 
@@ -304,6 +329,16 @@ def phase_kernels(results):
            time_ms(lambda: fa._flash_fwd_plain(q, k, v, None, scale), 3),
            bound_ms(fwd_ops, io_bytes), sdpa_ms(q, k, v))
     del got, want
+    # K1 at the DiT cross-attention shapes: text 512 and image 257 keys
+    for lk in (512, 257):
+        kc, vc = (_rand(gen, (b, lk, n, d), bf16) for _ in range(2))
+        tag = f"[3,21504,12,128] x Lk {lk}"
+        record("flash_fwd_bf16", tag, compare(
+            f"flash_fwd_bf16 {tag}", fa._flash_fwd_cuda(q, kc, vc, None, scale),
+            fa._flash_fwd_plain(q, kc, vc, None, scale)), None, None)
+        results["flash_fwd_bf16"].setdefault("shapes", []).append(
+            fwd_shape_entry(q, kc, vc, False, sdpa_ms(q, kc, vc)))
+        del kc, vc
 
     # K5 at the DiT cross-attention shape: text 512, image 257
     k1, v1 = (_rand(gen, (b, 512, n, d), bf16) for _ in range(2))
@@ -464,8 +499,9 @@ def compare_grad(name: str, got, want) -> float:
 def phase_kernels_train(record, sdpa_ms, gen, results):
     """K1 with LSE and the fused K4 backward at the training shapes: the DiT
     self-attention of one 512x512, 81-frame sample [1, 21504, 12, 128], the
-    text / image cross-attention (Lk 512, 257; their K4 times go to the
-    entry's "shapes", each with SDPA's backward) and the ragged cases."""
+    text / image cross-attention (Lk 512, 257; their K1-LSE and K4 times go
+    to the entries' "shapes", each with SDPA's forward or backward) and the
+    ragged cases."""
     import torch
 
     from stableavatar_tpu_torch.ops import flash_attention as fa
@@ -506,6 +542,10 @@ def phase_kernels_train(record, sdpa_ms, gen, results):
                    time_ms(lambda: fa._flash_fwd_plain(q, k, v, kl, scale, with_lse=True), 3),
                    bound_ms(2 * prod, 2.0 * b * n * d * (2 * lq + 2 * lk) + stats / 2),
                    sdpa_ms(q, k, v))
+        else:
+            record("flash_fwd_bf16_lse", tag, err, None, None)
+            results["flash_fwd_bf16_lse"].setdefault("shapes", []).append(
+                fwd_shape_entry(q, k, v, True, sdpa_ms(q, k, v)))
         # K4: S, dP, dV, dK, dQ -- five products
         ms = time_ms(lambda: fa._flash_bwd_cuda(q, k, v, kl, out, lse, do, scale), 5)
         plain = time_ms(lambda: fa._flash_bwd_plain(q, k, v, kl, out, lse, do, scale), 3)

@@ -7,6 +7,8 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 profile_window.py train    # train_step, 1.3B / 512x512 / 81 frames
     python3 profile_window.py kernels  # the int8 flash kernels alone
     python3 profile_window.py backward # the flash backward (K4) and K5 alone
+    python3 profile_window.py forward  # the bf16 flash forward (K1, K1-LSE) alone
+    python3 profile_window.py vae      # the VAE's bf16 decode and fp32 train encode
 
 It builds the random 1.3B / ViT-H / wav2vec2-base / VAE stack of
 `chip_smoke.py` and runs `generate_long` on chip_smoke's inputs (512x512,
@@ -43,6 +45,19 @@ kernels alone -- the fused K4 where the checkout has it (`sa_flash_bwd`),
 else K4a and K4b -- beside SDPA's backward, and K5 at [3, 21504, 12, 128]
 x (512, 257): medians of 20 CUDA-event timings, one JSON line.  It too
 compares two checkouts in one call.
+
+`forward` times K1 at [3, 21504, 12, 128] and K1-LSE at [1, 21504, 12,
+128] against Lk 21504, 512 and 257 (self, text and image attention of
+inference and training) through `_flash_fwd_cuda`, each beside one SDPA
+call on the same inputs: medians of 20 CUDA-event timings, one JSON line,
+comparable across two checkouts in one call.
+
+`vae` times the pipelines' bf16 segmented VAE decode to uint8 frames
+(`decode_video_segmented`, random bf16 weights) of chip_smoke's video -- 27
+latent frames of 64x64 into 105 frames of 512x512 -- and a train step's
+two fp32 encodes (`encode_video_sample`) of an 81-frame 512x512 clip: the
+wall seconds of 4 synchronised runs each, one JSON line, comparable across
+two checkouts.
 """
 
 from __future__ import annotations
@@ -52,6 +67,7 @@ import json
 import re
 import subprocess
 import sys
+import time
 
 STEPS, WAIT, WARMUP = 6, 4, 1
 
@@ -243,6 +259,65 @@ def time_backward():
     print(json.dumps(res), flush=True)
 
 
+def time_forward():
+    import torch
+
+    import chip_smoke
+    from stableavatar_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    lq, n, d = 21504, 12, 128
+    scale = d ** -0.5
+    res = {}
+    for name, b, with_lse in (("K1", 3, False), ("K1-LSE", 1, True)):
+        for lk in (21504, 512, 257):
+            q, k, v = rand(b, lq, n, d), rand(b, lk, n, d), rand(b, lk, n, d)
+            row = {"ms": chip_smoke.time_ms(
+                lambda: fa._flash_fwd_cuda(q, k, v, None, scale, with_lse=with_lse), 20)}
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            row["sdpa_ms"] = chip_smoke.time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), 20)
+            res[f"{name} [{b}, {lq}, {n}, {d}] x Lk {lk}"] = row
+            del q, k, v, qt, kt, vt
+    print(json.dumps(res), flush=True)
+
+
+def time_vae():
+    import torch
+
+    from stableavatar_tpu_torch.config import VAEConfig
+    from stableavatar_tpu_torch.models.vae import (
+        decode_video_segmented, encode_video_sample, init_vae)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cfg = VAEConfig()
+    params = init_vae(gen, cfg, "cuda", torch.bfloat16)
+
+    def walls(fn, reps=4):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return out
+
+    # chip_smoke's 2 windows at 512x512: 27 latent frames into 105 frames
+    z = torch.randn((1, cfg.z_dim, 27, 64, 64), generator=gen, device="cuda").bfloat16()
+    res = {"decode_bf16_s": walls(lambda: decode_video_segmented(params, z, cfg, out_uint8=True))}
+    del z
+    # a train step's two encodes of an 81-frame 512x512 clip (fp32 pixels)
+    video = torch.rand((1, 3, 81, 512, 512), generator=gen, device="cuda") * 2 - 1
+    res["train_encode_fp32_s"] = walls(lambda: [encode_video_sample(
+        params, video, cfg, generator=gen) for _ in range(2)])
+    print(json.dumps(res), flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -263,6 +338,12 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["backward"]:
         time_backward()
+        return 0
+    if sys.argv[1:] == ["forward"]:
+        time_forward()
+        return 0
+    if sys.argv[1:] == ["vae"]:
+        time_vae()
         return 0
     models, dit_bf16 = chip_smoke.build_models("cuda")
     if sys.argv[1:] == ["train"]:

@@ -1,8 +1,10 @@
-// Shared building blocks of the hand-written Hopper kernels
-// (flash_attention.cu, flash_attention_bwd.cu, cross_attention.cu and the
-// dots probe of probes.cu).
+// Shared building blocks of the mma.sync kernels (the int8 template and
+// K1-rope in flash_attention.cu, K4's rope branch in flash_attention_bwd.cu,
+// cross_attention.cu and the dots probe of probes.cu); K1 and the fused K4
+// are built on hopper_common.cuh and take only the constants and
+// pack_bf16 / quad_sum from here.
 //
-// Tiling, common to all three kernels: one thread block of 4 warps owns 64
+// Tiling, common to these kernels: one thread block of 4 warps owns 64
 // query rows of one (batch, head); each warp owns 16 of them and keeps its
 // Q fragments, its online-softmax state (running max m, row sum l) and its
 // f32 output accumulator in registers for the whole key loop.  K/V tiles of

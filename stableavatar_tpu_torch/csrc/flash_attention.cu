@@ -2,18 +2,56 @@
 // Q.K^T), K2v (int8 V) and K3 (static-bound softmax).
 //
 // K1 replaces stableavatar_tpu/ops/flash_attention.py:_flash_fwd_impl (body
-// `_fwd_body`): softmax(q k^T * scale) v over [B, L, N, D] bf16 with keys at
-// or past k_lens[b] masked.  K1-rope (ROPE, `flash_attention(rope=)`) is the
-// same kernel with the split-pair rotation of `_fwd_body`'s `rope=` branch
-// (`_rot`, :142-143) inside: Q is rotated in fp32 on its way into the A
-// fragments, each K tile in place in shared memory after it lands, both
-// rounded to bf16 once as `_rot(...).astype(dt)` does; the mma loop is
-// K1's.  Without ROPE the caller applies rope first.  With a non-null
-// `lse` it also writes the natural-log log-sum-exp of every query row,
-// m * ln2 + log(max(l, 1e-30)) as `_fwd_body` finalizes it, in fp32 laid out
-// [B, N, Lq] (no 128-lane broadcast); the backward (K4,
-// flash_attention_bwd.cu) recomputes P from it.  A null `lse` skips the
-// write, as the JAX package's primal-only path does.
+// `_fwd_body`): softmax(q k^T * scale) v over [B, L, N, D] bf16, read in
+// place, with keys at or past k_lens[b] masked; base-2 online softmax (the
+// caller folds log2(e) into scale_log2), out rounded to bf16 once.  With a
+// non-null `lse` (K1-LSE) it also writes the natural-log log-sum-exp of
+// every query row, m * ln2 + log(max(l, 1e-30)) as `_fwd_body` finalizes
+// it, in fp32 laid out [B, N, Lq] (no 128-lane broadcast); the backward
+// (K4, flash_attention_bwd.cu) recomputes P from it.  A null `lse` skips
+// the write, as the JAX package's primal-only path does.
+//
+// What bounds K1 on the H100: the two L^2 * D products per head (Q.K^T and
+// P.V) -- 8.5e12 flop at the DiT self-attention [3, 21504, 12, 128]
+// against 0.2 GB of operands, so operations (8.6 ms at 989 TFLOP/s), with
+// the softmax's exp2 on the SFUs (64 per thread and key tile) as the next
+// limit.  The first design (4 warps of mma.sync over 64-key tiles, one
+// cp.async stage, two block barriers a tile) ran at a fifth of that, and
+// its products without the softmax (the S3 probe) took 83% of its time.
+// So the design (`ffwd::flash_fwd_bf16_kernel`, D = 128 and D = 64) is
+// Hopper's own:
+//
+// - a block owns 128 query rows of one (batch, head); one producer thread
+//   (a warpgroup with its registers handed over by setmaxnreg, 24 / 240)
+//   loads the block's Q once and streams 128-key K and V tiles through a
+//   3-stage ring in dynamic shared memory (TMA from 3-D tensor maps over
+//   [B, L, N * D], 128-byte swizzle, rows past L read as zeros; K and V of a
+//   stage complete on mbarriers of their own, and an `empty` mbarrier
+//   hands the stage back); 224 KB at D = 128, one block an SM;
+// - two consumer warpgroups own 64 query rows each: S = Q K^T is one
+//   wgmma m64n128 chain with both operands in shared memory, the online
+//   softmax (running max m and row sum l, the rescale of O) runs in
+//   registers in wgmma's accumulator layout, P is packed to bf16 A
+//   fragments in registers and O += P V is a register-A wgmma with V
+//   MN-major; O stays in fp32 registers for the whole key loop;
+// - inside a warpgroup, S of tile j + 1 is issued before P V of tile j and
+//   its softmax runs while that product is on the tensor cores (so K runs a
+//   tile ahead of V: hence the third stage); the two warpgroups do not wait
+//   for each other, so one's softmax also overlaps the other's products.
+//   On the card this gained 2-3% over one tile at a time with two stages
+//   (PERF.md);
+// - zero fill is not a mask (a zero key has logit 0): keys at or past
+//   k_lens[b] (and Lk) get p = 0 in the kernel, tiles wholly past
+//   k_lens[b] are not loaded (a block with none writes zero rows), and rows
+//   past Lq are neither stored nor given an LSE.  No atomics: two launches
+//   agree bit for bit.
+//
+// K1-rope (`flash_attention(rope=)`, on no main path) keeps the first
+// mma.sync design: 4 warps own 64 query rows, one cp.async K/V stage of
+// 64-key tiles, with the split-pair rotation of `_fwd_body`'s `rope=`
+// branch (`_rot`, :142-143) inside -- Q is rotated in fp32 on its way into
+// the A fragments, each K tile in place in shared memory after it lands,
+// both rounded to bf16 once as `_rot(...).astype(dt)` does.
 //
 // K2, K2v, K2-LSE and K3 replace stableavatar_tpu/ops/flash_attention.py:
 // _flash_int8_impl, one template (`flash_fwd_int8_kernel`) for all
@@ -41,27 +79,32 @@
 // K is read row-major [B, L, N, D]: the TPU's [D, L] pre-transpose is a
 // layout of its matrix unit and has no use here.
 //
-// What bounds them on the H100: at the DiT self-attention shape (B*N = 36,
-// L = 21,504, D = 128) all are compute-bound -- 4*L^2*D operations per head
-// (half int8 for Q.K^T, half bf16 for P.V, or all int8 for qkpv, whose Q.K^T
-// runs twice) against 3*L*D bytes per head of input read once per 64-row
-// query tile from L2.
-// All kernels read Q, K and V straight from the [B, L, N, D] activations
-// (no transpose or padding pass), keep the logits and probabilities in
-// registers, and keep K/V tiles in shared memory shared by 4 warps.  This
-// first version uses mma.sync rather than wgmma and has a single K/V stage
-// (the V copy overlaps the Q.K^T and softmax of the same tile); wgmma, TMA
-// and warp specialisation are later work.
+// What bounds the int8 kernels on the H100: at the DiT self-attention
+// shape (B*N = 36, L = 21,504, D = 128) all are compute-bound -- 4*L^2*D
+// operations per head (half int8 for Q.K^T, half bf16 for P.V, or all int8
+// for qkpv, whose Q.K^T runs twice) against 3*L*D bytes per head of input
+// read once per 64-row query tile from L2.
+// The int8 kernels and K1-rope read Q, K and V straight from the
+// [B, L, N, D] activations (no transpose or padding pass), keep the logits
+// and probabilities in registers, and keep K/V tiles in shared memory
+// shared by 4 warps, on mma.sync with a single K/V stage (the V copy
+// overlaps the Q.K^T and softmax of the same tile); wgmma, TMA and warp
+// specialisation (K1's design above) are later work for them.
 #include "attention_common.cuh"
+#include "hopper_common.cuh"
 
 namespace sa {
 
-template <int D, bool ROPE>
-__device__ __forceinline__ void flash_fwd_bf16_body(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const int* __restrict__ k_lens,
-    const float* __restrict__ rope, __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-    int Lq, int Lk, int N, float scale_log2) {
+// K1-rope (and its LSE), the first mma.sync design: 4 warps own 64 query
+// rows, one cp.async K/V stage of 64 keys.  At most 168 registers, so that
+// 3 blocks of 128 threads share an SM (the rotation's loads would take more)
+template <int D>
+__global__ void __launch_bounds__(kThreads, 3)
+flash_fwd_bf16_rope_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v, const int* __restrict__ k_lens,
+                           const float* __restrict__ rope, __nv_bfloat16* __restrict__ out,
+                           float* __restrict__ lse, int Lq, int Lk, int N, float scale_log2) {
   constexpr int kPitch = D + 8;
   __shared__ __align__(16) unsigned short Ks[kBlockK * kPitch];
   __shared__ __align__(16) unsigned short Vs[kBlockK * kPitch];
@@ -73,11 +116,7 @@ __device__ __forceinline__ void flash_fwd_bf16_body(
   const int klen = k_lens ? min(k_lens[b], Lk) : Lk;
 
   uint32_t qa[D / 16][4];
-  if constexpr (ROPE) {
-    load_q_bf16_rope<D>(qa, q + ((long long)b * Lq * N + h) * D, rs, row_a, Lq, rope);
-  } else {
-    load_q_bf16<D>(qa, q + ((long long)b * Lq * N + h) * D, rs, row_a, Lq);
-  }
+  load_q_bf16_rope<D>(qa, q + ((long long)b * Lq * N + h) * D, rs, row_a, Lq, rope);
 
   const char* kb = reinterpret_cast<const char*>(k + ((long long)b * Lk * N + h) * D);
   const char* vb = reinterpret_cast<const char*>(v + ((long long)b * Lk * N + h) * D);
@@ -96,10 +135,8 @@ __device__ __forceinline__ void flash_fwd_bf16_body(
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    if constexpr (ROPE) {
-      rope_tile<D>(Ks, rope, k0, Lk);
-      __syncthreads();
-    }
+    rope_tile<D>(Ks, rope, k0, Lk);
+    __syncthreads();
 
     float s[kNT][4];
     qk_bf16<D>(s, qa, Ks);
@@ -135,27 +172,280 @@ __device__ __forceinline__ void flash_fwd_bf16_body(
   }
 }
 
-// K1 (and K1-LSE)
+// --------------------------------------------------------------------------
+// K1 and K1-LSE: one producer warpgroup feeds a TMA ring, two consumer
+// warpgroups run wgmma
+// --------------------------------------------------------------------------
+
+namespace ffwd {
+
+constexpr int kBlockM = 128;   // query rows per block: two consumer warpgroups of 64
+constexpr int kBlockN = 128;   // keys per K / V tile
+constexpr int kStages = 3;     // K / V ring: S runs a tile ahead of P V
+constexpr int kConsumers = 256;
+constexpr int kThreads = 384;  // two consumer warpgroups, one producer warpgroup
+constexpr int kRow = 128;      // bytes of one swizzled row (64 bf16)
+
+// shared-memory layout (byte offsets from a 1024-byte boundary); every
+// swizzled operand starts on a 1024-byte boundary
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, const int* __restrict__ k_lens,
-                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Lq, int Lk,
-                      int N, float scale_log2) {
-  flash_fwd_bf16_body<D, false>(q, k, v, k_lens, nullptr, out, lse, Lq, Lk, N, scale_log2);
+struct Smem {
+  static constexpr int kHalves = D / 64;
+  static constexpr int kQ = kHalves * kBlockM * kRow;   // the block's Q
+  static constexpr int kKV = kHalves * kBlockN * kRow;  // one K or V stage
+  static constexpr int off_q = 0;
+  static constexpr int off_k = off_q + kQ;
+  static constexpr int off_v = off_k + kStages * kKV;
+  static constexpr int off_bar = off_v + kStages * kKV;
+  static constexpr int bytes = off_bar + (1 + 3 * kStages) * 8;
+  static constexpr int launch_bytes = bytes + 1024;  // room to align the base
+};
+
+// S = Q K^T [64 queries, 128 keys] of one K tile, both operands K-major;
+// issued and committed, not waited for
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sacc)[64], uint32_t q_wg, uint32_t kb) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t qo = (kk >> 2) * kBlockM * kRow + (kk & 3) * 32;
+    const uint32_t ko = (kk >> 2) * kBlockN * kRow + (kk & 3) * 32;
+    wgmma_ss_n128<0, 0>(sacc, make_desc(q_wg + qo, 16, 1024), make_desc(kb + ko, 16, 1024),
+                        kk > 0);
+  }
+  wgmma_commit();
 }
 
-// K1-rope (and its LSE): at most 168 registers, so that 3 blocks of 128
-// threads share an SM as K1's do (the rotation's loads would take more)
-template <int D>
-__global__ void __launch_bounds__(kThreads, 3)
-flash_fwd_bf16_rope_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v, const int* __restrict__ k_lens,
-                           const float* __restrict__ rope, __nv_bfloat16* __restrict__ out,
-                           float* __restrict__ lse, int Lq, int Lk, int N, float scale_log2) {
-  flash_fwd_bf16_body<D, true>(q, k, v, k_lens, rope, out, lse, Lq, Lk, N, scale_log2);
+// Online softmax of the tile of keys [k0, k0 + 128) in the accumulator
+// layout: element 4j + e is row g (e < 2) or g + 8, key k0 + 8j + 2t +
+// (e & 1).  Turns the raw logits into p = exp2(s * scale_log2 - m_new),
+// updates the running max m (base 2, scaled) and this thread's partial row
+// sums l, and returns in c0 / c1 the factors that rescale O to the new max.
+// Zero-filled keys past Lk, and keys past k_lens[b], are masked here: TMA's
+// fill is not a mask (a zero key has logit 0).
+__device__ __forceinline__ void softmax_tile(float (&sacc)[64], int k0, int klen,
+                                             float scale_log2, float& m0, float& m1, float& l0,
+                                             float& l1, float& c0, float& c1) {
+  const int t = threadIdx.x & 3;
+  if (k0 + kBlockN > klen) {
+#pragma unroll
+    for (int j = 0; j < kBlockN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (k0 + 8 * j + 2 * t + (e & 1) >= klen) sacc[4 * j + e] = kNegInf;
+      }
+    }
+  }
+  float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+  for (int j = 0; j < kBlockN / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  // scale > 0, so the max of the scaled logits is the scaled max; every row
+  // has a valid key in every tile it sees (tile 0 holds key 0)
+  const float mn0 = fmaxf(m0, mx0 * scale_log2), mn1 = fmaxf(m1, mx1 * scale_log2);
+  c0 = exp2f(m0 - mn0);
+  c1 = exp2f(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < kBlockN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sacc[4 * j + e] = exp2f(fmaf(sacc[4 * j + e], scale_log2, -mn0));
+      sacc[4 * j + 2 + e] = exp2f(fmaf(sacc[4 * j + 2 + e], scale_log2, -mn1));
+      rs0 += sacc[4 * j + e];
+      rs1 += sacc[4 * j + 2 + e];
+    }
+  }
+  l0 = l0 * c0 + rs0;
+  l1 = l1 * c1 + rs1;
 }
+
+// P as bf16 A fragments of the k16 steps over the 128 keys
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[kBlockN / 16][4], const float (&p)[64]) {
+#pragma unroll
+  for (int kq = 0; kq < kBlockN / 16; ++kq) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[kq][r] = pack_bf16(p[8 * kq + 2 * r], p[8 * kq + 2 * r + 1]);
+  }
+}
+
+// O += P V: A (P) from registers, V [128 keys, D] of one stage MN-major;
+// issued and committed, not waited for
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)[kBlockN / 16][4],
+                                         uint32_t vb) {
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kq = 0; kq < kBlockN / 16; ++kq) {
+    wgmma_rs_d<D>(o, pa[kq], make_desc(vb + kq * 16 * kRow, kBlockN * kRow, 1024));
+  }
+  wgmma_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ k_lens,
+                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Lq, int Lk,
+                      int N, float scale_log2) {
+  using S = Smem<D>;
+  constexpr int kAcc = D / 2;  // fp32 registers of a [64, D] output accumulator
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+
+  const int q0 = blockIdx.x * kBlockM;
+  const int bh = blockIdx.y, b = bh / N, h = bh % N;
+  const int klen = k_lens ? min(k_lens[b], Lk) : Lk;
+  const int ntiles = (max(klen, 0) + kBlockN - 1) / kBlockN;  // tiles past k_lens[b]: skipped
+
+  if (ntiles == 0) {
+    // no valid key: zero rows, and the LSE of an empty row (as K4 reads it)
+    const long long rs = (long long)N * D;
+    for (int i = threadIdx.x; i < kBlockM * D / 2; i += kThreads) {
+      const int r = i / (D / 2), c = (i % (D / 2)) * 2;
+      if (q0 + r < Lq) {
+        *reinterpret_cast<uint32_t*>(out + ((long long)b * Lq * N + h) * D + (q0 + r) * rs + c) =
+            0u;
+      }
+    }
+    const int r = threadIdx.x;
+    if (lse != nullptr && r < kBlockM && q0 + r < Lq) {
+      lse[(long long)bh * Lq + q0 + r] = kNegInf * kLn2 + logf(1e-30f);
+    }
+    return;
+  }
+
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + S::off_bar);  // Q landed
+  uint64_t* k_full = q_full + 1;         // K of stage s landed
+  uint64_t* v_full = k_full + kStages;   // V of stage s landed
+  uint64_t* empty = v_full + kStages;    // both consumer warpgroups are done with stage s
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= 8) {
+    // ---------------- producer warpgroup: one thread issues every load
+    SA_SETMAXNREG_DEC(24);
+    if (warp == 8 && lane == 0) {
+      mbar_arrive_expect_tx(q_full, S::kQ);
+#pragma unroll
+      for (int hf = 0; hf < S::kHalves; ++hf) {
+        tma_load_3d(sm + S::off_q + hf * kBlockM * kRow, &tm_q, q_full, h * D + hf * 64, q0, b);
+      }
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % kStages, k0 = it * kBlockN;
+        mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&k_full[s], S::kKV);
+#pragma unroll
+        for (int hf = 0; hf < S::kHalves; ++hf) {
+          tma_load_3d(sm + S::off_k + s * S::kKV + hf * kBlockN * kRow, &tm_k, &k_full[s],
+                      h * D + hf * 64, k0, b);
+        }
+        mbar_arrive_expect_tx(&v_full[s], S::kKV);
+#pragma unroll
+        for (int hf = 0; hf < S::kHalves; ++hf) {
+          tma_load_3d(sm + S::off_v + s * S::kKV + hf * kBlockN * kRow, &tm_v, &v_full[s],
+                      h * D + hf * 64, k0, b);
+        }
+      }
+    }
+  } else {
+    // ---------------- two consumer warpgroups of 64 query rows each
+    SA_SETMAXNREG_INC(240);
+    const int wg = warp >> 2, wl = warp & 3;
+    const int g = lane >> 2, t = lane & 3;
+    const int row_a = q0 + wg * 64 + wl * 16 + g, row_b = row_a + 8;
+    const uint32_t q_wg = smem_u32(sm + S::off_q) + wg * 64 * kRow;  // this warpgroup's rows
+
+    float o[kAcc];
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) o[i] = 0.f;
+    // base-2 running max (scaled logits) and this thread's partial row sum
+    // of rows g and g + 8
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+    // S of tile it + 1 is issued before P V of tile it, and its softmax runs
+    // while that product is on the tensor cores
+    float sacc[64], c0, c1;
+    uint32_t pa[kBlockN / 16][4];
+    mbar_wait(q_full, 0);
+    mbar_wait(&k_full[0], 0);
+    issue_qk<D>(sacc, q_wg, smem_u32(sm + S::off_k));
+    wgmma_wait<0>();
+    fence_regs(sacc);
+    softmax_tile(sacc, 0, klen, scale_log2, m0, m1, l0, l1, c0, c1);  // O is 0: no rescale
+    pack_p(pa, sacc);
+    for (int it = 0; it < ntiles - 1; ++it) {
+      const int s = it % kStages, s1 = (it + 1) % kStages;
+      mbar_wait(&k_full[s1], ((it + 1) / kStages) & 1);
+      issue_qk<D>(sacc, q_wg, smem_u32(sm + S::off_k + s1 * S::kKV));
+      mbar_wait(&v_full[s], (it / kStages) & 1);
+      issue_pv<D>(o, pa, smem_u32(sm + S::off_v + s * S::kKV));
+      wgmma_wait<1>();  // S of tile it + 1 (committed first) is done
+      fence_regs(sacc);
+      softmax_tile(sacc, (it + 1) * kBlockN, klen, scale_log2, m0, m1, l0, l1, c0, c1);
+      wgmma_wait<0>();
+      fence_regs(o);
+#pragma unroll
+      for (int kq = 0; kq < kBlockN / 16; ++kq) fence_regs(pa[kq]);  // read until here
+      mbar_arrive(&empty[s]);  // K and V of stage s are read
+#pragma unroll
+      for (int i = 0; i < kAcc / 4; ++i) {
+        o[4 * i] *= c0;
+        o[4 * i + 1] *= c0;
+        o[4 * i + 2] *= c1;
+        o[4 * i + 3] *= c1;
+      }
+      pack_p(pa, sacc);
+    }
+    const int s_last = (ntiles - 1) % kStages;
+    mbar_wait(&v_full[s_last], ((ntiles - 1) / kStages) & 1);
+    issue_pv<D>(o, pa, smem_u32(sm + S::off_v + s_last * S::kKV));
+    wgmma_wait<0>();
+    fence_regs(o);
+
+    const float lf0 = fmaxf(quad_sum(l0), 1e-30f), lf1 = fmaxf(quad_sum(l1), 1e-30f);
+    const long long rs = (long long)N * D;
+    __nv_bfloat16* ob = out + ((long long)b * Lq * N + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = 8 * j + 2 * t;
+      if (row_a < Lq) {
+        *reinterpret_cast<uint32_t*>(ob + row_a * rs + c) =
+            pack_bf16(o[4 * j] / lf0, o[4 * j + 1] / lf0);
+      }
+      if (row_b < Lq) {
+        *reinterpret_cast<uint32_t*>(ob + row_b * rs + c) =
+            pack_bf16(o[4 * j + 2] / lf1, o[4 * j + 3] / lf1);
+      }
+    }
+    if (lse != nullptr && t == 0) {
+      float* lse_bh = lse + (long long)bh * Lq;
+      if (row_a < Lq) lse_bh[row_a] = m0 * kLn2 + logf(lf0);
+      if (row_b < Lq) lse_bh[row_b] = m1 * kLn2 + logf(lf1);
+    }
+  }
+}
+
+}  // namespace ffwd
 
 // V path and softmax of the int8 kernels (template parameters).
 enum VMode {
@@ -481,45 +771,36 @@ flash_fwd_int8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ 
 
 namespace {
 
-template <bool ROPE>
-int launch_bf16(const void* q, const void* k, const void* v, const void* k_lens,
-                const void* rope, void* out, void* lse, int B, int Lq, int Lk, int N, int D,
-                float scale_log2, void* stream) {
-  const dim3 grid((Lq + sa::kBlockQ - 1) / sa::kBlockQ, B * N);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto q_ = static_cast<const __nv_bfloat16*>(q);
-  auto k_ = static_cast<const __nv_bfloat16*>(k);
-  auto v_ = static_cast<const __nv_bfloat16*>(v);
-  auto kl = static_cast<const int*>(k_lens);
-  auto r_ = static_cast<const float*>(rope);
-  auto o_ = static_cast<__nv_bfloat16*>(out);
-  auto lse_ = static_cast<float*>(lse);
-  if (D == 128 && ROPE) {
-    sa::flash_fwd_bf16_rope_kernel<128><<<grid, sa::kThreads, 0, st>>>(
-        q_, k_, v_, kl, r_, o_, lse_, Lq, Lk, N, scale_log2);
-  } else if (D == 128) {
-    sa::flash_fwd_bf16_kernel<128><<<grid, sa::kThreads, 0, st>>>(q_, k_, v_, kl, o_, lse_, Lq,
-                                                                  Lk, N, scale_log2);
-  } else if (D == 64 && ROPE) {
-    sa::flash_fwd_bf16_rope_kernel<64><<<grid, sa::kThreads, 0, st>>>(
-        q_, k_, v_, kl, r_, o_, lse_, Lq, Lk, N, scale_log2);
-  } else if (D == 64) {
-    sa::flash_fwd_bf16_kernel<64><<<grid, sa::kThreads, 0, st>>>(q_, k_, v_, kl, o_, lse_, Lq,
-                                                                 Lk, N, scale_log2);
-  } else {
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, const void* k_lens, void* out,
+                void* lse, int B, int Lq, int Lk, int N, float scale_log2, cudaStream_t st) {
+  using namespace sa::ffwd;
+  CUtensorMap mq, mk, mv;
+  if (!sa::make_map(&mq, q, B, Lq, N * D, kBlockM) ||
+      !sa::make_map(&mk, k, B, Lk, N * D, kBlockN) || !sa::make_map(&mv, v, B, Lk, N * D, kBlockN))
     return static_cast<int>(cudaErrorInvalidValue);
-  }
+  constexpr int smem = Smem<D>::launch_bytes;
+  int rc;
+  if ((rc = sa::allow_smem(flash_fwd_bf16_kernel<D>, smem))) return rc;
+  const dim3 grid((Lq + kBlockM - 1) / kBlockM, B * N);
+  flash_fwd_bf16_kernel<D><<<grid, kThreads, smem, st>>>(
+      mq, mk, mv, static_cast<const int*>(k_lens), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), Lq, Lk, N, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// K1 (K1-LSE with a non-null lse [B, N, Lq]); q and k roped by the caller
+// K1 (K1-LSE with a non-null lse [B, N, Lq]); q and k roped by the caller.
+// Global rows must be 16-byte multiples (N * D * 2) and the tensors
+// 16-byte aligned (TMA).
 extern "C" int sa_flash_fwd_bf16(const void* q, const void* k, const void* v, const void* k_lens,
                                  void* out, void* lse, int B, int Lq, int Lk, int N, int D,
                                  float scale_log2, void* stream) {
-  return launch_bf16<false>(q, k, v, k_lens, nullptr, out, lse, B, Lq, Lk, N, D, scale_log2,
-                            stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 128) return launch_bf16<128>(q, k, v, k_lens, out, lse, B, Lq, Lk, N, scale_log2, st);
+  if (D == 64) return launch_bf16<64>(q, k, v, k_lens, out, lse, B, Lq, Lk, N, scale_log2, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K1-rope: q and k in split-pair layout, rotated in the kernel by the packed
@@ -529,8 +810,25 @@ extern "C" int sa_flash_fwd_bf16_rope(const void* q, const void* k, const void* 
                                       int B, int Lq, int Lk, int N, int D, float scale_log2,
                                       void* stream) {
   if (rope == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bf16<true>(q, k, v, k_lens, rope, out, lse, B, Lq, Lk, N, D, scale_log2,
-                           stream);
+  const dim3 grid((Lq + sa::kBlockQ - 1) / sa::kBlockQ, B * N);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto q_ = static_cast<const __nv_bfloat16*>(q);
+  auto k_ = static_cast<const __nv_bfloat16*>(k);
+  auto v_ = static_cast<const __nv_bfloat16*>(v);
+  auto kl = static_cast<const int*>(k_lens);
+  auto r_ = static_cast<const float*>(rope);
+  auto o_ = static_cast<__nv_bfloat16*>(out);
+  auto lse_ = static_cast<float*>(lse);
+  if (D == 128) {
+    sa::flash_fwd_bf16_rope_kernel<128><<<grid, sa::kThreads, 0, st>>>(
+        q_, k_, v_, kl, r_, o_, lse_, Lq, Lk, N, scale_log2);
+  } else if (D == 64) {
+    sa::flash_fwd_bf16_rope_kernel<64><<<grid, sa::kThreads, 0, st>>>(
+        q_, k_, v_, kl, r_, o_, lse_, Lq, Lk, N, scale_log2);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 namespace {

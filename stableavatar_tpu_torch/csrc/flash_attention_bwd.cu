@@ -318,13 +318,6 @@ flash_bwd_dq_rope_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
   store_rows<D>(dq + q_off, rs, row_a, Lq, dq_acc);
 }
 
-// dynamic shared memory above 48 KB has to be allowed per kernel
-template <typename Kernel>
-int allow_smem(Kernel kernel, int smem) {
-  return static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-}
-
 // --------------------------------------------------------------------------
 // K4: the fused backward
 // --------------------------------------------------------------------------
@@ -360,17 +353,6 @@ struct Smem {
   static constexpr int bytes = off_bar + (2 * kStages + 1) * 8;
   static constexpr int launch_bytes = bytes + 1024;  // room to align the base
 };
-
-// D[64, D] += A . B with A in registers, B = a [64, D] MN-major tile
-template <int D>
-__device__ __forceinline__ void wgmma_rs_d(float (&d)[D / 2], const uint32_t (&a)[4],
-                                           uint64_t db) {
-  if constexpr (D == 128) {
-    wgmma_rs_n128(d, a, db, 1);
-  } else {
-    wgmma_rs_n64(d, a, db, 1);
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -721,47 +703,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- K4, the fused backward: tensor maps and launch
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so that
-// the library needs no -lcuda
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                      cudaEnableDefault, &found);
-#else
-    cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                             &found);
-#endif
-    if (rc != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// 3-D map over a [B, L, N * D] bf16 tensor: boxes of `rows` x 64 elements
-// of one batch, 128-byte swizzle; rows past L read as zeros (never the next
-// batch's rows)
-bool make_map(CUtensorMap* map, const void* ptr, int B, int L, int ND, int rows) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)ND, (cuuint64_t)L, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)ND * 2, (cuuint64_t)L * ND * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
+// ---- K4, the fused backward: launch
 
 template <int D>
 int launch_fused(const void* q, const void* k, const void* v, const void* dout, const void* lse,
@@ -770,8 +712,10 @@ int launch_fused(const void* q, const void* k, const void* v, const void* dout, 
                  float scale, float scale_log2, cudaStream_t st) {
   using namespace sa::fbwd;
   CUtensorMap mq, mk, mv, mdo;
-  if (!make_map(&mq, q, B, Lq, N * D, kBlockM) || !make_map(&mk, k, B, Lk, N * D, kBlockN) ||
-      !make_map(&mv, v, B, Lk, N * D, kBlockN) || !make_map(&mdo, dout, B, Lq, N * D, kBlockM))
+  if (!sa::make_map(&mq, q, B, Lq, N * D, kBlockM) ||
+      !sa::make_map(&mk, k, B, Lk, N * D, kBlockN) ||
+      !sa::make_map(&mv, v, B, Lk, N * D, kBlockN) ||
+      !sa::make_map(&mdo, dout, B, Lq, N * D, kBlockM))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = Smem<D>::launch_bytes;
   int rc;

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: shared-memory
 // addresses, mbarriers, TMA tensor loads and bulk reductions, wgmma
 // descriptors and products, named barriers and register hand-over
-// (setmaxnreg).  Used by flash_attention_bwd.cu (the fused K4); written so
-// that the forward kernels can take them up as they are.
+// (setmaxnreg), and the host side: TMA tensor maps and the dynamic
+// shared-memory opt-in.  Used by flash_attention.cu (K1, K1-LSE) and
+// flash_attention_bwd.cu (the fused K4).
 //
 // Shared-memory operands are stored in the 128-byte swizzle that TMA's
 // CU_TENSOR_MAP_SWIZZLE_128B writes: a tile of R rows x 64 bf16 (128 bytes a
@@ -155,6 +156,12 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
 #define SA_ACC8(i)                                                                     \
   "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),      \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -171,6 +178,23 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "%32, %33, p, 1, 1, %35, %36;\n}\n"
       : SA_ACC8(0), SA_ACC8(8), SA_ACC8(16), SA_ACC8(24)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// D[64, 128] (+)= A . B^T, both operands in shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : SA_ACC8(0), SA_ACC8(8), SA_ACC8(16), SA_ACC8(24), SA_ACC8(32), SA_ACC8(40), SA_ACC8(48),
+        SA_ACC8(56)
       : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
@@ -205,5 +229,68 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 }
 
 #undef SA_ACC8
+
+// D[64, D] += A . B with A in registers, B a [16, D] step of an MN-major
+// tile (D = 64 or 128)
+template <int D>
+__device__ __forceinline__ void wgmma_rs_d(float (&d)[D / 2], const uint32_t (&a)[4],
+                                           uint64_t db) {
+  if constexpr (D == 128) {
+    wgmma_rs_n128(d, a, db, 1);
+  } else {
+    wgmma_rs_n64(d, a, db, 1);
+  }
+}
+
+// --------------------------------------------------------------------------
+// host side
+// --------------------------------------------------------------------------
+
+// dynamic shared memory above 48 KB has to be allowed per kernel
+template <typename Kernel>
+int allow_smem(Kernel kernel, int smem) {
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so that
+// the library needs no -lcuda
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                      cudaEnableDefault, &found);
+#else
+    cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                             &found);
+#endif
+    if (rc != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// 3-D map over a [B, L, N * D] bf16 tensor: boxes of `rows` x 64 elements
+// of one batch, 128-byte swizzle; rows past L read as zeros (never the next
+// batch's rows)
+inline bool make_map(CUtensorMap* map, const void* ptr, int B, int L, int ND, int rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)ND, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)ND * 2, (cuuint64_t)L * ND * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 }  // namespace sa

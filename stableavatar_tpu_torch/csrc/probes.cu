@@ -27,7 +27,7 @@
 // bf16(int32(q8 . k8^T) >> 7) . v (int8 q8, k8), fp32 sums, bf16 out; v is
 // bf16.  k8 is read row-major [L, D] (the TPU's [D, L] pre-transpose is a
 // layout of its matrix unit).  It is its own kernel on attention_common.cuh's
-// tiles and fragments (K1's block of 64 query rows, 64-key tiles), so the
+// tiles and fragments (K1's first design: 64 query rows, 64-key tiles), so the
 // int8 flash template and its register budget stay as they are.  Bound:
 // 4 L^2 D operations per (batch, head), compute-bound like K1 / K2.
 #include <type_traits>

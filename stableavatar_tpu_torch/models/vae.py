@@ -17,6 +17,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from stableavatar_tpu_torch.models.vocal_projector import silu
+from stableavatar_tpu_torch.ops.attention import short_attention
+
 CACHE_T = 2
 
 
@@ -56,16 +59,19 @@ class _Cache:
         self.idx += 1
 
 
-def _conv3d(p, x, stride=(1, 1, 1), padding=(0, 0, 0)):
+def _add_bias(p, y):
+    """+ b in y's dtype after the product is rounded, as the JAX conv3d /
+    conv2d add it (a bias passed into F.conv* is added before rounding)."""
     b = p.get("b")
-    return F.conv3d(x, p["w"].to(x.dtype), None if b is None else b.to(x.dtype),
-                    stride=stride, padding=padding)
+    return y if b is None else y + b.to(y.dtype).reshape(1, -1, *([1] * (y.dim() - 2)))
+
+
+def _conv3d(p, x, stride=(1, 1, 1), padding=(0, 0, 0)):
+    return _add_bias(p, F.conv3d(x, p["w"].to(x.dtype), stride=stride, padding=padding))
 
 
 def _conv2d(p, x, stride=1, padding=0):
-    b = p.get("b")
-    return F.conv2d(x, p["w"].to(x.dtype), None if b is None else b.to(x.dtype),
-                    stride=stride, padding=padding)
+    return _add_bias(p, F.conv2d(x, p["w"].to(x.dtype), stride=stride, padding=padding))
 
 
 def causal_conv3d(p, x, ctx: _Cache, stride=(1, 1, 1)):
@@ -85,9 +91,9 @@ def time_conv_stream(p, x, ctx: _Cache, stride_t=1):
 
 def residual_block(p, x, ctx: _Cache):
     h = _conv3d(p["shortcut"], x) if "shortcut" in p else x
-    y = F.silu(channel_rms_norm(x, p["norm1"]["gamma"], p["norm1"]["scale"]))
+    y = silu(channel_rms_norm(x, p["norm1"]["gamma"], p["norm1"]["scale"]))
     y = causal_conv3d(p["conv1"], y, ctx)
-    y = F.silu(channel_rms_norm(y, p["norm2"]["gamma"], p["norm2"]["scale"]))
+    y = silu(channel_rms_norm(y, p["norm2"]["gamma"], p["norm2"]["scale"]))
     y = causal_conv3d(p["conv2"], y, ctx)
     return y + h
 
@@ -109,7 +115,8 @@ def attention_block(p, x):
     y = _frames(channel_rms_norm(x, p["norm"]["gamma"], p["norm"]["scale"]))
     qkv = _conv2d(p["qkv"], y).reshape(b * t, 3 * c, h * w).transpose(1, 2)
     q, k, v = qkv.chunk(3, dim=-1)
-    out = F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None])[:, 0]
+    # [B*T, HW, 1 head, C], rounded where jax.nn.dot_product_attention rounds
+    out = short_attention(q[:, :, None], k[:, :, None], v[:, :, None])[:, :, 0]
     out = _conv2d(p["proj"], out.transpose(1, 2).reshape(b * t, c, h, w))
     return x + _unframes(out, b, t)
 
@@ -153,7 +160,7 @@ def encoder_apply(p, x, ctx: _Cache, cfg, first_chunk: bool):
     x = residual_block(p["mid1"], x, ctx)
     x = attention_block(p["mid_attn"], x)
     x = residual_block(p["mid2"], x, ctx)
-    x = F.silu(channel_rms_norm(x, p["head_norm"]["gamma"], p["head_norm"]["scale"]))
+    x = silu(channel_rms_norm(x, p["head_norm"]["gamma"], p["head_norm"]["scale"]))
     return causal_conv3d(p["head_conv"], x, ctx)
 
 
@@ -172,7 +179,7 @@ def decoder_apply(p, x, ctx: _Cache, cfg, first_chunk: bool):
             mode = "upsample3d" if temporal_upsample[i] else "upsample2d"
             x = resample(p["up"][bi], x, ctx, mode, first_chunk)
             bi += 1
-    x = F.silu(channel_rms_norm(x, p["head_norm"]["gamma"], p["head_norm"]["scale"]))
+    x = silu(channel_rms_norm(x, p["head_norm"]["gamma"], p["head_norm"]["scale"]))
     return causal_conv3d(p["head_conv"], x, ctx)
 
 

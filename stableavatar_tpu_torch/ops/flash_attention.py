@@ -409,6 +409,10 @@ def _flash_fwd_cuda(q, k, v, k_lens, scale, with_lse: bool = False, rope=None):
     return (out, lse) if with_lse else out
 
 
+# K1's tiles: query rows per block and keys per K / V tile
+FWD_BLOCK_Q = 128
+FWD_BLOCK_KEYS = 128
+
 # the fused K4's tiles: keys per block and query rows per tile
 BWD_BLOCK_KEYS = 128
 BWD_BLOCK_Q = 64

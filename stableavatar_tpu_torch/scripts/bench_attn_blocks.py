@@ -10,8 +10,8 @@ same B, N, L, D = 3, 12, 21504, 128 and CH = 10, timed with CUDA events:
   version, bf16(int32(q8 . k8^T) >> 7) . v, CH calls on the same operands;
 - `sweep`: the port's K1 (`flash_attention`), chained CH times, once.  The
   JAX script swept seven (bq, bk) pairs, VMEM tilings of its Pallas call;
-  K1 has one tiling (64 query rows a block, 64-key tiles) and no knob for
-  it, so the sweep is one line.
+  K1 has one tiling (128 query rows a block, 128-key tiles) and no knob
+  for it, so the sweep is one line.
 
 On the card: `python -m stableavatar_tpu_torch.scripts.bench_attn_blocks
 [all|dots|sweep]`.
@@ -83,7 +83,7 @@ def sweep() -> None:
 
     with torch.no_grad():
         t = seconds_per_call(run, CH)
-    print(f"K1 bq=   64 bk=   64: {t*1e3:8.2f} ms  {FLOPS/t/1e12:6.1f} TF/s", flush=True)
+    print(f"K1 bq=  128 bk=  128: {t*1e3:8.2f} ms  {FLOPS/t/1e12:6.1f} TF/s", flush=True)
 
 
 def main(argv=None) -> None:

@@ -51,10 +51,19 @@ def _rel(got, want):
     return float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
 
 
-@pytest.mark.parametrize("b,l,n,d,k_lens", [(2, 3000, 2, 128, [2500, 3000]),
-                                            (1, 2100, 3, 64, None)])
-def test_flash_kernels_match_plain(gen, b, l, n, d, k_lens):
-    q, k, v = (_randn(gen, b, l, n, d) for _ in range(3))
+# K1's tiles are 128 query rows and 128 keys: the DiT self-attention of
+# one sample, the cross-attention key lengths 512 and 257 (257 pads to three
+# tiles) with Lq no multiple of 128, and k_lens ending inside a tile (300)
+# and on a tile edge (640)
+K1_CASES = [(2, 3000, 3000, 2, 128, [2500, 3000]), (1, 2100, 2100, 3, 64, None),
+            (1, 21504, 21504, 12, 128, None), (1, 2100, 512, 4, 128, None),
+            (1, 2100, 257, 4, 128, None), (2, 1000, 1000, 2, 128, [300, 640])]
+
+
+@pytest.mark.parametrize("b,lq,lk,n,d,k_lens", K1_CASES)
+def test_flash_kernels_match_plain(gen, b, lq, lk, n, d, k_lens):
+    q = _randn(gen, b, lq, n, d)
+    k, v = _randn(gen, b, lk, n, d), _randn(gen, b, lk, n, d)
     kl = None if k_lens is None else torch.tensor(k_lens, dtype=torch.int32, device="cuda")
     before = dict(fa.launch_counts)
     out = fa.flash_attention(q, k, v, k_lens=kl)
@@ -68,7 +77,9 @@ def test_flash_kernels_match_plain(gen, b, l, n, d, k_lens):
 
 K4_CASES = [(2, 3000, 3000, 2, 128, [2500, 3000]), (1, 2100, 2100, 3, 64, None),
             (1, 2048, 77, 2, 128, None), (2, 700, 257, 2, 64, [200, 257]),
-            (1, 21504, 512, 12, 128, None), (1, 21504, 257, 12, 128, None)]
+            (1, 21504, 512, 12, 128, None), (1, 21504, 257, 12, 128, None),
+            (1, 21504, 21504, 12, 128, None), (1, 2100, 512, 4, 128, None),
+            (1, 2100, 257, 4, 128, None), (2, 1000, 1000, 2, 128, [300, 640])]
 
 
 @pytest.mark.parametrize("b,lq,lk,n,d,k_lens", K4_CASES)
@@ -115,6 +126,19 @@ def test_k4_run_to_run(gen, b, lq, lk, n, d, k_lens):
     a, c = first[0].float(), second[0].float()
     bound = torch.maximum(a.abs(), c.abs()) * 2 ** -7 + 1e-5 * float(a.abs().max())
     assert bool(((a - c).abs() <= bound).all()), float((a - c).abs().max())
+
+
+@pytest.mark.parametrize("b,lq,lk,n,d,k_lens", [K1_CASES[0], K1_CASES[3], K1_CASES[4],
+                                                 K1_CASES[5]])
+def test_k1_lse_run_to_run(gen, b, lq, lk, n, d, k_lens):
+    """K1 sums in registers and writes every output once, without atomics:
+    two launches on the same inputs agree bit for bit, out and LSE."""
+    q = _randn(gen, b, lq, n, d)
+    k, v = _randn(gen, b, lk, n, d), _randn(gen, b, lk, n, d)
+    kl = None if k_lens is None else torch.tensor(k_lens, dtype=torch.int32, device="cuda")
+    first = fa._flash_fwd_cuda(q, k, v, kl, d ** -0.5, with_lse=True)
+    second = fa._flash_fwd_cuda(q, k, v, kl, d ** -0.5, with_lse=True)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 def test_backward_through_attention(gen):

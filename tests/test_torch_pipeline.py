@@ -262,12 +262,14 @@ def test_generate_long_matches_jax(jax_models, jax_runs, fast):
     assert np.isfinite(got.videos).all() and got.videos.min() >= 0 and got.videos.max() <= 1
     assert len(timer.history["denoise_step"]) == 2 and "vae_decode" in timer.history
     # The pipelines decode in bf16, and the tiny random VAE amplifies bf16
-    # rounding: on the fast path the latents are equal, yet the videos
-    # differ by up to 16/255 (mean 1.7/255), and the JAX decoder with
-    # XLA's excess precision on is itself 14/255 from its own run with it
-    # off; on the bf16 path (latents 1.6e-2 apart) 40/255 (ROADMAP queue
-    # 3).  So the decode stage is held to 2/255 on the same latents: the
-    # JAX pipeline's final latents through both decoders (fp32).
+    # rounding.  The port's decoder rounds where XLA's does (SiLU op for
+    # op, the conv bias after the rounded product, the mid attention as
+    # `short_attention`; bit for bit on test_torch_vae.py's latents), so on
+    # the fast path, whose latents are equal, the videos differ by at most
+    # 1/255 (782 of 39,936 values, mean 0.02/255; 16/255 before the
+    # repair); on the bf16 path (latents 1.6e-2 apart) by 37/255.  So the
+    # decode stage is held to 2/255 on the same latents: the JAX
+    # pipeline's final latents through both decoders (fp32).
     jv = np.concatenate([np.asarray(s) for s in jvae.decode_video_segmented(
         jax.tree.map(jnp.asarray, jax_models["vae"]), jnp.asarray(want["latents"]), VAE_E2E,
         out_uint8=True)], axis=2)
