@@ -16,9 +16,12 @@ exits non-zero):
                the fused K4 backward (dQ, dK, dV in one pass) against their plain
                PyTorch versions at the main-path shapes (K1, K1-LSE and K4
                also at the cross-attention shapes, Lk 512 and 257) and on
-               small ragged cases, with times, the least time the card could
-               take (bound) and, where one PyTorch call computes the same
-               function, that call's time;
+               small ragged cases (K2, K2-LSE qk and K3-qk also at the
+               wgmma kernel's tile edges: Lq and Lk apart and no multiples
+               of 128, k_lens inside a tile and 0, D 64 and 128), with
+               times, the least time the card could take (bound) and, where
+               one PyTorch call computes the same function, that call's
+               time;
 3. reference -- the fast-path DiT (2 blocks, full width) on a small window:
                the card's output against the CPU's (plain versions);
 4. train reference -- one train step of the bf16 DiT (2 blocks, full width)
@@ -61,9 +64,11 @@ exits non-zero):
 11. remaining -- the entry points of the last kernels: K1-rope (with and
                without its LSE) and K4's rope branch against their plain
                versions (and K1 behind two out-of-kernel rotation passes),
-               the probes S1-S3 (`ops/probes.py`: the GEMM's four epilogues,
-               int8 outputs exactly, with torch.matmul / torch._int_mm as
-               yardsticks, and the dots probes); then
+               the probes S1-S3 (`ops/probes.py`: the GEMM's four epilogues
+               at the scripts' shape and the DiT's linears, int8 outputs
+               exactly, with torch.matmul / torch._int_mm as yardsticks,
+               _int_mm also with B turned inside the call, and the dots
+               probes); then
                `flash_attention(rope=)` forward, with stats and under
                autograd, and each probe script's `main` with its own CH
                (`stableavatar_tpu_torch/scripts/`), each with exact launch
@@ -378,7 +383,46 @@ def phase_kernels(results):
         record("dual_context", tag, compare(
             f"dual_context {tag} x (77, 33)", ca._dual_cuda(q, k1, v1, k2, v2, scale),
             ca._dual_plain(q, k1, v1, k2, v2, scale)), None, None)
+    phase_int8_qk_edges(record, gen)
     torch.cuda.synchronize()
+
+
+# the int8-QK wgmma kernel's tile edges (128 query rows, 128-key tiles): Lq
+# and Lk apart and no multiples of 128, k_lens inside a tile and 0, D 64 and
+# 128 -- (B, Lq, Lk, N, D, k_lens)
+INT8_QK_EDGES = ((2, 200, 130, 2, 64, [77, 0]), (2, 200, 257, 2, 128, [0, 200]),
+                 (2, 3000, 2900, 2, 64, [2500, 2900]))
+
+
+def phase_int8_qk_edges(record, gen):
+    """K2, K2-LSE qk and K3-qk (with its LSE) at INT8_QK_EDGES against their
+    plain versions; a batch with no valid key is zero rows."""
+    import torch
+
+    from stableavatar_tpu_torch.ops import flash_attention as fa
+
+    for b, lq, lk, n, d, lens in INT8_QK_EDGES:
+        q = _rand(gen, (b, lq, n, d), torch.bfloat16)
+        k, v = (_rand(gen, (b, lk, n, d), torch.bfloat16) for _ in range(2))
+        k_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q8, k8, sqk = fa.prepare_int8(q, k, None, d ** -0.5)
+        mstat = fa.static_bound(q8, k8, sqk)
+        tag = f"[{b},{lq},{n},{d}] x Lk {lk} k_lens={lens}"
+        for name, static, with_lse in (("flash_fwd_int8_qk", False, False),
+                                       ("flash_fwd_int8_qk_lse", False, True),
+                                       ("flash_fwd_int8_static_qk", True, True)):
+            got = fa._flash_int8_cuda(q8, k8, v, sqk, k_lens, mstat=mstat if static else None,
+                                      with_lse=with_lse)
+            plain = fa._flash_int8_static_plain if static else fa._flash_int8_plain
+            want = plain(q8, k8, v, sqk, k_lens, with_lse=with_lse)
+            if with_lse:
+                (got, lse), (want, want_lse) = got, want
+            err = compare(f"{name} {tag}", got, want)
+            if with_lse:
+                err = max(err, compare_lse(f"{name} {tag}", lse, want_lse))
+            if 0 in lens and got[lens.index(0)].any():
+                raise AssertionError(f"{name} {tag}: a batch without keys is not zero rows")
+            record(name, tag, err, None, None)
 
 
 # the new int8 kernels: (launch-count name, quant, static bound)
@@ -1397,7 +1441,9 @@ def phase_probe_kernels(results):
     ops = 2.0 * m * kk * n
     b8_cm = b8.t().contiguous().t()
     lib = {"bf16": time_ms(lambda: torch.matmul(a16, b16), 20),
-           "int8": time_ms(lambda: torch._int_mm(a8, b8_cm), 20)}
+           "int8": time_ms(lambda: torch._int_mm(a8, b8_cm), 20),
+           # the same row-major B the kernel reads, turned inside the call
+           "int8_transpose": time_ms(lambda: torch._int_mm(a8, b8.t().contiguous().t()), 20)}
     for epilogue in probes.EPILOGUES:
         name = f"mm_probe_{epilogue}"
         a, b = (a16, b16) if epilogue == "bf16" else (a8, b8)
@@ -1419,12 +1465,17 @@ def phase_probe_kernels(results):
         entry.update(max_abs_err=err, ms=time_ms(lambda: probes.mm_probe(a, b, epilogue), 20),
                      plain_ms=time_ms(lambda: probes._mm_plain(a, b, epilogue), 5),
                      bound_ms=bound[0], bound_by=bound[1], library_ms=library)
+        if epilogue != "bf16":
+            entry["library_with_transpose_ms"] = lib["int8_transpose"]
         log(f"  {name} {tag}: kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms, "
-            f"bound {bound[0]:.3f} ms ({bound[1]}), library {library:.3f} ms")
+            f"bound {bound[0]:.3f} ms ({bound[1]}), library {library:.3f} ms"
+            + ("" if epilogue == "bf16" else
+               f" ({lib['int8_transpose']:.3f} ms with B turned inside the call)"))
     ratio = results["mm_probe_int8"]["ms"] / results["mm_probe_bf16"]["ms"]
     log(f"  int8 : bf16 GEMM time: mm_probe {ratio:.3f}, "
         f"cuBLAS (_int_mm : matmul) {lib['int8'] / lib['bf16']:.3f}")
     del a16, b16, a8, b8, b8_cm
+    phase_probe_linears(results)
 
     gen = torch.Generator(device="cuda").manual_seed(12)
     bh, l, d = s3.B * s3.N, s3.L, s3.D
@@ -1452,6 +1503,63 @@ def phase_probe_kernels(results):
         log(f"  {name} {tag}: kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms, "
             f"bound {bound[0]:.3f} ms ({bound[1]}), library —")
         del q, k
+    torch.cuda.synchronize()
+
+
+# the DiT's linear shapes at one window's 21504 tokens: (M, K, N)
+DIT_LINEAR_SHAPES = ((21504, 1536, 8960), (21504, 8960, 1536))
+
+
+def phase_probe_linears(results):
+    """The GEMM probe's four epilogues at the DiT's linear shapes against
+    its plain version (int8 outputs exactly; bf16 within REL_TOL and ABS_TOL,
+    `a` scaled by K^-1/2), each timed beside `torch.matmul` or
+    `torch._int_mm` (B column-major, prepared outside the timing, and turned
+    inside it): entries of the kernels' "shapes"."""
+    import torch
+
+    from stableavatar_tpu_torch.ops import probes
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for m, kk, n in DIT_LINEAR_SHAPES:
+        a16 = (_rand(gen, (m, kk), torch.float32) * kk ** -0.5).bfloat16()
+        b16 = _rand(gen, (kk, n), torch.bfloat16)
+        a8, b8 = ((_rand(gen, shape, torch.float32) * 40).clamp(-127, 127).to(torch.int8)
+                  for shape in ((m, kk), (kk, n)))
+        b8_cm = b8.t().contiguous().t()
+        lib = {"bf16": time_ms(lambda: torch.matmul(a16, b16), 20),
+               "int8": time_ms(lambda: torch._int_mm(a8, b8_cm), 20),
+               "int8_transpose": time_ms(lambda: torch._int_mm(a8, b8.t().contiguous().t()), 20)}
+        ops = 2.0 * m * kk * n
+        tag = f"[{m},{kk}] . [{kk},{n}]"
+        for epilogue in probes.EPILOGUES:
+            name = f"mm_probe_{epilogue}"
+            a, b = (a16, b16) if epilogue == "bf16" else (a8, b8)
+            got, want = probes.mm_probe(a, b, epilogue), probes._mm_plain(a, b, epilogue)
+            if epilogue == "bf16":
+                err = compare(f"{name} {tag}", got, want)
+                bound = bound_ms(ops, 2.0 * (m * kk + kk * n + m * n))
+            else:
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{name} {tag}: the int8 outputs differ from the plain "
+                                         f"version in {int((got != want).sum())} places")
+                err = 0.0
+                out_bytes = 2.0 if epilogue == "scaled" else 1.0
+                bound = bound_ms(0.0, m * kk + kk * n + out_bytes * m * n, ops_int8=ops)
+            del got, want
+            ms = time_ms(lambda: probes.mm_probe(a, b, epilogue), 20)
+            shape = dict(shape=[m, kk, n], ms=ms, bound_ms=bound[0], bound_by=bound[1],
+                         library_ms=lib["bf16" if epilogue == "bf16" else "int8"])
+            if epilogue != "bf16":
+                shape["library_with_transpose_ms"] = lib["int8_transpose"]
+            entry = results.setdefault(name, {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            entry.setdefault("shapes", []).append(shape)
+            log(f"  {name} {tag}: kernel {ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}), "
+                f"library {shape['library_ms']:.3f} ms"
+                + ("" if epilogue == "bf16" else
+                   f" ({lib['int8_transpose']:.3f} ms with B turned inside the call)"))
+        del a16, b16, a8, b8, b8_cm
     torch.cuda.synchronize()
 
 
@@ -1654,7 +1762,7 @@ def main() -> int:
             "launches": launches.get(name, 0), "max_abs_err": r.get("max_abs_err"),
             "ms": r.get("ms"), "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"), "library_ms": r.get("library_ms"),
-            **({"shapes": r["shapes"]} if "shapes" in r else {}),
+            **{k: r[k] for k in ("library_with_transpose_ms", "shapes") if k in r},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 profile_window.py          # generate_long, fast and bf16 paths
     python3 profile_window.py train    # train_step, 1.3B / 512x512 / 81 frames
-    python3 profile_window.py kernels  # the int8 flash kernels alone
+    python3 profile_window.py kernels  # the int8 flash kernels alone, beside K1 and SDPA
+    python3 profile_window.py probes   # the GEMM probe (S1 / S2) beside cuBLAS
     python3 profile_window.py backward # the flash backward (K4) and K5 alone
     python3 profile_window.py forward  # the bf16 flash forward (K1, K1-LSE) alone
     python3 profile_window.py vae      # the VAE's bf16 decode and fp32 train encode
@@ -30,13 +31,21 @@ AdamW) of the bf16 1.3B DiT on one batch of chip_smoke's synthetic 512x512,
 step 4 the profiler's warm-up, step 5 profiled; it also prints the peak
 device memory of the steps.
 
-`kernels` times the int8 flash template's instances -- K2 ("qk"), K2v
-("qkv", "qkpv" on its default key block) and K3 ("qk") -- at the DiT
-self-attention shape [3, 21504, 12, 128] on the same roped, prepared
-operands: the median of 20 CUDA-event timings each, after a warm-up, as one
-JSON line.  It uses only wrapper arguments that every version of the
-template takes, so the same file compares two checkouts in one call (copy
-it into each and run it from there, in turns).
+`kernels` times the int8 flash kernels -- K2 ("qk"), K2v ("qkv", "qkpv" on
+its default key block), K3 ("qk") and K2-LSE qk -- at the DiT
+self-attention shape [3, 21504, 12, 128] (K2-LSE at one sample's [1, 21504,
+12, 128]) on the same roped, prepared operands, beside K1 and one SDPA call
+on the bf16 operands: the median of 20 CUDA-event timings each, after a
+warm-up, as one JSON line.  It uses only wrapper arguments that every
+version of the kernels takes, so the same file compares two checkouts in
+one call (copy it into each and run it from there, in turns).
+
+`probes` times `mm_probe` (S1 / S2: each epilogue) at the scripts'
+[21504, 1536] . [1536, 1536] and the DiT's linears [21504, 1536] . [1536,
+8960] and [21504, 8960] . [8960, 1536], beside `torch.matmul` (bf16) and
+`torch._int_mm` (int8) given B column-major as cuBLAS takes it, and given
+the same row-major B with the transpose inside the timed call: medians of
+20 CUDA-event timings, one JSON line, comparable across two checkouts.
 
 `backward` times the flash backward at the training shapes [1, 21504, 12,
 128] with Lk 21504, 512 and 257 (self, text and image attention): the
@@ -73,8 +82,13 @@ STEPS, WAIT, WARMUP = 6, 4, 1
 
 # kernel name -> kind; first match wins
 KINDS = (
-    ("K2 / K2v / K2-LSE / K3 flash_fwd_int8", re.compile(r"flash_fwd_int8_kernel")),
-    ("K1 flash_fwd_bf16 (with or without LSE)", re.compile(r"flash_fwd_bf16_kernel")),
+    # the wgmma / TMA forward: K1 (QK 0), K2 / K2-LSE qk (1), K3-qk (2)
+    ("K2 / K2-LSE qk / K3-qk flash_fwd (wgmma)", re.compile(r"ffwd::flash_fwd_kernel<\d+, [12]>")),
+    ("K1 flash_fwd_bf16 (with or without LSE)",
+     re.compile(r"flash_fwd_bf16_kernel|ffwd::flash_fwd_kernel<\d+, 0>")),
+    # the mma.sync template: K2v / K3-qkv, and in older checkouts K2 / K3-qk
+    ("K2 / K2v / K2-LSE / K3 flash_fwd_int8 (mma.sync)",
+     re.compile(r"flash_fwd_int8v?_kernel")),
     ("K4 flash_bwd (fused)", re.compile(r"flash_bwd_fused_kernel")),
     ("K4a flash_bwd_dkdv", re.compile(r"flash_bwd_dkdv")),
     ("K4b flash_bwd_dq", re.compile(r"flash_bwd_dq")),
@@ -189,14 +203,44 @@ def time_kernels():
     q8, k8, sqk = fa.prepare_int8(q, k, rope, d ** -0.5)
     v8, sv = fa.quantize_v(v)
     mstat = fa.static_bound(q8, k8, sqk)
+    q8s, k8s, vs, sqks = q8[:1].contiguous(), k8[:1].contiguous(), v[:1].contiguous(), sqk[:n]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     runs = {
         "K2 qk": lambda: fa._flash_int8_cuda(q8, k8, v, sqk, None),
         "K2v qkv": lambda: fa._flash_int8_cuda(q8, k8, v8, sqk, None, quant="qkv", sv=sv),
         "K2v qkpv": lambda: fa._flash_int8_cuda(q8, k8, v8, sqk, None, quant="qkpv", sv=sv),
         "K3 qk": lambda: fa._flash_int8_cuda(q8, k8, v, sqk, None, mstat=mstat),
+        "K2-LSE qk [1]": lambda: fa._flash_int8_cuda(q8s, k8s, vs, sqks, None, with_lse=True),
+        "K1": lambda: fa._flash_fwd_cuda(q, k, v, None, d ** -0.5),
+        "SDPA": lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt),
     }
     print(json.dumps({name: round(chip_smoke.time_ms(fn, 20), 3) for name, fn in runs.items()}),
           flush=True)
+
+
+def time_probes():
+    import torch
+
+    import chip_smoke
+    from stableavatar_tpu_torch.ops import probes
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    res = {}
+    for m, k, n in ((21504, 1536, 1536), (21504, 1536, 8960), (21504, 8960, 1536)):
+        a16 = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+        b16 = torch.randn((k, n), generator=gen, device="cuda").bfloat16()
+        a8, b8 = ((x.float() * 10).to(torch.int8) for x in (a16, b16))
+        b8_cm = b8.t().contiguous().t()  # column-major, as cuBLAS's int8 product takes it
+        row = {f"mm_probe_{epi}_ms": chip_smoke.time_ms(
+            lambda: probes.mm_probe(*((a16, b16) if epi == "bf16" else (a8, b8)), epi), 20)
+            for epi in probes.EPILOGUES}
+        row["matmul_bf16_ms"] = chip_smoke.time_ms(lambda: torch.matmul(a16, b16), 20)
+        row["int_mm_ms"] = chip_smoke.time_ms(lambda: torch._int_mm(a8, b8_cm), 20)
+        row["int_mm_with_transpose_ms"] = chip_smoke.time_ms(
+            lambda: torch._int_mm(a8, b8.t().contiguous().t()), 20)
+        res[f"[{m}, {k}] . [{k}, {n}]"] = row
+        del a16, b16, a8, b8, b8_cm
+    print(json.dumps(res), flush=True)
 
 
 def time_backward():
@@ -335,6 +379,9 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     if sys.argv[1:] == ["kernels"]:
         time_kernels()
+        return 0
+    if sys.argv[1:] == ["probes"]:
+        time_probes()
         return 0
     if sys.argv[1:] == ["backward"]:
         time_backward()

@@ -1,8 +1,8 @@
-// Shared building blocks of the mma.sync kernels (the int8 template and
+// Shared building blocks of the mma.sync kernels (the int8-V template and
 // K1-rope in flash_attention.cu, K4's rope branch in flash_attention_bwd.cu,
-// cross_attention.cu and the dots probe of probes.cu); K1 and the fused K4
-// are built on hopper_common.cuh and take only the constants and
-// pack_bf16 / quad_sum from here.
+// cross_attention.cu and the dots probe of probes.cu); K1 / K2 / K3-qk, the
+// fused K4 and mm_probe are built on hopper_common.cuh and take only the
+// constants and pack_bf16 / quad_sum / ld32 from here.
 //
 // Tiling, common to these kernels: one thread block of 4 warps owns 64
 // query rows of one (batch, head); each warp owns 16 of them and keeps its

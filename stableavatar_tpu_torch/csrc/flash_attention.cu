@@ -11,85 +11,86 @@
 // (K4, flash_attention_bwd.cu) recomputes P from it.  A null `lse` skips
 // the write, as the JAX package's primal-only path does.
 //
-// What bounds K1 on the H100: the two L^2 * D products per head (Q.K^T and
-// P.V) -- 8.5e12 flop at the DiT self-attention [3, 21504, 12, 128]
-// against 0.2 GB of operands, so operations (8.6 ms at 989 TFLOP/s), with
-// the softmax's exp2 on the SFUs (64 per thread and key tile) as the next
-// limit.  The first design (4 warps of mma.sync over 64-key tiles, one
+// K2, K2-LSE, K2v and K3 replace stableavatar_tpu/ops/flash_attention.py:
+// _flash_int8_impl.  Q and K arrive as int8 [B, L, N, D] with one scale per
+// (batch, head) slab (the prep is plain torch, as it was XLA on the TPU):
+// Q8.K8^T runs on the s8 tensor cores into s32, converted to fp32 and
+// multiplied by sqk[b*N + h] = sq * sk * scale * log2(e) -- the TPU's
+// `dot(int32).astype(f32) * sqk`, exactly (the integer products are exact).
+// Then, by the V path and the softmax:
+//   - K2, quant="qk" (body `_int8_fwd_body`, branch `else`): K1's online
+//     softmax, bf16 P.V;
+//   - K3-qk (`_int8_fwd_body_static`): p = exp2(s - M) with M = sqk *
+//     max|q8| * max|k8| over 64 query rows and all keys (Cauchy-Schwarz,
+//     computed by the wrapper, `static_bound`): no running max, no rescale;
+//   - K2v "qkv" (`v_int8` branch): V int8, widened to bf16 in registers for
+//     the P.V product, its per-channel scale applied once at finalize; K3-qkv
+//     the same under the static bound;
+//   - K2v "qkpv" (`quant_pv` branch): P rescaled to its row max within the
+//     JAX package's key block (`pv_block` keys, a multiple of 64: 1536 or
+//     1024 capped to the sequence rounded up to 128), rounded to int8 and
+//     multiplied with int8 V into s32, times exp2(m_block - m_new) / 127.
+//     Each block of pv_block / 64 key tiles is swept twice: first for the
+//     row max of its logits, then for P.V (Q.K^T is computed twice).
+// With a non-null `lse` every variant also writes the natural-log LSE of
+// each query row, m * ln2 + log(max(l, 1e-30)) (M in place of m for K3), in
+// fp32 laid out [B, N, Lq]: K2-LSE, the combinable partials of ring
+// attention (`flash_attention_with_stats(quant=...)`).  K is read row-major
+// [B, L, N, D]: the TPU's [D, L] pre-transpose is a layout of its matrix
+// unit and has no use here.
+//
+// What bounds them on the H100: the two L^2 * D products per head (Q.K^T
+// and P.V) -- at the DiT self-attention [3, 21504, 12, 128] 8.5e12
+// operations against 0.2 GB of operands, so operations: 8.6 ms at 989
+// TFLOP/s for K1, 6.5 ms for K2 / K3 (Q.K^T at the 1,979 TOP/s int8 peak),
+// with the softmax's exp2 on the SFUs (64 per thread and key tile) as the
+// next limit.  The first designs (4 warps of mma.sync over 64-key tiles, one
 // cp.async stage, two block barriers a tile) ran at a fifth of that, and
-// its products without the softmax (the S3 probe) took 83% of its time.
-// So the design (`ffwd::flash_fwd_bf16_kernel`, D = 128 and D = 64) is
-// Hopper's own:
+// their products without the softmax (the S3 probe) took 83% of their time.
+// So K1, K2 and K3-qk are one Hopper design (`ffwd::flash_fwd_kernel<D,
+// QK>`, D = 128 and D = 64, QK = bf16, int8 or int8 under the static bound):
 //
 // - a block owns 128 query rows of one (batch, head); one producer thread
 //   (a warpgroup with its registers handed over by setmaxnreg, 24 / 240)
 //   loads the block's Q once and streams 128-key K and V tiles through a
-//   3-stage ring in dynamic shared memory (TMA from 3-D tensor maps over
-//   [B, L, N * D], 128-byte swizzle, rows past L read as zeros; K and V of a
-//   stage complete on mbarriers of their own, and an `empty` mbarrier
-//   hands the stage back); 224 KB at D = 128, one block an SM;
+//   ring in dynamic shared memory (TMA from 3-D tensor maps over
+//   [B, L, N * D], rows past L read as zeros; K and V of a stage complete on
+//   mbarriers of their own, and an `empty` mbarrier hands the stage back).
+//   bf16: 128-byte swizzle, 3 stages, 224 KB at D = 128.  int8: Q8 and K8
+//   rows of D bytes in the 128-byte swizzle, or at D = 64 the 64-byte one
+//   (8 rows in 512 bytes, its own descriptor layout); V stays bf16; 4 stages
+//   (16 KB of Q8 plus 48 KB a stage: 208 KB at D = 128);
 // - two consumer warpgroups own 64 query rows each: S = Q K^T is one
-//   wgmma m64n128 chain with both operands in shared memory, the online
-//   softmax (running max m and row sum l, the rescale of O) runs in
-//   registers in wgmma's accumulator layout, P is packed to bf16 A
-//   fragments in registers and O += P V is a register-A wgmma with V
-//   MN-major; O stays in fp32 registers for the whole key loop;
+//   wgmma m64n128 chain with both operands K-major in shared memory (bf16
+//   k16 steps into fp32, or s8 k32 steps into s32, converted in place and
+//   scaled by sqk), the softmax (online: running max m and row sum l, the
+//   rescale of O; K3: exp2(s - M), no rescale) runs in registers in wgmma's
+//   accumulator layout, P is packed to bf16 A fragments in registers and
+//   O += P V is a register-A wgmma with V MN-major; O stays in fp32
+//   registers for the whole key loop;
 // - inside a warpgroup, S of tile j + 1 is issued before P V of tile j and
 //   its softmax runs while that product is on the tensor cores (so K runs a
-//   tile ahead of V: hence the third stage); the two warpgroups do not wait
-//   for each other, so one's softmax also overlaps the other's products.
-//   On the card this gained 2-3% over one tile at a time with two stages
-//   (PERF.md);
+//   tile ahead of V: hence at least three stages); the two warpgroups do not
+//   wait for each other, so one's softmax also overlaps the other's
+//   products.  On the card this gained 2-3% for K1 over one tile at a time
+//   with two stages (PERF.md);
 // - zero fill is not a mask (a zero key has logit 0): keys at or past
 //   k_lens[b] (and Lk) get p = 0 in the kernel, tiles wholly past
-//   k_lens[b] are not loaded (a block with none writes zero rows), and rows
-//   past Lq are neither stored nor given an LSE.  No atomics: two launches
-//   agree bit for bit.
+//   k_lens[b] are not loaded (a block with none writes zero rows and the LSE
+//   of an empty row), and rows past Lq are neither stored nor given an LSE.
+//   K3's bound is per 64 query rows, so each consumer warpgroup reads its
+//   own.  No atomics: two launches agree bit for bit.
 //
 // K1-rope (`flash_attention(rope=)`, on no main path) keeps the first
 // mma.sync design: 4 warps own 64 query rows, one cp.async K/V stage of
 // 64-key tiles, with the split-pair rotation of `_fwd_body`'s `rope=`
 // branch (`_rot`, :142-143) inside -- Q is rotated in fp32 on its way into
 // the A fragments, each K tile in place in shared memory after it lands,
-// both rounded to bf16 once as `_rot(...).astype(dt)` does.
-//
-// K2, K2v, K2-LSE and K3 replace stableavatar_tpu/ops/flash_attention.py:
-// _flash_int8_impl, one template (`flash_fwd_int8_kernel`) for all
-// variants.  Q and K arrive as int8 with one scale per (batch, head) slab
-// (the prep is plain torch, as it was XLA on the TPU); the kernel runs
-// Q8.K8^T on the s8 tensor cores into s32 and multiplies by sqk[b*N + h] =
-// sq * sk * scale * log2(e).  Then, by the V path and the softmax:
-//   - K2, quant="qk" (body `_int8_fwd_body`): K1's online softmax, bf16 P.V;
-//   - K2v "qkv" (`v_int8` branch): V int8, widened to bf16 in registers for
-//     the P.V product, its per-channel scale applied once at finalize;
-//   - K2v "qkpv" (`quant_pv` branch): P rescaled to its row max within the
-//     JAX package's key block (`pv_block` keys, a multiple of 64: 1536 or
-//     1024 capped to the sequence rounded up to 128), rounded to int8 and
-//     multiplied with int8 V into s32, times exp2(m_block - m_new) / 127.
-//     Each block of pv_block / 64 key tiles is swept twice: first for the
-//     row max of its logits, then for P.V (Q.K^T is computed twice);
-//   - K3 (`_int8_fwd_body_static`, "qk" or "qkv"): no running max -- p =
-//     exp2(s - M) with M = sqk * max|q8| * max|k8| over this block's 64
-//     query rows and all keys (Cauchy-Schwarz, computed by the wrapper), no
-//     rescale.
-// With a non-null `lse` every variant also writes the natural-log LSE of
-// each query row, m * ln2 + log(max(l, 1e-30)) (M in place of m for K3), in
-// fp32 laid out [B, N, Lq]: K2-LSE, the combinable partials of ring
-// attention (`flash_attention_with_stats(quant=...)`).
-// K is read row-major [B, L, N, D]: the TPU's [D, L] pre-transpose is a
-// layout of its matrix unit and has no use here.
-//
-// What bounds the int8 kernels on the H100: at the DiT self-attention
-// shape (B*N = 36, L = 21,504, D = 128) all are compute-bound -- 4*L^2*D
-// operations per head (half int8 for Q.K^T, half bf16 for P.V, or all int8
-// for qkpv, whose Q.K^T runs twice) against 3*L*D bytes per head of input
-// read once per 64-row query tile from L2.
-// The int8 kernels and K1-rope read Q, K and V straight from the
-// [B, L, N, D] activations (no transpose or padding pass), keep the logits
-// and probabilities in registers, and keep K/V tiles in shared memory
-// shared by 4 warps, on mma.sync with a single K/V stage (the V copy
-// overlaps the Q.K^T and softmax of the same tile); wgmma, TMA and warp
-// specialisation (K1's design above) are later work for them.
+// both rounded to bf16 once as `_rot(...).astype(dt)` does.  So do the
+// int8-V variants (K2v-qkv, K2v-qkpv, K3-qkv; `flash_fwd_int8v_kernel`):
+// s8 wgmma takes 8-bit operands only K-major, and int8 V is the B operand
+// of P.V with D contiguous (MN-major), so they need a V8 laid out K-major by
+// the prep, or a transpose in shared memory -- a design of their own.
 #include "attention_common.cuh"
 #include "hopper_common.cuh"
 
@@ -173,30 +174,44 @@ flash_fwd_bf16_rope_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // --------------------------------------------------------------------------
-// K1 and K1-LSE: one producer warpgroup feeds a TMA ring, two consumer
-// warpgroups run wgmma
+// K1, K1-LSE, K2, K2-LSE qk and K3-qk: one producer warpgroup feeds a TMA
+// ring, two consumer warpgroups run wgmma
 // --------------------------------------------------------------------------
 
 namespace ffwd {
 
 constexpr int kBlockM = 128;   // query rows per block: two consumer warpgroups of 64
 constexpr int kBlockN = 128;   // keys per K / V tile
-constexpr int kStages = 3;     // K / V ring: S runs a tile ahead of P V
 constexpr int kConsumers = 256;
 constexpr int kThreads = 384;  // two consumer warpgroups, one producer warpgroup
-constexpr int kRow = 128;      // bytes of one swizzled row (64 bf16)
+constexpr int kRow = 128;      // bytes of one swizzled bf16 row (64 bf16)
+
+// Q.K^T and the softmax of an instance (template parameter)
+enum Qk {
+  kQkBf16 = 0,        // K1: bf16 Q, K; online softmax
+  kQkInt8 = 1,        // K2: int8 Q8, K8 on the s8 tensor cores, times sqk; online softmax
+  kQkInt8Static = 2,  // K3-qk: as K2 under K3's static bound, no running max
+};
 
 // shared-memory layout (byte offsets from a 1024-byte boundary); every
 // swizzled operand starts on a 1024-byte boundary
-template <int D>
+template <int D, int QK>
 struct Smem {
-  static constexpr int kHalves = D / 64;
-  static constexpr int kQ = kHalves * kBlockM * kRow;   // the block's Q
-  static constexpr int kKV = kHalves * kBlockN * kRow;  // one K or V stage
+  static constexpr bool kInt8 = QK != kQkBf16;
+  // S runs a tile ahead of P V: at least 3 stages.  K8 is half the bytes of
+  // a bf16 K, so int8 fits a fourth (208 KB at D = 128): K2 ran 1% faster
+  // with it than with 3 on the H100 (PERF.md)
+  static constexpr int kStages = kInt8 ? 4 : 3;
+  static constexpr int kQKRow = kInt8 ? D : kRow;     // bytes of a swizzled Q / K row
+  static constexpr int kQKParts = kInt8 ? 1 : D / 64;  // swizzled column tiles of Q / K
+  static constexpr int kVHalves = D / 64;
+  static constexpr int kQ = kQKParts * kBlockM * kQKRow;  // the block's Q
+  static constexpr int kK = kQKParts * kBlockN * kQKRow;  // one K stage
+  static constexpr int kV = kVHalves * kBlockN * kRow;    // one V stage
   static constexpr int off_q = 0;
   static constexpr int off_k = off_q + kQ;
-  static constexpr int off_v = off_k + kStages * kKV;
-  static constexpr int off_bar = off_v + kStages * kKV;
+  static constexpr int off_v = off_k + kStages * kK;
+  static constexpr int off_bar = off_v + kStages * kV;
   static constexpr int bytes = off_bar + (1 + 3 * kStages) * 8;
   static constexpr int launch_bytes = bytes + 1024;  // room to align the base
 };
@@ -216,16 +231,27 @@ __device__ __forceinline__ void issue_qk(float (&sacc)[64], uint32_t q_wg, uint3
   wgmma_commit();
 }
 
-// Online softmax of the tile of keys [k0, k0 + 128) in the accumulator
-// layout: element 4j + e is row g (e < 2) or g + 8, key k0 + 8j + 2t +
-// (e & 1).  Turns the raw logits into p = exp2(s * scale_log2 - m_new),
-// updates the running max m (base 2, scaled) and this thread's partial row
-// sums l, and returns in c0 / c1 the factors that rescale O to the new max.
-// Zero-filled keys past Lk, and keys past k_lens[b], are masked here: TMA's
-// fill is not a mask (a zero key has logit 0).
-__device__ __forceinline__ void softmax_tile(float (&sacc)[64], int k0, int klen,
-                                             float scale_log2, float& m0, float& m1, float& l0,
-                                             float& l1, float& c0, float& c1) {
+// S = Q8 K8^T [64 queries, 128 keys] of one K8 tile on the s8 tensor cores
+// into s32: D / 32 k-steps of 32 bytes inside rows of D bytes (the 128- or
+// 64-byte swizzle, 8 rows in 8 D bytes), both operands K-major; issued and
+// committed, not waited for
+template <int D>
+__device__ __forceinline__ void issue_qk_s8(int (&sacc)[64], uint32_t q_wg, uint32_t kb) {
+  wgmma_fence();
+  wgmma_s8_n128_first(sacc, make_desc(q_wg, 16, 8 * D, D), make_desc(kb, 16, 8 * D, D));
+#pragma unroll
+  for (int kk = 1; kk < D / 32; ++kk) {
+    wgmma_s8_n128(sacc, make_desc(q_wg + kk * 32, 16, 8 * D, D),
+                  make_desc(kb + kk * 32, 16, 8 * D, D), 1);
+  }
+  wgmma_commit();
+}
+
+// Keys at or past klen get the logit -1e30 (zero-filled keys past Lk, and
+// keys past k_lens[b]): TMA's fill is not a mask, a zero key has logit 0.
+// Element 4j + e of the accumulator layout is row g (e < 2) or g + 8, key
+// k0 + 8j + 2t + (e & 1).
+__device__ __forceinline__ void mask_tile(float (&sacc)[64], int k0, int klen) {
   const int t = threadIdx.x & 3;
   if (k0 + kBlockN > klen) {
 #pragma unroll
@@ -236,6 +262,16 @@ __device__ __forceinline__ void softmax_tile(float (&sacc)[64], int k0, int klen
       }
     }
   }
+}
+
+// Online softmax of the tile of keys [k0, k0 + 128) in the accumulator
+// layout: turns the raw logits into p = exp2(s * scale_log2 - m_new),
+// updates the running max m (base 2, scaled) and this thread's partial row
+// sums l, and returns in c0 / c1 the factors that rescale O to the new max.
+__device__ __forceinline__ void softmax_tile(float (&sacc)[64], int k0, int klen,
+                                             float scale_log2, float& m0, float& m1, float& l0,
+                                             float& l1, float& c0, float& c1) {
+  mask_tile(sacc, k0, klen);
   float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
   for (int j = 0; j < kBlockN / 8; ++j) {
@@ -268,6 +304,27 @@ __device__ __forceinline__ void softmax_tile(float (&sacc)[64], int k0, int klen
   l1 = l1 * c1 + rs1;
 }
 
+// K3's softmax of one tile (TPU `_int8_fwd_body_static`): p = exp2(s - M)
+// under the static bound M of this warpgroup's 64 query rows, no running
+// max and no rescale
+__device__ __forceinline__ void softmax_static_tile(float (&sacc)[64], int k0, int klen,
+                                                    float bound, float& l0, float& l1) {
+  mask_tile(sacc, k0, klen);
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < kBlockN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sacc[4 * j + e] = exp2f(sacc[4 * j + e] - bound);
+      sacc[4 * j + 2 + e] = exp2f(sacc[4 * j + 2 + e] - bound);
+      rs0 += sacc[4 * j + e];
+      rs1 += sacc[4 * j + 2 + e];
+    }
+  }
+  l0 += rs0;
+  l1 += rs1;
+}
+
 // P as bf16 A fragments of the k16 steps over the 128 keys
 __device__ __forceinline__ void pack_p(uint32_t (&pa)[kBlockN / 16][4], const float (&p)[64]) {
 #pragma unroll
@@ -291,14 +348,43 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)
   wgmma_commit();
 }
 
-template <int D>
+// After the wait for S: the int8 instances' s32 logits to fp32 times the
+// slab scale (the TPU's `dot(int32).astype(f32) * sqk`), then the online
+// softmax (K1 on the raw bf16 logits with scale_log2, K2 on the scaled
+// ones) or K3's static one
+template <int QK, int NI>
+__device__ __forceinline__ void logits_softmax(float (&sacc)[64], int (&si)[NI], int k0, int klen,
+                                               float scale_log2, float slab, float bound,
+                                               float& m0, float& m1, float& l0, float& l1,
+                                               float& c0, float& c1) {
+  if constexpr (QK != kQkBf16) {
+    fence_regs(si);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sacc[i] = __int2float_rn(si[i]) * slab;
+  } else {
+    fence_regs(sacc);
+  }
+  if constexpr (QK == kQkInt8Static) {
+    softmax_static_tile(sacc, k0, klen, bound, l0, l1);
+  } else {
+    softmax_tile(sacc, k0, klen, QK == kQkBf16 ? scale_log2 : 1.f, m0, m1, l0, l1, c0, c1);
+  }
+}
+
+// `sqk` [B*N] (int8 instances): the slab scales of the int32 logits
+// (sq * sk * scale * log2 e); `mstat` [B*N, ceil(Lq / 64)] (K3): the bound
+// of each 64 query rows; `scale_log2` (K1): the scale of the bf16 logits
+template <int D, int QK>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
-                      const __grid_constant__ CUtensorMap tm_k,
-                      const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ k_lens,
-                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Lq, int Lk,
-                      int N, float scale_log2) {
-  using S = Smem<D>;
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ k_lens,
+                 const float* __restrict__ sqk, const float* __restrict__ mstat,
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Lq, int Lk, int N,
+                 float scale_log2) {
+  using S = Smem<D, QK>;
+  constexpr bool kInt8 = S::kInt8, kStatic = QK == kQkInt8Static;
+  constexpr int kStages = S::kStages;
   constexpr int kAcc = D / 2;  // fp32 registers of a [64, D] output accumulator
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -307,6 +393,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int bh = blockIdx.y, b = bh / N, h = bh % N;
   const int klen = k_lens ? min(k_lens[b], Lk) : Lk;
   const int ntiles = (max(klen, 0) + kBlockN - 1) / kBlockN;  // tiles past k_lens[b]: skipped
+  const int nqb = (Lq + 63) / 64;  // K3's bounds per (batch, head): one per 64 query rows
 
   if (ntiles == 0) {
     // no valid key: zero rows, and the LSE of an empty row (as K4 reads it)
@@ -320,7 +407,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     const int r = threadIdx.x;
     if (lse != nullptr && r < kBlockM && q0 + r < Lq) {
-      lse[(long long)bh * Lq + q0 + r] = kNegInf * kLn2 + logf(1e-30f);
+      const float m = kStatic ? mstat[(long long)bh * nqb + (q0 + r) / 64] : kNegInf;
+      lse[(long long)bh * Lq + q0 + r] = m * kLn2 + logf(1e-30f);
     }
     return;
   }
@@ -347,22 +435,23 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (warp == 8 && lane == 0) {
       mbar_arrive_expect_tx(q_full, S::kQ);
 #pragma unroll
-      for (int hf = 0; hf < S::kHalves; ++hf) {
-        tma_load_3d(sm + S::off_q + hf * kBlockM * kRow, &tm_q, q_full, h * D + hf * 64, q0, b);
+      for (int p = 0; p < S::kQKParts; ++p) {
+        tma_load_3d(sm + S::off_q + p * kBlockM * S::kQKRow, &tm_q, q_full, h * D + p * 64, q0,
+                    b);
       }
       for (int it = 0; it < ntiles; ++it) {
         const int s = it % kStages, k0 = it * kBlockN;
         mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
-        mbar_arrive_expect_tx(&k_full[s], S::kKV);
+        mbar_arrive_expect_tx(&k_full[s], S::kK);
 #pragma unroll
-        for (int hf = 0; hf < S::kHalves; ++hf) {
-          tma_load_3d(sm + S::off_k + s * S::kKV + hf * kBlockN * kRow, &tm_k, &k_full[s],
-                      h * D + hf * 64, k0, b);
+        for (int p = 0; p < S::kQKParts; ++p) {
+          tma_load_3d(sm + S::off_k + s * S::kK + p * kBlockN * S::kQKRow, &tm_k, &k_full[s],
+                      h * D + p * 64, k0, b);
         }
-        mbar_arrive_expect_tx(&v_full[s], S::kKV);
+        mbar_arrive_expect_tx(&v_full[s], S::kV);
 #pragma unroll
-        for (int hf = 0; hf < S::kHalves; ++hf) {
-          tma_load_3d(sm + S::off_v + s * S::kKV + hf * kBlockN * kRow, &tm_v, &v_full[s],
+        for (int hf = 0; hf < S::kVHalves; ++hf) {
+          tma_load_3d(sm + S::off_v + s * S::kV + hf * kBlockN * kRow, &tm_v, &v_full[s],
                       h * D + hf * 64, k0, b);
         }
       }
@@ -373,7 +462,12 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int wg = warp >> 2, wl = warp & 3;
     const int g = lane >> 2, t = lane & 3;
     const int row_a = q0 + wg * 64 + wl * 16 + g, row_b = row_a + 8;
-    const uint32_t q_wg = smem_u32(sm + S::off_q) + wg * 64 * kRow;  // this warpgroup's rows
+    const uint32_t q_wg = smem_u32(sm + S::off_q) + wg * 64 * S::kQKRow;  // this warpgroup's rows
+    // the int8 logits leave the tensor cores unscaled; K3's bound is this
+    // warpgroup's (its 64 rows are one 64-row block of the bound)
+    const float slab = kInt8 ? sqk[bh] : 0.f;
+    const int qb = blockIdx.x * 2 + wg;
+    const float bound = kStatic && qb < nqb ? mstat[(long long)bh * nqb + qb] : 0.f;
 
     float o[kAcc];
 #pragma unroll
@@ -384,41 +478,52 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     // S of tile it + 1 is issued before P V of tile it, and its softmax runs
     // while that product is on the tensor cores
-    float sacc[64], c0, c1;
+    float sacc[64], c0 = 1.f, c1 = 1.f;
+    int si[kInt8 ? 64 : 1];  // the int8 instances' s32 logits
     uint32_t pa[kBlockN / 16][4];
     mbar_wait(q_full, 0);
     mbar_wait(&k_full[0], 0);
-    issue_qk<D>(sacc, q_wg, smem_u32(sm + S::off_k));
+    if constexpr (kInt8) {
+      issue_qk_s8<D>(si, q_wg, smem_u32(sm + S::off_k));
+    } else {
+      issue_qk<D>(sacc, q_wg, smem_u32(sm + S::off_k));
+    }
     wgmma_wait<0>();
-    fence_regs(sacc);
-    softmax_tile(sacc, 0, klen, scale_log2, m0, m1, l0, l1, c0, c1);  // O is 0: no rescale
+    logits_softmax<QK>(sacc, si, 0, klen, scale_log2, slab, bound, m0, m1, l0, l1, c0,
+                       c1);  // O is 0: no rescale
     pack_p(pa, sacc);
     for (int it = 0; it < ntiles - 1; ++it) {
       const int s = it % kStages, s1 = (it + 1) % kStages;
       mbar_wait(&k_full[s1], ((it + 1) / kStages) & 1);
-      issue_qk<D>(sacc, q_wg, smem_u32(sm + S::off_k + s1 * S::kKV));
+      if constexpr (kInt8) {
+        issue_qk_s8<D>(si, q_wg, smem_u32(sm + S::off_k + s1 * S::kK));
+      } else {
+        issue_qk<D>(sacc, q_wg, smem_u32(sm + S::off_k + s1 * S::kK));
+      }
       mbar_wait(&v_full[s], (it / kStages) & 1);
-      issue_pv<D>(o, pa, smem_u32(sm + S::off_v + s * S::kKV));
+      issue_pv<D>(o, pa, smem_u32(sm + S::off_v + s * S::kV));
       wgmma_wait<1>();  // S of tile it + 1 (committed first) is done
-      fence_regs(sacc);
-      softmax_tile(sacc, (it + 1) * kBlockN, klen, scale_log2, m0, m1, l0, l1, c0, c1);
+      logits_softmax<QK>(sacc, si, (it + 1) * kBlockN, klen, scale_log2, slab, bound, m0, m1,
+                         l0, l1, c0, c1);
       wgmma_wait<0>();
       fence_regs(o);
 #pragma unroll
       for (int kq = 0; kq < kBlockN / 16; ++kq) fence_regs(pa[kq]);  // read until here
       mbar_arrive(&empty[s]);  // K and V of stage s are read
+      if constexpr (!kStatic) {
 #pragma unroll
-      for (int i = 0; i < kAcc / 4; ++i) {
-        o[4 * i] *= c0;
-        o[4 * i + 1] *= c0;
-        o[4 * i + 2] *= c1;
-        o[4 * i + 3] *= c1;
+        for (int i = 0; i < kAcc / 4; ++i) {
+          o[4 * i] *= c0;
+          o[4 * i + 1] *= c0;
+          o[4 * i + 2] *= c1;
+          o[4 * i + 3] *= c1;
+        }
       }
       pack_p(pa, sacc);
     }
     const int s_last = (ntiles - 1) % kStages;
     mbar_wait(&v_full[s_last], ((ntiles - 1) / kStages) & 1);
-    issue_pv<D>(o, pa, smem_u32(sm + S::off_v + s_last * S::kKV));
+    issue_pv<D>(o, pa, smem_u32(sm + S::off_v + s_last * S::kV));
     wgmma_wait<0>();
     fence_regs(o);
 
@@ -438,18 +543,19 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
     if (lse != nullptr && t == 0) {
+      // K3's M is its bound; the others' the running max
       float* lse_bh = lse + (long long)bh * Lq;
-      if (row_a < Lq) lse_bh[row_a] = m0 * kLn2 + logf(lf0);
-      if (row_b < Lq) lse_bh[row_b] = m1 * kLn2 + logf(lf1);
+      if (row_a < Lq) lse_bh[row_a] = (kStatic ? bound : m0) * kLn2 + logf(lf0);
+      if (row_b < Lq) lse_bh[row_b] = (kStatic ? bound : m1) * kLn2 + logf(lf1);
     }
   }
 }
 
 }  // namespace ffwd
 
-// V path and softmax of the int8 kernels (template parameters).
+// V path of the int8-V kernels (template parameter); K2 and K3-qk (bf16 V)
+// are instances of ffwd::flash_fwd_kernel above.
 enum VMode {
-  kVBf16 = 0,  // K2 / K3-qk: bf16 V, bf16 P.V
   kVInt8 = 1,  // K2v-qkv / K3-qkv: int8 V widened to bf16 for the P.V product
   kPV8 = 2,    // K2v-qkpv: P quantised per row to its key-block max, int8 P.V into s32
 };
@@ -615,8 +721,8 @@ __device__ __forceinline__ void qk_int8(float (&s)[kNT][4], const uint32_t (&qa)
   }
 }
 
-// The int8 flash forward: K2 (kVBf16, online), K2v (kVInt8 / kPV8, online)
-// and K3 (kVBf16 / kVInt8, STATIC).  `sv` [B, N, D] scales the int8 V at
+// The int8-V flash forward on mma.sync: K2v (kVInt8 / kPV8, online) and
+// K3-qkv (kVInt8, STATIC).  `sv` [B, N, D] scales the int8 V at
 // finalize; `mstat` [B*N, Lq / 64 blocks] is K3's bound; `pv_block` is
 // kPV8's quantisation block in keys (a multiple of kBlockK); `lse` (may be
 // null) receives m * ln2 + log(max(l, 1e-30)) as [B, N, Lq] -- K2-LSE, or
@@ -626,15 +732,14 @@ __device__ __forceinline__ void qk_int8(float (&s)[kNT][4], const uint32_t (&qa)
 // slower than at 168 (profile_window.py kernels, NVIDIA H100 80GB HBM3).
 template <int D, int VMODE, bool STATIC>
 __global__ void __launch_bounds__(kThreads, 3)
-flash_fwd_int8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
-                      const void* __restrict__ v, const float* __restrict__ sv,
-                      const float* __restrict__ sqk, const float* __restrict__ mstat,
-                      const int* __restrict__ k_lens, __nv_bfloat16* __restrict__ out,
-                      float* __restrict__ lse, int Lq, int Lk, int N, int pv_block) {
+flash_fwd_int8v_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
+                       const int8_t* __restrict__ v8, const float* __restrict__ sv,
+                       const float* __restrict__ sqk, const float* __restrict__ mstat,
+                       const int* __restrict__ k_lens, __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, int Lq, int Lk, int N, int pv_block) {
   constexpr int kPitch8 = D + 16;  // bytes
-  constexpr int kVRow = VMODE == kVBf16 ? 2 * D : D;  // bytes of one V row
   __shared__ __align__(16) int8_t Ks[kBlockK * kPitch8];
-  __shared__ __align__(16) char Vs[kBlockK * (kVRow + 16)];
+  __shared__ __align__(16) int8_t Vs[kBlockK * kPitch8];
 
   const int bh = blockIdx.y, b = bh / N, h = bh % N;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -657,8 +762,7 @@ flash_fwd_int8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ 
   }
 
   const char* kb = reinterpret_cast<const char*>(k8 + ((long long)b * Lk * N + h) * D);
-  const long long v_rs = VMODE == kVBf16 ? rs * 2 : rs;  // bytes between V rows
-  const char* vb = static_cast<const char*>(v) + ((long long)b * Lk * N + h) * kVRow;
+  const char* vb = reinterpret_cast<const char*>(v8 + ((long long)b * Lk * N + h) * D);
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float acc[D / 8][4];
@@ -707,7 +811,7 @@ flash_fwd_int8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ 
     }
     load_tile<D>(reinterpret_cast<char*>(Ks), kb, rs, k0, Lk);
     cp_async_commit();
-    load_tile<kVRow>(Vs, vb, v_rs, k0, Lk);
+    load_tile<D>(reinterpret_cast<char*>(Vs), vb, rs, k0, Lk);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
@@ -724,31 +828,27 @@ flash_fwd_int8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ 
 
     cp_async_wait<0>();
     __syncthreads();
-    if constexpr (VMODE == kVBf16) {
-      pv_bf16<D>(acc, s, reinterpret_cast<const unsigned short*>(Vs));
-    } else if constexpr (VMODE == kVInt8) {
-      pv_int8_bf16<D>(acc, s, reinterpret_cast<const int8_t*>(Vs));
+    if constexpr (VMODE == kVInt8) {
+      pv_int8_bf16<D>(acc, s, Vs);
     } else {
-      pv_int8<D>(acc, s, reinterpret_cast<const int8_t*>(Vs), f);
+      pv_int8<D>(acc, s, Vs, f);
     }
     __syncthreads();
   }
 
   const float l0 = fmaxf(quad_sum(l[0]), 1e-30f), l1 = fmaxf(quad_sum(l[1]), 1e-30f);
-  const float* svb = VMODE == kVBf16 ? nullptr : sv + (long long)bh * D;
+  const float* svb = sv + (long long)bh * D;
 #pragma unroll
   for (int nd = 0; nd < D / 8; ++nd) {
     acc[nd][0] /= l0;
     acc[nd][1] /= l0;
     acc[nd][2] /= l1;
     acc[nd][3] /= l1;
-    if constexpr (VMODE != kVBf16) {
-      const int c = nd * 8 + t * 2;
-      acc[nd][0] *= svb[c];
-      acc[nd][1] *= svb[c + 1];
-      acc[nd][2] *= svb[c];
-      acc[nd][3] *= svb[c + 1];
-    }
+    const int c = nd * 8 + t * 2;
+    acc[nd][0] *= svb[c];
+    acc[nd][1] *= svb[c + 1];
+    acc[nd][2] *= svb[c];
+    acc[nd][3] *= svb[c + 1];
   }
   store_rows<D>(out + ((long long)b * Lq * N + h) * D, rs, row_a, Lq, acc);
   if (lse != nullptr && t == 0) {
@@ -771,22 +871,47 @@ flash_fwd_int8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ 
 
 namespace {
 
-template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, const void* k_lens, void* out,
-                void* lse, int B, int Lq, int Lk, int N, float scale_log2, cudaStream_t st) {
+// K1 (QK = kQkBf16: q, k bf16) or K2 / K3-qk (q8, k8 int8 with the slab
+// scales sqk, and K3's bounds mstat); v bf16
+template <int D, int QK>
+int launch_fwd(const void* q, const void* k, const void* v, const void* k_lens, const void* sqk,
+               const void* mstat, void* out, void* lse, int B, int Lq, int Lk, int N,
+               float scale_log2, cudaStream_t st) {
   using namespace sa::ffwd;
+  using S = Smem<D, QK>;
   CUtensorMap mq, mk, mv;
-  if (!sa::make_map(&mq, q, B, Lq, N * D, kBlockM) ||
-      !sa::make_map(&mk, k, B, Lk, N * D, kBlockN) || !sa::make_map(&mv, v, B, Lk, N * D, kBlockN))
+  const bool ok = S::kInt8 ? sa::make_map_s8(&mq, q, B, Lq, N * D, kBlockM, D) &&
+                                 sa::make_map_s8(&mk, k, B, Lk, N * D, kBlockN, D)
+                           : sa::make_map(&mq, q, B, Lq, N * D, kBlockM) &&
+                                 sa::make_map(&mk, k, B, Lk, N * D, kBlockN);
+  if (!ok || !sa::make_map(&mv, v, B, Lk, N * D, kBlockN)) {
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int smem = Smem<D>::launch_bytes;
+  }
+  constexpr int smem = S::launch_bytes;
   int rc;
-  if ((rc = sa::allow_smem(flash_fwd_bf16_kernel<D>, smem))) return rc;
+  if ((rc = sa::allow_smem(flash_fwd_kernel<D, QK>, smem))) return rc;
   const dim3 grid((Lq + kBlockM - 1) / kBlockM, B * N);
-  flash_fwd_bf16_kernel<D><<<grid, kThreads, smem, st>>>(
-      mq, mk, mv, static_cast<const int*>(k_lens), static_cast<__nv_bfloat16*>(out),
+  flash_fwd_kernel<D, QK><<<grid, kThreads, smem, st>>>(
+      mq, mk, mv, static_cast<const int*>(k_lens), static_cast<const float*>(sqk),
+      static_cast<const float*>(mstat), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(lse), Lq, Lk, N, scale_log2);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int QK>
+int launch_fwd_d(const void* q, const void* k, const void* v, const void* k_lens,
+                 const void* sqk, const void* mstat, void* out, void* lse, int B, int Lq, int Lk,
+                 int N, int D, float scale_log2, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 128) {
+    return launch_fwd<128, QK>(q, k, v, k_lens, sqk, mstat, out, lse, B, Lq, Lk, N, scale_log2,
+                               st);
+  }
+  if (D == 64) {
+    return launch_fwd<64, QK>(q, k, v, k_lens, sqk, mstat, out, lse, B, Lq, Lk, N, scale_log2,
+                              st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -797,10 +922,8 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* k_lens,
 extern "C" int sa_flash_fwd_bf16(const void* q, const void* k, const void* v, const void* k_lens,
                                  void* out, void* lse, int B, int Lq, int Lk, int N, int D,
                                  float scale_log2, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128) return launch_bf16<128>(q, k, v, k_lens, out, lse, B, Lq, Lk, N, scale_log2, st);
-  if (D == 64) return launch_bf16<64>(q, k, v, k_lens, out, lse, B, Lq, Lk, N, scale_log2, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_fwd_d<sa::ffwd::kQkBf16>(q, k, v, k_lens, nullptr, nullptr, out, lse, B, Lq, Lk,
+                                         N, D, scale_log2, stream);
 }
 
 // K1-rope: q and k in split-pair layout, rotated in the kernel by the packed
@@ -833,10 +956,11 @@ extern "C" int sa_flash_fwd_bf16_rope(const void* q, const void* k, const void* 
 
 namespace {
 
+// the int8-V instances of the mma.sync template
 template <int VMODE, bool STATIC>
-int launch_int8(const void* q8, const void* k8, const void* v, const void* sv, const void* sqk,
-                const void* mstat, const void* k_lens, void* out, void* lse, int B, int Lq,
-                int Lk, int N, int D, int pv_block, void* stream) {
+int launch_int8v(const void* q8, const void* k8, const void* v8, const void* sv, const void* sqk,
+                 const void* mstat, const void* k_lens, void* out, void* lse, int B, int Lq,
+                 int Lk, int N, int D, int pv_block, void* stream) {
   if (VMODE == sa::kPV8 && (pv_block <= 0 || pv_block % sa::kBlockK != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -844,6 +968,7 @@ int launch_int8(const void* q8, const void* k8, const void* v, const void* sv, c
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto q_ = static_cast<const int8_t*>(q8);
   auto k_ = static_cast<const int8_t*>(k8);
+  auto v_ = static_cast<const int8_t*>(v8);
   auto sv_ = static_cast<const float*>(sv);
   auto s_ = static_cast<const float*>(sqk);
   auto ms_ = static_cast<const float*>(mstat);
@@ -851,11 +976,11 @@ int launch_int8(const void* q8, const void* k8, const void* v, const void* sv, c
   auto o_ = static_cast<__nv_bfloat16*>(out);
   auto lse_ = static_cast<float*>(lse);
   if (D == 128) {
-    sa::flash_fwd_int8_kernel<128, VMODE, STATIC><<<grid, sa::kThreads, 0, st>>>(
-        q_, k_, v, sv_, s_, ms_, kl, o_, lse_, Lq, Lk, N, pv_block);
+    sa::flash_fwd_int8v_kernel<128, VMODE, STATIC><<<grid, sa::kThreads, 0, st>>>(
+        q_, k_, v_, sv_, s_, ms_, kl, o_, lse_, Lq, Lk, N, pv_block);
   } else if (D == 64) {
-    sa::flash_fwd_int8_kernel<64, VMODE, STATIC><<<grid, sa::kThreads, 0, st>>>(
-        q_, k_, v, sv_, s_, ms_, kl, o_, lse_, Lq, Lk, N, pv_block);
+    sa::flash_fwd_int8v_kernel<64, VMODE, STATIC><<<grid, sa::kThreads, 0, st>>>(
+        q_, k_, v_, sv_, s_, ms_, kl, o_, lse_, Lq, Lk, N, pv_block);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -864,12 +989,13 @@ int launch_int8(const void* q8, const void* k8, const void* v, const void* sv, c
 
 }  // namespace
 
-// K2 (and K2-LSE with a non-null lse [B, N, Lq]): bf16 V
+// K2 (and K2-LSE with a non-null lse [B, N, Lq]): bf16 V, on the wgmma
+// kernel
 extern "C" int sa_flash_fwd_int8_qk(const void* q8, const void* k8, const void* v,
                                     const void* sqk, const void* k_lens, void* out, void* lse,
                                     int B, int Lq, int Lk, int N, int D, void* stream) {
-  return launch_int8<sa::kVBf16, false>(q8, k8, v, nullptr, sqk, nullptr, k_lens, out, lse, B,
-                                        Lq, Lk, N, D, 0, stream);
+  return launch_fwd_d<sa::ffwd::kQkInt8>(q8, k8, v, k_lens, sqk, nullptr, out, lse, B, Lq, Lk, N,
+                                         D, 0.f, stream);
 }
 
 // K2v-qkv: int8 V [B, Lk, N, D] with per-channel scales sv [B, N, D]
@@ -877,8 +1003,8 @@ extern "C" int sa_flash_fwd_int8_qkv(const void* q8, const void* k8, const void*
                                      const void* sv, const void* sqk, const void* k_lens,
                                      void* out, void* lse, int B, int Lq, int Lk, int N, int D,
                                      void* stream) {
-  return launch_int8<sa::kVInt8, false>(q8, k8, v8, sv, sqk, nullptr, k_lens, out, lse, B, Lq,
-                                        Lk, N, D, 0, stream);
+  return launch_int8v<sa::kVInt8, false>(q8, k8, v8, sv, sqk, nullptr, k_lens, out, lse, B, Lq,
+                                         Lk, N, D, 0, stream);
 }
 
 // K2v-qkpv: as qkv, with P quantised to int8 per row against its maximum
@@ -887,17 +1013,18 @@ extern "C" int sa_flash_fwd_int8_qkpv(const void* q8, const void* k8, const void
                                       const void* sv, const void* sqk, const void* k_lens,
                                       void* out, void* lse, int B, int Lq, int Lk, int N, int D,
                                       int pv_block, void* stream) {
-  return launch_int8<sa::kPV8, false>(q8, k8, v8, sv, sqk, nullptr, k_lens, out, lse, B, Lq, Lk,
-                                      N, D, pv_block, stream);
+  return launch_int8v<sa::kPV8, false>(q8, k8, v8, sv, sqk, nullptr, k_lens, out, lse, B, Lq, Lk,
+                                       N, D, pv_block, stream);
 }
 
-// K3 with bf16 V; mstat [B*N, ceil(Lq / 64)], lse [B, N, Lq] or NULL
+// K3 with bf16 V, on the wgmma kernel; mstat [B*N, ceil(Lq / 64)], lse
+// [B, N, Lq] or NULL
 extern "C" int sa_flash_fwd_int8_static_qk(const void* q8, const void* k8, const void* v,
                                            const void* sqk, const void* mstat,
                                            const void* k_lens, void* out, void* lse, int B,
                                            int Lq, int Lk, int N, int D, void* stream) {
-  return launch_int8<sa::kVBf16, true>(q8, k8, v, nullptr, sqk, mstat, k_lens, out, lse, B, Lq,
-                                       Lk, N, D, 0, stream);
+  return launch_fwd_d<sa::ffwd::kQkInt8Static>(q8, k8, v, k_lens, sqk, mstat, out, lse, B, Lq,
+                                               Lk, N, D, 0.f, stream);
 }
 
 // K3 with int8 V and its scales
@@ -905,6 +1032,6 @@ extern "C" int sa_flash_fwd_int8_static_qkv(const void* q8, const void* k8, cons
                                             const void* sv, const void* sqk, const void* mstat,
                                             const void* k_lens, void* out, void* lse, int B,
                                             int Lq, int Lk, int N, int D, void* stream) {
-  return launch_int8<sa::kVInt8, true>(q8, k8, v8, sv, sqk, mstat, k_lens, out, lse, B, Lq, Lk,
-                                       N, D, 0, stream);
+  return launch_int8v<sa::kVInt8, true>(q8, k8, v8, sv, sqk, mstat, k_lens, out, lse, B, Lq, Lk,
+                                        N, D, 0, stream);
 }

@@ -1,15 +1,18 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: shared-memory
 // addresses, mbarriers, TMA tensor loads and bulk reductions, wgmma
-// descriptors and products, named barriers and register hand-over
-// (setmaxnreg), and the host side: TMA tensor maps and the dynamic
-// shared-memory opt-in.  Used by flash_attention.cu (K1, K1-LSE) and
-// flash_attention_bwd.cu (the fused K4).
+// descriptors and products (bf16 into fp32, s8 into s32), named barriers and
+// register hand-over (setmaxnreg), and the host side: TMA tensor maps (bf16
+// and int8, 3-D over [B, L, N * D] and 2-D over matrices) and the dynamic
+// shared-memory opt-in.  Used by flash_attention.cu (K1, K1-LSE, K2, K2-LSE
+// qk, K3-qk), flash_attention_bwd.cu (the fused K4) and probes.cu (mm_probe).
 //
 // Shared-memory operands are stored in the 128-byte swizzle that TMA's
-// CU_TENSOR_MAP_SWIZZLE_128B writes: a tile of R rows x 64 bf16 (128 bytes a
-// row) whose 16-byte chunk c of row r lies at chunk c ^ (r % 8), the tile
-// based on a 1024-byte boundary.  A D-wide operand is D / 64 such tiles
-// ("halves" for D = 128) one after the other.
+// CU_TENSOR_MAP_SWIZZLE_128B writes: a tile of R rows x 128 bytes (64 bf16
+// or 128 int8) whose 16-byte chunk c of row r lies at chunk c ^ (r % 8), the
+// tile based on a 1024-byte boundary.  A D-wide bf16 operand is D / 64 such
+// tiles ("halves" for D = 128) one after the other.  int8 rows of 64 bytes
+// (D = 64) take the 64-byte swizzle: chunk c of row r at c ^ ((r / 2) % 4),
+// 8 rows in 512 bytes.
 #pragma once
 
 #include <cuda.h>
@@ -77,6 +80,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// a 2-D box [c0, c1] (innermost first) of `map` into shared memory
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // make this thread's generic-proxy shared-memory writes visible to the async
 // proxy (wgmma operands, bulk copies)
 __device__ __forceinline__ void fence_proxy_async() {
@@ -122,18 +135,20 @@ __device__ __forceinline__ void named_bar_sync(int id, int threads) {
 // wgmma
 // --------------------------------------------------------------------------
 
-// Matrix descriptor of a 128-byte-swizzled operand in shared memory.
-// K-major (K contiguous): SBO = 1024 (8 rows of 128 bytes), LBO unused;
-// a K step of 16 elements inside a 64-element row adds 32 bytes.
-// MN-major (M or N contiguous, the transpose bit set): LBO = the stride
-// between 64-element chunks of M / N, SBO = 1024 (8 rows of K); a K step of
-// 16 rows adds 2048 bytes.
-__device__ __forceinline__ uint64_t make_desc(uint32_t smem_addr, uint32_t lbo, uint32_t sbo) {
+// Matrix descriptor of a swizzled operand in shared memory (`swizzle` bytes
+// a row: 128, or 64 for the int8 operands of D = 64).
+// K-major (K contiguous): SBO = 8 rows (1024 bytes at 128, 512 at 64), LBO
+// unused; a K step of 32 bytes (16 bf16 or 32 int8) inside a row adds 32.
+// MN-major (M or N contiguous, the transpose bit set; 16-bit types only):
+// LBO = the stride between 64-element chunks of M / N, SBO = 1024 (8 rows of
+// K); a K step of 16 rows adds 2048 bytes.
+__device__ __forceinline__ uint64_t make_desc(uint32_t smem_addr, uint32_t lbo, uint32_t sbo,
+                                              int swizzle = 128) {
   uint64_t d = 0;
   d |= static_cast<uint64_t>((smem_addr & 0x3FFFF) >> 4);
   d |= static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16;
   d |= static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32;
-  d |= static_cast<uint64_t>(1) << 62;  // 128-byte swizzle
+  d |= static_cast<uint64_t>(swizzle == 128 ? 1 : 2) << 62;  // layout: 128- or 64-byte swizzle
   return d;
 }
 
@@ -158,6 +173,12 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 
 template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
@@ -228,6 +249,49 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+#define SA_ACC8I(i)                                                                    \
+  "+r"(d[i + 0]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]),      \
+      "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+#define SA_OUT8I(i)                                                                    \
+  "=r"(d[i + 0]), "=r"(d[i + 1]), "=r"(d[i + 2]), "=r"(d[i + 3]), "=r"(d[i + 4]),      \
+      "=r"(d[i + 5]), "=r"(d[i + 6]), "=r"(d[i + 7])
+
+// D[64, 128] (+)= A . B^T on the s8 tensor cores (s32 sums), both operands
+// K-major in shared memory: 8-bit operands have no transpose bit
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : SA_ACC8I(0), SA_ACC8I(8), SA_ACC8I(16), SA_ACC8I(24), SA_ACC8I(32), SA_ACC8I(40),
+        SA_ACC8I(48), SA_ACC8I(56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64, 128] = A . B^T on the s8 tensor cores, D overwritten: the first
+// k-step of a chain.  D is an output only here, so no earlier value of it
+// is kept alive across the issue
+__device__ __forceinline__ void wgmma_s8_n128_first(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : SA_OUT8I(0), SA_OUT8I(8), SA_OUT8I(16), SA_OUT8I(24), SA_OUT8I(32), SA_OUT8I(40),
+        SA_OUT8I(48), SA_OUT8I(56)
+      : "l"(da), "l"(db), "r"(0));
+}
+
+#undef SA_ACC8I
+#undef SA_OUT8I
 #undef SA_ACC8
 
 // D[64, D] += A . B with A in registers, B a [16, D] step of an MN-major
@@ -278,19 +342,52 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// a tiled map of `rank` dims (innermost first, strides in bytes of dims 1..)
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* ptr,
+                       const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                       CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // 3-D map over a [B, L, N * D] bf16 tensor: boxes of `rows` x 64 elements
 // of one batch, 128-byte swizzle; rows past L read as zeros (never the next
 // batch's rows)
 inline bool make_map(CUtensorMap* map, const void* ptr, int B, int L, int ND, int rows) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)ND, (cuuint64_t)L, (cuuint64_t)B};
   const cuuint64_t strides[2] = {(cuuint64_t)ND * 2, (cuuint64_t)L * ND * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ptr, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// the same over a [B, L, N * D] int8 tensor: boxes of `rows` x `width`
+// bytes (128, or 64 with a 64-byte swizzle).  TMA has no signed 8-bit type;
+// the bytes move unchanged as UINT8
+inline bool make_map_s8(CUtensorMap* map, const void* ptr, int B, int L, int ND, int rows,
+                        int width) {
+  const cuuint64_t dims[3] = {(cuuint64_t)ND, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)ND, (cuuint64_t)L * ND};
+  const cuuint32_t box[3] = {(cuuint32_t)width, (cuuint32_t)rows, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, ptr, dims, strides, box,
+                    width == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+// 2-D map over a row-major [rows, cols] matrix of `elem_bytes`-byte elements
+// (bf16 or int8): boxes of box_rows x box_cols; parts past the edges read as
+// zeros
+inline bool make_map_2d(CUtensorMap* map, const void* ptr, int rows, int cols, int elem_bytes,
+                        int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  return encode_map(map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                         : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                    2, ptr, dims, strides, box, swizzle);
 }
 
 }  // namespace sa

@@ -12,14 +12,31 @@
 //   kScaled  bf16(float(acc) * 0.0039f)                     (k_scaled)
 // What bounds it on the H100: at the scripts' [21504, 1536] . [1536, 1536]
 // the 1.0e11 operations take 0.103 ms at the dense bf16 peak (0.051 ms
-// int8) against 0.14 GB of operands (0.041 ms): compute-bound.  Design: a
-// 128 x 128 output tile per block of 8 warps (2 x 4 warps of 64 x 32),
-// mma.sync (bf16 m16n8k16 into fp32, s8 m16n8k32 into s32), K in steps of
-// 64 bytes a row staged by cp.async in two stages.  mma.sync wants B
-// K-major: the bf16 B fragments come from the row-major [K, N] tile
-// through ldmatrix.trans; 8-bit elements have no ldmatrix.trans, so the
-// int8 tile is transposed in shared memory first, 4 x 4 bytes a step with
-// __byte_perm.  wgmma and TMA are later work.
+// int8) against 0.14 GB of operands (0.041 ms): compute-bound.  The first
+// design (8 warps of mma.sync, two cp.async stages, three block barriers a
+// stage) ran at a fifth of the bf16 peak.  This one is Hopper's own
+// (`mm_probe_kernel`):
+//
+// - a block owns a 128 x 128 output tile: two consumer warpgroups of 64 rows
+//   run wgmma m64n128 (bf16 k16 steps into fp32, or s8 k32 steps into s32)
+//   on stages of 128 bytes of K a row (64 bf16, 128 int8), with the sums in
+//   registers for the whole K loop; one producer thread keeps a 4-stage TMA
+//   ring of A and B tiles in flight on mbarriers (2-D tensor maps, 128-byte
+//   swizzle, parts past M, N or K read as zeros);
+// - A [M, K] is K-major as wgmma wants it.  bf16 B [K, N] is MN-major: two
+//   [64 k, 64 n] boxes a stage and the descriptor's transpose bit, as K1
+//   reads V.  8-bit operands have no transpose bit, so int8 B must reach the
+//   tensor cores as [n, k]: TMA lands the raw [128 k, 128 n] tile unswizzled
+//   beside the stage, and the producer warpgroup's three idle warps turn it
+//   into the swizzled [128 n, 128 k] operand (4 x 4 bytes a thread with
+//   __byte_perm; lane l takes n-word l and k-block (l / 2) ^ c, so that its
+//   loads and its stores hit 32 distinct banks) while the consumers run
+//   earlier stages, then signal the stage's `full` mbarrier.  Cost: 16 KB
+//   read and 16 KB written in shared memory per 16 KB stage (beside the
+//   consumers' 48 KB of operand reads), 48 KB of ring a stage (192 KB);
+// - the epilogue works in registers on the accumulator layout (int8
+//   outputs exact, bf16 rounded once), stages the tile in shared memory and
+//   writes it out in coalesced 16-byte stores.
 //
 // dots_probe replaces scripts/bench_attn_blocks.py:dots_only (:61) and
 // int8_dots_only (:119): the flash grid with no softmax, out [BH, L, D] =
@@ -27,142 +44,62 @@
 // bf16(int32(q8 . k8^T) >> 7) . v (int8 q8, k8), fp32 sums, bf16 out; v is
 // bf16.  k8 is read row-major [L, D] (the TPU's [D, L] pre-transpose is a
 // layout of its matrix unit).  It is its own kernel on attention_common.cuh's
-// tiles and fragments (K1's first design: 64 query rows, 64-key tiles), so the
-// int8 flash template and its register budget stay as they are.  Bound:
-// 4 L^2 D operations per (batch, head), compute-bound like K1 / K2.
+// tiles and fragments (K1's first design: 64 query rows, 64-key tiles), so
+// it measures what the mma.sync kernels issued.  Bound: 4 L^2 D operations
+// per (batch, head), compute-bound like K1 / K2.
 #include <type_traits>
 
 #include "attention_common.cuh"
+#include "hopper_common.cuh"
 
 namespace sa {
 namespace probe {
 
-constexpr int kBM = 128, kBN = 128;  // output tile
-constexpr int kBKB = 64;             // K bytes per stage and row (32 bf16, 64 int8)
-constexpr int kWarps = 8, kThreadsMM = kWarps * 32;
-constexpr int kAPitch = kBKB + 16;     // bytes of an A row in shared memory
-constexpr int kBPitch16 = kBN + 8;     // elements of a bf16 B row
-constexpr int kBRawPitch = kBN + 16;   // bytes of an int8 B row as loaded
-constexpr int kBtPitch = kBKB + 4;     // bytes of a transposed int8 B row (17 words)
+constexpr int kBM = 128, kBN = 128;  // output tile: two consumer warpgroups of 64 rows
+constexpr int kBKB = 128;            // K bytes per stage and row (64 bf16, 128 int8)
+constexpr int kStagesMM = 4;
+constexpr int kConsumersMM = 256;
+constexpr int kTransposers = 96;     // the producer warpgroup's warps 1-3 (int8)
+constexpr int kThreadsMM = 384;      // two consumer warpgroups, one producer warpgroup
+constexpr int kTile = kBM * kBKB;    // 16 KB: an A, B or raw int8 B stage
 
 enum Epilogue { kBf16 = 0, kWrap = 1, kRequant = 2, kScaled = 3 };
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
+// shared-memory layout (byte offsets from a 1024-byte boundary): the A and B
+// rings, int8's raw B ring, the mbarriers
+template <bool INT8>
+struct MMSmem {
+  static constexpr int off_a = 0;
+  static constexpr int off_b = off_a + kStagesMM * kTile;
+  static constexpr int off_raw = off_b + kStagesMM * kTile;
+  static constexpr int off_bar = off_raw + (INT8 ? kStagesMM * kTile : 0);
+  static constexpr int bytes = off_bar + 3 * kStagesMM * 8;
+  static constexpr int launch_bytes = bytes + 1024;  // room to align the base
+};
 
-// A rows [m0, m0 + 128), bytes [kb0, kb0 + 64) of each (rows >= M zero-filled)
-__device__ __forceinline__ void load_a(char* As, const char* a, int M, int row_bytes, int m0,
-                                       int kb0) {
-  for (int c = threadIdx.x; c < kBM * 4; c += kThreadsMM) {
-    const int r = c >> 2, x = (c & 3) * 16;
-    const bool ok = m0 + r < M;
-    const char* src = a + (ok ? (long long)(m0 + r) * row_bytes : 0) + kb0 + x;
-    cp_async16(As + r * kAPitch + x, src, ok);
-  }
-}
-
-// B rows [k0, k0 + 64 / ES), columns [n0, n0 + 128) (columns >= N
-// zero-filled; N % 16 == 0, so a 16-byte chunk is wholly in or out)
-template <int ES>
-__device__ __forceinline__ void load_b(char* Bs, const char* b, int N, int k0, int n0,
-                                       int pitch) {
-  constexpr int kRows = kBKB / ES, kChunks = kBN * ES / 16;
-  for (int c = threadIdx.x; c < kRows * kChunks; c += kThreadsMM) {
-    const int r = c / kChunks, x = (c % kChunks) * 16;
-    const bool ok = n0 * ES + x < N * ES;
-    const char* src = b + (long long)(k0 + r) * N * ES + (ok ? n0 * ES + x : 0);
-    cp_async16(Bs + r * pitch + x, src, ok);
-  }
-}
-
-// raw int8 B [64 k][128 n] -> Bt [128 n][64 k]: each thread turns 4 x 4
-// bytes around in registers; a warp takes 4 k-blocks x 8 n-blocks, which
-// keeps the transposed stores free of bank conflicts (17-word rows)
-__device__ __forceinline__ void transpose_b(char* Bt, const char* raw) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int blk = warp + i * kWarps;
-    const int kb = (blk >> 2) * 4 + (lane >> 3), nb = (blk & 3) * 8 + (lane & 7);
-    const char* src = raw + kb * 4 * kBRawPitch + nb * 4;
-    const uint32_t w0 = ld32(src), w1 = ld32(src + kBRawPitch);
-    const uint32_t w2 = ld32(src + 2 * kBRawPitch), w3 = ld32(src + 3 * kBRawPitch);
+// raw int8 B [128 k][128 n] (unswizzled) -> the swizzled K-major operand
+// [128 n][128 k]: 16-byte chunk c of row n at chunk c ^ (n % 8).  Warp `tw`
+// (0-2) of the transposers takes the k-block sweeps c = tw, tw + 3, ...;
+// lane l turns the 4 x 4 bytes of n-word l and k-block (l / 2) ^ c around
+// in registers (loads: one row, 32 words; stores: (l % 2, k-block) give 32
+// distinct banks under the swizzle)
+__device__ __forceinline__ void transpose_stage(unsigned char* bt, const unsigned char* raw,
+                                                int tw) {
+  const int lane = threadIdx.x & 31;
+  for (int c = tw; c < 32; c += 3) {
+    const int kb = (lane >> 1) ^ c;
+    const unsigned char* src = raw + kb * 4 * kBN + lane * 4;
+    const uint32_t w0 = ld32(src), w1 = ld32(src + kBN);
+    const uint32_t w2 = ld32(src + 2 * kBN), w3 = ld32(src + 3 * kBN);
     const uint32_t t0 = __byte_perm(w0, w1, 0x5140), t1 = __byte_perm(w0, w1, 0x7362);
     const uint32_t t2 = __byte_perm(w2, w3, 0x5140), t3 = __byte_perm(w2, w3, 0x7362);
-    char* dst = Bt + nb * 4 * kBtPitch + kb * 4;
-    *reinterpret_cast<uint32_t*>(dst) = __byte_perm(t0, t2, 0x5410);
-    *reinterpret_cast<uint32_t*>(dst + kBtPitch) = __byte_perm(t0, t2, 0x7632);
-    *reinterpret_cast<uint32_t*>(dst + 2 * kBtPitch) = __byte_perm(t1, t3, 0x5410);
-    *reinterpret_cast<uint32_t*>(dst + 3 * kBtPitch) = __byte_perm(t1, t3, 0x7632);
-  }
-}
-
-// this warp's 64 x 32 of the tile over one stage: two k16 steps (bf16)
-__device__ __forceinline__ void mma_stage_bf16(float (&acc)[4][4][4], const char* As,
-                                               const char* Bs, int wm, int wn) {
-  constexpr int kAP = kAPitch / 2;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const unsigned short* A = reinterpret_cast<const unsigned short*>(As);
-  const unsigned short* B = reinterpret_cast<const unsigned short*>(Bs);
+    const uint32_t col[4] = {__byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
+                             __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632)};
 #pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
-    uint32_t af[4][4], bf[4][2];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      const unsigned short* ar = A + (wm * 64 + mt * 16 + g) * kAP + ks * 16 + t * 2;
-      af[mt][0] = ld32(ar);
-      af[mt][1] = ld32(ar + 8 * kAP);
-      af[mt][2] = ld32(ar + 8);
-      af[mt][3] = ld32(ar + 8 * kAP + 8);
-    }
-#pragma unroll
-    for (int np = 0; np < 2; ++np) {
-      // lanes 0-15 address k rows 0-15 of n-tile 2 np, lanes 16-31 of 2 np + 1
-      uint32_t r[4];
-      ldmatrix_x4_trans(r, B + (ks * 16 + (lane & 15)) * kBPitch16 + wn * 32 + np * 16 +
-                               (lane >> 4) * 8);
-      bf[2 * np][0] = r[0];
-      bf[2 * np][1] = r[1];
-      bf[2 * np + 1][0] = r[2];
-      bf[2 * np + 1][1] = r[3];
-    }
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) mma_bf16_16816(acc[mt][nt], af[mt], bf[nt][0], bf[nt][1]);
-    }
-  }
-}
-
-// the same for int8: two k32 steps, B from the transposed tile
-__device__ __forceinline__ void mma_stage_s8(int (&acc)[4][4][4], const char* As,
-                                             const char* Bt, int wm, int wn) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
-    uint32_t af[4][4], bf[4][2];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      const char* ar = As + (wm * 64 + mt * 16 + g) * kAPitch + ks * 32 + t * 4;
-      af[mt][0] = ld32(ar);
-      af[mt][1] = ld32(ar + 8 * kAPitch);
-      af[mt][2] = ld32(ar + 16);
-      af[mt][3] = ld32(ar + 8 * kAPitch + 16);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const char* br = Bt + (wn * 32 + nt * 8 + g) * kBtPitch + ks * 32 + t * 4;
-      bf[nt][0] = ld32(br);
-      bf[nt][1] = ld32(br + 16);
-    }
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) mma_s8_16832(acc[mt][nt], af[mt], bf[nt][0], bf[nt][1]);
+    for (int j = 0; j < 4; ++j) {
+      const int n = lane * 4 + j;
+      const int off = n * kBKB + ((((kb >> 2) ^ (n & 7)) << 4) | ((kb & 3) << 2));
+      *reinterpret_cast<uint32_t*>(bt + off) = col[j];
     }
   }
 }
@@ -187,67 +124,118 @@ __device__ __forceinline__ void store_pair(void* out, long long idx, Acc x, Acc 
   }
 }
 
+// a [M, K] (K-major) and b [K, N] through the tensor maps tm_a, tm_b (raw
+// [128 k, 128 n] boxes for int8, [64 k, 64 n] swizzled ones for bf16)
 template <int EPI>
-__global__ void __launch_bounds__(kThreadsMM)
-mm_probe_kernel(const void* __restrict__ a, const void* __restrict__ b, void* __restrict__ out,
-                int M, int N, int K) {
+__global__ void __launch_bounds__(kThreadsMM, 1)
+mm_probe_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+                void* __restrict__ out, int M, int N, int K) {
   constexpr bool kInt8 = EPI != kBf16;
   constexpr int ES = kInt8 ? 1 : 2;  // bytes of an input element
-  constexpr int kBPitch = kInt8 ? kBRawPitch : kBPitch16 * 2;
-  constexpr int kBRows = kBKB / ES;
+  using S = MMSmem<kInt8>;
   using Acc = std::conditional_t<kInt8, int, float>;
-  __shared__ __align__(16) char As[2][kBM * kAPitch];
-  __shared__ __align__(16) char Bs[2][kBRows * kBPitch];
-  __shared__ __align__(16) char Bt[kInt8 ? kBN * kBtPitch : 16];
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const char* ab = static_cast<const char*>(a);
-  const char* bb = static_cast<const char*>(b);
-  const int nk = K * ES / kBKB;
-
-  Acc acc[4][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0;
+  const int nk = (K * ES + kBKB - 1) / kBKB;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + S::off_bar);  // A and B of stage s ready
+  uint64_t* empty = full + kStagesMM;     // both consumer warpgroups are done with stage s
+  uint64_t* raw_full = empty + kStagesMM;  // int8: the raw B tile of stage s landed
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStagesMM; ++s) {
+      mbar_init(&full[s], 1 + (kInt8 ? kTransposers : 0));
+      mbar_init(&empty[s], kConsumersMM);
+      mbar_init(&raw_full[s], 1);
     }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= 8) {
+    if (warp == 8) {
+      // ---------------- one thread issues every load
+      if (lane == 0) {
+        for (int kt = 0; kt < nk; ++kt) {
+          const int s = kt % kStagesMM;
+          mbar_wait(&empty[s], ((kt / kStagesMM) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[s], kInt8 ? kTile : 2 * kTile);
+          tma_load_2d(sm + S::off_a + s * kTile, &tm_a, &full[s], kt * (kBKB / ES), m0);
+          if constexpr (kInt8) {
+            mbar_arrive_expect_tx(&raw_full[s], kTile);
+            tma_load_2d(sm + S::off_raw + s * kTile, &tm_b, &raw_full[s], n0, kt * kBKB);
+          } else {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              tma_load_2d(sm + S::off_b + s * kTile + c * (kTile / 2), &tm_b, &full[s],
+                          n0 + 64 * c, kt * 64);
+            }
+          }
+        }
+      }
+    } else if constexpr (kInt8) {
+      // ---------------- warps 9-11 turn each raw int8 B tile into the operand
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kStagesMM;
+        mbar_wait(&raw_full[s], (kt / kStagesMM) & 1);
+        transpose_stage(sm + S::off_b + s * kTile, sm + S::off_raw + s * kTile, warp - 9);
+        fence_proxy_async();  // the generic-proxy stores, visible to wgmma
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
   }
 
-  load_a(As[0], ab, M, K * ES, m0, 0);
-  load_b<ES>(Bs[0], bb, N, 0, n0, kBPitch);
-  cp_async_commit();
+  // ---------------- two consumer warpgroups of 64 rows each
+  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t = lane & 3;
+  Acc acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
   for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < nk) {  // the next stage is in flight during this one
-      load_a(As[st ^ 1], ab, M, K * ES, m0, (kt + 1) * kBKB);
-      load_b<ES>(Bs[st ^ 1], bb, N, (kt + 1) * kBRows, n0, kBPitch);
+    const int s = kt % kStagesMM;
+    mbar_wait(&full[s], (kt / kStagesMM) & 1);
+    const uint32_t a_wg = smem_u32(sm + S::off_a + s * kTile) + wg * 64 * kBKB;
+    const uint32_t bs = smem_u32(sm + S::off_b + s * kTile);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = make_desc(a_wg + kk * 32, 16, 1024);
+      if constexpr (kInt8) {
+        wgmma_s8_n128(acc, da, make_desc(bs + kk * 32, 16, 1024), 1);
+      } else {
+        // B MN-major: two 64-column chunks 8 KB apart, k16 steps of 2 KB
+        wgmma_ss_n128<0, 1>(acc, da, make_desc(bs + kk * 16 * kBKB, kTile / 2, 1024), 1);
+      }
     }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if constexpr (kInt8) {
-      transpose_b(Bt, Bs[st]);
-      __syncthreads();
-      mma_stage_s8(acc, As[st], Bt, wm, wn);
-    } else {
-      mma_stage_bf16(acc, As[st], Bs[st], wm, wn);
-    }
-    __syncthreads();
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done
+    if (kt > 0) mbar_arrive(&empty[(kt - 1) % kStagesMM]);
   }
+  wgmma_wait<0>();
+  fence_regs(acc);
 
+  // epilogue: the tile through shared memory (the ring is free once both
+  // warpgroups are past their last product), then 16-byte stores
+  named_bar_sync(1, kConsumersMM);
+  constexpr int OES = (EPI == kBf16 || EPI == kScaled) ? 2 : 1;  // bytes of an output
+  constexpr int kPitchO = kBN * OES + 16;
+  unsigned char* st = sm + wg * 64 * kPitchO;
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int row = m0 + wm * 64 + mt * 16 + g;
-      const int col = n0 + wn * 32 + nt * 8 + t * 2;
-      if (col >= N) continue;
-      if (row < M) store_pair<EPI>(out, (long long)row * N + col, acc[mt][nt][0], acc[mt][nt][1]);
-      if (row + 8 < M)
-        store_pair<EPI>(out, (long long)(row + 8) * N + col, acc[mt][nt][2], acc[mt][nt][3]);
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int c = 8 * j + 2 * t, r = wl * 16 + g;
+    store_pair<EPI>(st + r * kPitchO, c, acc[4 * j], acc[4 * j + 1]);
+    store_pair<EPI>(st + (r + 8) * kPitchO, c, acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  named_bar_sync(2 + wg, 128);
+  constexpr int kChunks = kBN * OES / 16;  // 16-byte chunks of a row
+  for (int i = threadIdx.x & 127; i < 64 * kChunks; i += 128) {
+    const int r = i / kChunks, ch = i % kChunks;
+    const int row = m0 + wg * 64 + r, col = n0 + ch * (16 / OES);
+    // N % 16 == 0: a chunk is wholly in or out
+    if (row < M && col < N) {
+      *reinterpret_cast<uint4*>(static_cast<char*>(out) + ((long long)row * N + col) * OES) =
+          *reinterpret_cast<const uint4*>(st + r * kPitchO + ch * 16);
     }
   }
 }
@@ -355,28 +343,36 @@ dots_probe_kernel(const void* __restrict__ q, const void* __restrict__ k,
 extern "C" int sa_mm_probe(const void* a, const void* b, void* out, int M, int N, int K,
                            int epilogue, void* stream) {
   namespace p = sa::probe;
-  if (M <= 0 || N <= 0 || K <= 0 || N % 16 || K % 64) {
+  if (M <= 0 || N <= 0 || K <= 0 || N % 16 || K % 64 || epilogue < 0 || epilogue > 3) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const bool int8 = epilogue != p::kBf16;
+  const int es = int8 ? 1 : 2;
+  CUtensorMap ma, mb;
+  const bool ok =
+      sa::make_map_2d(&ma, a, M, K, es, p::kBM, p::kBKB / es, CU_TENSOR_MAP_SWIZZLE_128B) &&
+      (int8 ? sa::make_map_2d(&mb, b, K, N, 1, p::kBKB, p::kBN, CU_TENSOR_MAP_SWIZZLE_NONE)
+            : sa::make_map_2d(&mb, b, K, N, 2, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((N + p::kBN - 1) / p::kBN, (M + p::kBM - 1) / p::kBM);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto kernel, int smem) {
+    int rc;
+    if ((rc = sa::allow_smem(kernel, smem))) return rc;
+    kernel<<<grid, p::kThreadsMM, smem, st>>>(ma, mb, out, M, N, K);
+    return static_cast<int>(cudaGetLastError());
+  };
+  constexpr int s16 = p::MMSmem<false>::launch_bytes, s8 = p::MMSmem<true>::launch_bytes;
   switch (epilogue) {
     case p::kBf16:
-      p::mm_probe_kernel<p::kBf16><<<grid, p::kThreadsMM, 0, st>>>(a, b, out, M, N, K);
-      break;
+      return run(p::mm_probe_kernel<p::kBf16>, s16);
     case p::kWrap:
-      p::mm_probe_kernel<p::kWrap><<<grid, p::kThreadsMM, 0, st>>>(a, b, out, M, N, K);
-      break;
+      return run(p::mm_probe_kernel<p::kWrap>, s8);
     case p::kRequant:
-      p::mm_probe_kernel<p::kRequant><<<grid, p::kThreadsMM, 0, st>>>(a, b, out, M, N, K);
-      break;
-    case p::kScaled:
-      p::mm_probe_kernel<p::kScaled><<<grid, p::kThreadsMM, 0, st>>>(a, b, out, M, N, K);
-      break;
+      return run(p::mm_probe_kernel<p::kRequant>, s8);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return run(p::mm_probe_kernel<p::kScaled>, s8);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // out [BH, L, D] bf16 from q, k [BH, L, D] (bf16, or int8 with int8 != 0)

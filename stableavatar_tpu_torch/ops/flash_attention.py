@@ -2,7 +2,8 @@
 with the split-pair rotation inside), K2 (int8 Q.K^T forward), K2v (K2 with
 int8 V: "qkv", "qkpv"), K2-LSE (K2 / K2v with the LSE output), K3 (K2 /
 K2v-qkv with the static-bound softmax) and K4 (the bf16 backward, with its
-rope branch, K4a-rope / K4b-rope).
+rope branch, K4a-rope / K4b-rope).  K1, K2, K2-LSE qk and K3-qk run one
+wgmma / TMA kernel; the int8-V variants keep an mma.sync one.
 
 Port of `stableavatar_tpu/ops/flash_attention.py`.  On a CUDA tensor
 `flash_attention` launches a hand-written Hopper kernel
@@ -23,7 +24,10 @@ package's `flash_attention(rope=)` does; `ops/attention.py` rotates before
 K1 instead, as the JAX package's `attention()` does.
 
 Semantics kept from the JAX package: q/k/v [B, L, N, D]; keys at or past
-`k_lens[b]` are masked with -1e30; the online softmax runs in base 2 with
+`k_lens[b]` are masked with -1e30 (a batch with `k_lens[b] == 0` gets zero
+rows and the LSE of an empty row, kernels and plain versions alike: the
+JAX package's online kernels give the mean of V over their zero-padded key
+blocks there, which depends on the block); the online softmax runs in base 2 with
 log2(e) folded into the scale; P is rounded to the value dtype before P.V;
 the row sum is guarded with max(l, 1e-30).  For `quant != "none"` q and k
 are roped (split-pair layout) in fp32 and quantised to int8 with ONE absmax
@@ -47,6 +51,7 @@ ever materialised (66 GB at the 21,504-token DiT window).
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Optional
 
@@ -140,6 +145,14 @@ def _online_softmax_plain(logits_fn, k_lens, lq, lk, block_k, out_shape,
         acc_out[:, :, q0:q1] = acc / l
         if with_lse:
             lse[:, :, q0:q1] = (m * LN2 + torch.log(l))[..., 0]
+    # a batch with no valid key: zero rows and the LSE of an empty row, as
+    # the kernels write them (every logit is -1e30, so the loop above gave
+    # the mean of V)
+    empty = klens <= 0
+    if bool(empty.any()):
+        acc_out[empty] = 0.0
+        if with_lse:
+            lse[empty] = NEG_INF * LN2 + math.log(1e-30)
     return (acc_out, lse) if with_lse else acc_out
 
 

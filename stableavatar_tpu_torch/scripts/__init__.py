@@ -2,7 +2,9 @@
 `python -m stableavatar_tpu_torch.scripts.<name>`: counterparts of the JAX
 package's `scripts/microbench_pallas_int8.py` (S1),
 `scripts/microbench_pallas_int8_variants.py` (S2) and
-`scripts/bench_attn_blocks.py` (S3) on the kernels of `ops/probes.py`.
+`scripts/bench_attn_blocks.py` (S3) on the kernels of `ops/probes.py`, and
+of its `scripts/microbench_int8.py` (library GEMMs: bf16, int8 and W8A8
+chains) as `microbench_int8_linear`.
 
 Their timing replaces the JAX scripts' RPC-floor subtraction with CUDA
 events: one warm-up run of the chained function, then one run between two

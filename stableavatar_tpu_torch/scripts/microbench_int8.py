@@ -1,4 +1,4 @@
-"""Does a hand-written int8 mma.sync GEMM run at ~2x bf16 on the H100?
+"""Does a hand-written int8 wgmma GEMM run at ~2x bf16 on the H100?
 
 Counterpart of the JAX package's `scripts/microbench_pallas_int8.py` (S1):
 the same [M, K] . [K, N] product (21504 x 1536 . 1536 x 1536), chained CH

@@ -43,12 +43,46 @@ def test_k1_plain_matches_pallas():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("quant,rope", [("qk", False), ("qk", True), ("qkv", False),
-                                        ("qkpv", False)])
-def test_k2_plain_matches_pallas(quant, rope):
+# the wgmma kernel's tile edges (128 query rows, 128-key tiles): Lq 200, Lk
+# 130 and 257, k_lens ending inside a tile and 0, D 64 and 128
+EDGE_CASES = [(200, 130, 64, (77, 0)), (200, 257, 128, (0, 200)), (200, 257, 64, (131, 257))]
+
+
+def _edge(quant, case):
+    lq, lk, d, kl = case
+    return f"{quant}-edge-lq{lq}-lk{lk}-d{d}-klens{kl[0]}_{kl[1]}"
+
+
+def _edge_inputs(seed, case):
+    """(q, k, v, k_lens) of an edge case; None: the shapes of tests/
+    test_fastpath.py:121 with K_LENS"""
+    if case is None:
+        return (*_qkv(seed, lq=384), K_LENS)
+    lq, lk, d, kl = case
+    return (*_qkv(seed, lq=lq, lk=lk, d=d), np.array(kl, np.int32))
+
+
+def _check_rows(got, want, k_lens, rel=1e-3, atol=1e-2):
+    """got against want on the batches with a valid key; a batch with none
+    is zero rows in the port (the JAX online kernels average V over their
+    zero-padded key blocks there)."""
+    live = k_lens > 0
+    assert not np.any(got[~live])
+    assert rel_l2(got[live], want[live]) < rel
+    assert np.max(np.abs(got[live] - want[live])) < atol
+
+
+@pytest.mark.parametrize("quant,rope,edge", [
+    pytest.param("qk", False, None, id="qk-False"), pytest.param("qk", True, None, id="qk-True"),
+    pytest.param("qkv", False, None, id="qkv-False"),
+    pytest.param("qkpv", False, None, id="qkpv-False"),
+    *(pytest.param("qk", False, e, id=_edge("qk", e)) for e in EDGE_CASES)])
+def test_k2_plain_matches_pallas(quant, rope, edge):
     """Same int8 operands on both sides (the prep is bit-identical), so the
-    only difference is fp32 summation order."""
-    q, k, v = _qkv(3, lq=384)
+    only difference is fp32 summation order; also at the wgmma kernel's tile
+    edges."""
+    q, k, v, k_lens = _edge_inputs(3, edge)
+    d = q.shape[-1]
     jrope = trope = None
     if rope:
         freqs = jfreqs((6, 8, 8), 64)
@@ -56,17 +90,15 @@ def test_k2_plain_matches_pallas(quant, rope):
         trope = pack_split(rope_freqs_3d((6, 8, 8), 64))
     with pallas_interpret():
         want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                                   k_lens=jnp.asarray(K_LENS), quant=quant, rope=jrope,
+                                   k_lens=jnp.asarray(k_lens), quant=quant, rope=jrope,
                                    block_q=128, block_k=128, static_max=False)
-    q8, k8, sqk = tfa.prepare_int8(t(q), t(k), trope, 64 ** -0.5)
+    q8, k8, sqk = tfa.prepare_int8(t(q), t(k), trope, d ** -0.5)
     v_in, sv = t(v), None
     if quant != "qk":
         v_in, sv = tfa.quantize_v(v_in)
-    got = tfa._flash_int8_plain(q8, k8, v_in, sqk, t(K_LENS), quant=quant, sv=sv,
+    got = tfa._flash_int8_plain(q8, k8, v_in, sqk, t(k_lens), quant=quant, sv=sv,
                                 block_k=128, out_dtype=torch.float32).numpy()
-    want = np.asarray(want)
-    assert rel_l2(got, want) < 1e-3
-    assert np.max(np.abs(got - want)) < 1e-2
+    _check_rows(got, np.asarray(want), k_lens)
 
 
 def test_k2_prep_matches_jax():
@@ -243,24 +275,32 @@ def test_int8_flash_refuses_grad():
 STATS_K_LENS = np.array([1100, 1300], np.int32)
 
 
-@pytest.mark.parametrize("quant", ["qk", "qkv", "qkpv"])
-def test_k2_lse_plain_matches_pallas_with_stats(quant):
+@pytest.mark.parametrize("quant,edge", [
+    pytest.param("qk", None, id="qk"), pytest.param("qkv", None, id="qkv"),
+    pytest.param("qkpv", None, id="qkpv"),
+    *(pytest.param("qk", e, id=_edge("qk", e)) for e in EDGE_CASES)])
+def test_k2_lse_plain_matches_pallas_with_stats(quant, edge):
     """K2-LSE: the port's `flash_attention_with_stats(quant=...)` (plain
     version on CPU tensors) against the JAX function with its Pallas int8
     kernel in interpret mode, at the JAX defaults (block 1024, so "qkpv"
-    quantises P on two key blocks) with ragged keys; the K2 test's
-    tolerance on the output, 1e-3 on the LSE."""
-    q, k, v = _qkv(21, lq=256, lk=1300)
+    quantises P on two key blocks) with ragged keys, and at the wgmma
+    kernel's tile edges; the K2 test's tolerance on the output, 1e-3 on the
+    LSE (an empty row's, -1e30 ln 2 + log of its sum, rounds alike in fp32
+    on both sides)."""
+    if edge is None:
+        q, k, v = _qkv(21, lq=256, lk=1300)
+        k_lens = STATS_K_LENS
+    else:
+        q, k, v, k_lens = _edge_inputs(21, edge)
+    b, lq, n, _ = q.shape
     with pallas_interpret():
         want, want_lse = jfa.flash_attention_with_stats(
-            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), k_lens=jnp.asarray(STATS_K_LENS),
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), k_lens=jnp.asarray(k_lens),
             quant=quant, static_max=False)
-    got, lse = tfa.flash_attention_with_stats(t(q), t(k), t(v), k_lens=t(STATS_K_LENS),
+    got, lse = tfa.flash_attention_with_stats(t(q), t(k), t(v), k_lens=t(k_lens),
                                               quant=quant, static_max=False)
-    assert got.dtype == torch.float32 and lse.shape == (2, 256, 2) and lse.dtype == torch.float32
-    want = np.asarray(want)
-    assert rel_l2(got.numpy(), want) < 1e-3
-    assert np.max(np.abs(got.numpy() - want)) < 1e-2
+    assert got.dtype == torch.float32 and lse.shape == (b, lq, n) and lse.dtype == torch.float32
+    _check_rows(got.numpy(), np.asarray(want), k_lens)
     assert np.max(np.abs(lse.numpy() - np.asarray(want_lse))) <= 1e-3
 
 
@@ -322,24 +362,27 @@ def test_k5_plain_matches_pallas_bf16():
 
 
 
-@pytest.mark.parametrize("quant", ["qk", "qkv"])
-def test_k3_plain_matches_pallas(quant):
+@pytest.mark.parametrize("quant,edge", [
+    pytest.param("qk", None, id="qk"), pytest.param("qkv", None, id="qkv"),
+    *(pytest.param("qk", e, id=_edge("qk", e)) for e in EDGE_CASES)])
+def test_k3_plain_matches_pallas(quant, edge):
     """Plain K3 against the Pallas static-bound kernel in interpret mode at
     block 128 (tests/test_fastpath.py:143): the same int8 operands and the
     same bound per 128-row query block, so the outputs differ by fp32
-    summation order only; the LSE (bound-independent) to 1e-4 as there."""
-    q, k, v = _qkv(5, lq=256)
-    kw = dict(k_lens=jnp.asarray(K_LENS), quant=quant, block_q=128, block_k=128,
+    summation order only; the LSE (bound-independent) to 1e-4 as there.  At
+    the tile edges a batch with no valid key is zero rows on both sides."""
+    q, k, v, k_lens = _edge_inputs(5, edge if edge else (256, 384, 64, tuple(K_LENS)))
+    kw = dict(k_lens=jnp.asarray(k_lens), quant=quant, block_q=128, block_k=128,
               static_max=True)
     with pallas_interpret():
         want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw)
         _, want_lse = jfa.flash_attention_with_stats(jnp.asarray(q), jnp.asarray(k),
                                                      jnp.asarray(v), **kw)
-    q8, k8, sqk = tfa.prepare_int8(t(q), t(k), None, 64 ** -0.5)
+    q8, k8, sqk = tfa.prepare_int8(t(q), t(k), None, q.shape[-1] ** -0.5)
     v_in, sv = t(v), None
     if quant == "qkv":
         v_in, sv = tfa.quantize_v(v_in)
-    got, lse = tfa._flash_int8_static_plain(q8, k8, v_in, sqk, t(K_LENS), quant=quant, sv=sv,
+    got, lse = tfa._flash_int8_static_plain(q8, k8, v_in, sqk, t(k_lens), quant=quant, sv=sv,
                                             block_q=128, out_dtype=torch.float32, with_lse=True)
     want = np.asarray(want)
     assert rel_l2(got.numpy(), want) < 1e-3
@@ -402,6 +445,60 @@ def test_int8_wrapper_routes_variants_on_cpu(monkeypatch):
     monkeypatch.setattr(tfa, "STATIC_MAX", True)
     assert torch.equal(tfa.flash_attention(q, k, v, quant="qk"), cases[2][1])
     assert not any(tfa.launch_counts.values())
+
+
+def _entry_body(src, name):
+    """The body of the C entry point `name` in a CUDA source."""
+    start = src.index(f'extern "C" int {name}(')
+    return src[start:src.index("\n}\n", start)]
+
+
+def test_int8_kernel_entry_points_route_by_variant(monkeypatch):
+    """`_flash_int8_cuda` (the CUDA path, its launch recorded here) sends
+    K2, K2-LSE qk and K3-qk to the entry points that launch the wgmma / TMA
+    kernel (`launch_fwd_d` in csrc/flash_attention.cu), and the int8-V
+    variants to the mma.sync template (`launch_int8v`), which keeps no bf16-V
+    instance."""
+    from stableavatar_tpu_torch.ops import cuda_lib
+
+    calls = []
+    monkeypatch.setattr(cuda_lib, "launch", lambda name, *args: calls.append((name, args)))
+    monkeypatch.setattr(tfa, "launch_counts", dict.fromkeys(tfa.launch_counts, 0))
+    q, k, v = (t(x) for x in _qkv(14, lq=200, lk=130))
+    q8, k8, sqk = tfa.prepare_int8(q, k, None, 64 ** -0.5)
+    v16, (v8, sv) = v.bfloat16(), tfa.quantize_v(v)
+    mstat = tfa.static_bound(q8, k8, sqk)
+    cases = [(dict(v=v16), False, "sa_flash_fwd_int8_qk", "flash_fwd_int8_qk"),
+             (dict(v=v16), True, "sa_flash_fwd_int8_qk", "flash_fwd_int8_qk_lse"),
+             (dict(v=v16, mstat=mstat), False, "sa_flash_fwd_int8_static_qk",
+              "flash_fwd_int8_static_qk"),
+             (dict(v=v16, mstat=mstat), True, "sa_flash_fwd_int8_static_qk",
+              "flash_fwd_int8_static_qk"),
+             (dict(v=v8, quant="qkv", sv=sv), True, "sa_flash_fwd_int8_qkv",
+              "flash_fwd_int8_qkv_lse"),
+             (dict(v=v8, quant="qkpv", sv=sv), False, "sa_flash_fwd_int8_qkpv",
+              "flash_fwd_int8_qkpv"),
+             (dict(v=v8, quant="qkv", sv=sv, mstat=mstat), False,
+              "sa_flash_fwd_int8_static_qkv", "flash_fwd_int8_static_qkv")]
+    for kw, with_lse, entry, count in cases:
+        before = dict(tfa.launch_counts)
+        vin = kw.pop("v")
+        tfa._flash_int8_cuda(q8, k8, vin, sqk, None, with_lse=with_lse, **kw)
+        name, args = calls[-1]
+        assert name == entry
+        # the LSE pointer (before B, Lq, Lk, N, D and qkpv's block) is passed
+        # exactly when it is asked for
+        lse_ptr = args[-7] if kw.get("quant") == "qkpv" else args[-6]
+        assert (lse_ptr is not None) == with_lse
+        assert {c: tfa.launch_counts[c] - before[c] for c in before
+                if tfa.launch_counts[c] != before[c]} == {count: 1}
+    src = (cuda_lib.CSRC / "flash_attention.cu").read_text()
+    for entry in ("sa_flash_fwd_int8_qk", "sa_flash_fwd_int8_static_qk", "sa_flash_fwd_bf16"):
+        assert "launch_fwd_d<" in _entry_body(src, entry)
+    for entry in ("sa_flash_fwd_int8_qkv", "sa_flash_fwd_int8_qkpv",
+                  "sa_flash_fwd_int8_static_qkv"):
+        assert "launch_int8v<" in _entry_body(src, entry)
+    assert "kVBf16" not in src
 
 
 def test_k2v_qkpv_plain_masks_whole_tiles():

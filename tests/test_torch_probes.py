@@ -23,7 +23,8 @@ import torch
 from jax.experimental import pallas as pl
 
 from stableavatar_tpu_torch.ops import probes
-from stableavatar_tpu_torch.scripts import bench_attn_blocks, microbench_int8
+from stableavatar_tpu_torch.scripts import (bench_attn_blocks, microbench_int8,
+                                             microbench_int8_linear)
 from tests.torch_parity import rel_l2
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -180,6 +181,42 @@ def test_s3_dots_probe_matches_the_jax_script(monkeypatch, capsys):
     k8 = _torch(k8t, torch.int8).transpose(1, 2).contiguous()
     got = probes.dots_probe(_torch(q8, torch.int8), k8, _torch(v, torch.bfloat16), int8=True)
     assert rel_l2(got.float().numpy(), np.asarray(want, np.float32)) < 1e-2
+
+
+def test_int8_linear_chains_match_the_jax_script(monkeypatch, capsys):
+    """scripts/microbench_int8.py (XLA GEMMs, no Pallas) at M, K, N = 64,
+    64, 96 and CH = 2, its `measure` replaced by one eager run that records
+    each chain's inputs and output; the port's three chains on the same
+    inputs (weights in the nn.Linear layout, b = wb^T, c = wc^T): int8 and
+    W8A8 equal bit for bit (integer sums, the same fp32 scale and bf16
+    rounding), bf16 within rel-L2 1e-2 (fp32 sums in another order)."""
+    mod = _load("microbench_int8")
+    for name, value in dict(M=64, K=64, N=96, CH=2).items():
+        monkeypatch.setattr(mod, name, value)
+    runs = []
+
+    def record(fn, *args):
+        with jax.disable_jit():
+            runs.append((args, fn(*args)))
+        return 1.0
+
+    monkeypatch.setattr(mod, "measure", record)
+    mod.main()
+    assert "XLA w8a8" in capsys.readouterr().out
+    assert len(runs) == 3
+    chains = (("bf16", microbench_int8_linear.chain_bf16, torch.bfloat16, torch.bfloat16),
+              ("int8", microbench_int8_linear.chain_int8, torch.int8, torch.int8),
+              ("w8a8", microbench_int8_linear.chain_w8a8, torch.bfloat16, torch.int8))
+    for ((a, b, c), want), (name, chain, a_dtype, w_dtype) in zip(runs, chains):
+        wb = _torch(b, w_dtype).t().contiguous()
+        wc = _torch(c, w_dtype).t().contiguous()
+        got = chain(_torch(a, a_dtype), wb, wc, 2).float().numpy()
+        want = np.asarray(want, np.float32)
+        assert got.shape == want.shape == (64, 64), name
+        if name == "bf16":
+            assert rel_l2(got, want) < 1e-2
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=name)
 
 
 def test_probe_wrappers_check_their_inputs():
