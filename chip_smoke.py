@@ -16,9 +16,11 @@ exits non-zero):
                the fused K4 backward (dQ, dK, dV in one pass) against their plain
                PyTorch versions at the main-path shapes (K1, K1-LSE and K4
                also at the cross-attention shapes, Lk 512 and 257) and on
-               small ragged cases (K2, K2-LSE qk and K3-qk also at the
-               wgmma kernel's tile edges: Lq and Lk apart and no multiples
-               of 128, k_lens inside a tile and 0, D 64 and 128), with
+               small ragged cases (every int8 instance -- K2, K2v qkv /
+               qkpv, K2-LSE, K3 -- also at the wgmma kernel's tile edges:
+               Lq and Lk apart and no multiples of 128, k_lens inside a
+               tile and 0, D 64 and 128, qkpv also on key blocks of 64 and
+               192 that split its tiles), with
                times, the least time the card could take (bound) and, where
                one PyTorch call computes the same function, that call's
                time;
@@ -387,16 +389,29 @@ def phase_kernels(results):
     torch.cuda.synchronize()
 
 
-# the int8-QK wgmma kernel's tile edges (128 query rows, 128-key tiles): Lq
+# the int8 wgmma kernel's tile edges (128 query rows, 128-key tiles): Lq
 # and Lk apart and no multiples of 128, k_lens inside a tile and 0, D 64 and
 # 128 -- (B, Lq, Lk, N, D, k_lens)
 INT8_QK_EDGES = ((2, 200, 130, 2, 64, [77, 0]), (2, 200, 257, 2, 128, [0, 200]),
                  (2, 3000, 2900, 2, 64, [2500, 2900]))
+# each instance held there: (launch-count name, quant, static bound, LSE)
+INT8_EDGE_INSTANCES = (("flash_fwd_int8_qk", "qk", False, False),
+                       ("flash_fwd_int8_qk_lse", "qk", False, True),
+                       ("flash_fwd_int8_static_qk", "qk", True, True),
+                       ("flash_fwd_int8_qkv", "qkv", False, False),
+                       ("flash_fwd_int8_qkv_lse", "qkv", False, True),
+                       ("flash_fwd_int8_static_qkv", "qkv", True, True),
+                       ("flash_fwd_int8_qkpv", "qkpv", False, False),
+                       ("flash_fwd_int8_qkpv_lse", "qkpv", False, True))
+# qkpv's key blocks that split the kernel's 128-key tiles
+QKPV_SPLIT_BLOCKS = (64, 192)
 
 
 def phase_int8_qk_edges(record, gen):
-    """K2, K2-LSE qk and K3-qk (with its LSE) at INT8_QK_EDGES against their
-    plain versions; a batch with no valid key is zero rows."""
+    """Every int8 instance -- K2, K2v qkv / qkpv (on `flash_attention`'s JAX
+    key block, and on blocks of 64 and 192 keys), K2-LSE and K3 (with its
+    LSE) -- at INT8_QK_EDGES against its plain version; a batch with no
+    valid key is zero rows."""
     import torch
 
     from stableavatar_tpu_torch.ops import flash_attention as fa
@@ -406,22 +421,34 @@ def phase_int8_qk_edges(record, gen):
         k, v = (_rand(gen, (b, lk, n, d), torch.bfloat16) for _ in range(2))
         k_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
         q8, k8, sqk = fa.prepare_int8(q, k, None, d ** -0.5)
+        v8, sv = fa.quantize_v(v)
         mstat = fa.static_bound(q8, k8, sqk)
         tag = f"[{b},{lq},{n},{d}] x Lk {lk} k_lens={lens}"
-        for name, static, with_lse in (("flash_fwd_int8_qk", False, False),
-                                       ("flash_fwd_int8_qk_lse", False, True),
-                                       ("flash_fwd_int8_static_qk", True, True)):
-            got = fa._flash_int8_cuda(q8, k8, v, sqk, k_lens, mstat=mstat if static else None,
-                                      with_lse=with_lse)
-            plain = fa._flash_int8_static_plain if static else fa._flash_int8_plain
-            want = plain(q8, k8, v, sqk, k_lens, with_lse=with_lse)
+        jax_block = fa.jax_key_block(lk, fa.INT8_BLOCK_K)
+        cases = [(*inst, jax_block) for inst in INT8_EDGE_INSTANCES]
+        cases += [("flash_fwd_int8_qkpv_lse", "qkpv", False, True, blk)
+                  for blk in QKPV_SPLIT_BLOCKS]
+        for name, quant, static, with_lse, block in cases:
+            vin, svin = (v, None) if quant == "qk" else (v8, sv)
+            got = fa._flash_int8_cuda(q8, k8, vin, sqk, k_lens, quant=quant, sv=svin,
+                                      mstat=mstat if static else None, with_lse=with_lse,
+                                      pv_block=block)
+            if static:
+                want = fa._flash_int8_static_plain(q8, k8, vin, sqk, k_lens, quant=quant,
+                                                   sv=svin, out_dtype=torch.bfloat16,
+                                                   with_lse=with_lse)
+            else:
+                want = fa._flash_int8_plain(q8, k8, vin, sqk, k_lens, quant=quant, sv=svin,
+                                            block_k=block, out_dtype=torch.bfloat16,
+                                            with_lse=with_lse)
             if with_lse:
                 (got, lse), (want, want_lse) = got, want
-            err = compare(f"{name} {tag}", got, want)
+            case = f"{name} {tag}" + (f" key block {block}" if quant == "qkpv" else "")
+            err = compare(case, got, want)
             if with_lse:
-                err = max(err, compare_lse(f"{name} {tag}", lse, want_lse))
+                err = max(err, compare_lse(case, lse, want_lse))
             if 0 in lens and got[lens.index(0)].any():
-                raise AssertionError(f"{name} {tag}: a batch without keys is not zero rows")
+                raise AssertionError(f"{case}: a batch without keys is not zero rows")
             record(name, tag, err, None, None)
 
 

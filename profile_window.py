@@ -10,6 +10,7 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 profile_window.py backward # the flash backward (K4) and K5 alone
     python3 profile_window.py forward  # the bf16 flash forward (K1, K1-LSE) alone
     python3 profile_window.py vae      # the VAE's bf16 decode and fp32 train encode
+    python3 profile_window.py qkpv     # generate_long with attn_quant="qkpv" (K2v-qkpv)
 
 It builds the random 1.3B / ViT-H / wav2vec2-base / VAE stack of
 `chip_smoke.py` and runs `generate_long` on chip_smoke's inputs (512x512,
@@ -32,9 +33,10 @@ step 4 the profiler's warm-up, step 5 profiled; it also prints the peak
 device memory of the steps.
 
 `kernels` times the int8 flash kernels -- K2 ("qk"), K2v ("qkv", "qkpv" on
-its default key block), K3 ("qk") and K2-LSE qk -- at the DiT
-self-attention shape [3, 21504, 12, 128] (K2-LSE at one sample's [1, 21504,
-12, 128]) on the same roped, prepared operands, beside K1 and one SDPA call
+its default key block), K3 ("qk", "qkv") and K2-LSE ("qk", "qkv", "qkpv" on
+the block of 1024) -- at the DiT self-attention shape [3, 21504, 12, 128]
+(K2-LSE at one sample's [1, 21504, 12, 128]) on the same roped, prepared
+operands, beside K1 and one SDPA call
 on the bf16 operands: the median of 20 CUDA-event timings each, after a
 warm-up, as one JSON line.  It uses only wrapper arguments that every
 version of the kernels takes, so the same file compares two checkouts in
@@ -61,6 +63,10 @@ inference and training) through `_flash_fwd_cuda`, each beside one SDPA
 call on the same inputs: medians of 20 CUDA-event timings, one JSON line,
 comparable across two checkouts in one call.
 
+`qkpv` profiles generate_long as the default run does, on the fast path
+with attn_quant="qkpv" (K2v-qkpv for self-attention): the path of
+chip_smoke's int8-variants phase.
+
 `vae` times the pipelines' bf16 segmented VAE decode to uint8 frames
 (`decode_video_segmented`, random bf16 weights) of chip_smoke's video -- 27
 latent frames of 64x64 into 105 frames of 512x512 -- and a train step's
@@ -82,11 +88,15 @@ STEPS, WAIT, WARMUP = 6, 4, 1
 
 # kernel name -> kind; first match wins
 KINDS = (
-    # the wgmma / TMA forward: K1 (QK 0), K2 / K2-LSE qk (1), K3-qk (2)
-    ("K2 / K2-LSE qk / K3-qk flash_fwd (wgmma)", re.compile(r"ffwd::flash_fwd_kernel<\d+, [12]>")),
+    # the wgmma / TMA forward <D, QK, VM>: K1 (QK 0), K2 / K2-LSE (1), K3 (2);
+    # V bf16 (VM 0, or no VM in older checkouts), widened V8 (1), s8 P.V (2)
+    ("K2v / K2-LSE qkv, qkpv / K3-qkv flash_fwd (wgmma)",
+     re.compile(r"ffwd::flash_fwd_kernel<\d+, [12], [12]>")),
+    ("K2 / K2-LSE qk / K3-qk flash_fwd (wgmma)",
+     re.compile(r"ffwd::flash_fwd_kernel<\d+, [12](, 0)?>")),
     ("K1 flash_fwd_bf16 (with or without LSE)",
-     re.compile(r"flash_fwd_bf16_kernel|ffwd::flash_fwd_kernel<\d+, 0>")),
-    # the mma.sync template: K2v / K3-qkv, and in older checkouts K2 / K3-qk
+     re.compile(r"flash_fwd_bf16_kernel|ffwd::flash_fwd_kernel<\d+, 0(, 0)?>")),
+    # the mma.sync template of older checkouts: K2v / K3-qkv (and K2 / K3-qk)
     ("K2 / K2v / K2-LSE / K3 flash_fwd_int8 (mma.sync)",
      re.compile(r"flash_fwd_int8v?_kernel")),
     ("K4 flash_bwd (fused)", re.compile(r"flash_bwd_fused_kernel")),
@@ -204,13 +214,21 @@ def time_kernels():
     v8, sv = fa.quantize_v(v)
     mstat = fa.static_bound(q8, k8, sqk)
     q8s, k8s, vs, sqks = q8[:1].contiguous(), k8[:1].contiguous(), v[:1].contiguous(), sqk[:n]
+    v8s, svs = v8[:1].contiguous(), sv[:1].contiguous()
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     runs = {
         "K2 qk": lambda: fa._flash_int8_cuda(q8, k8, v, sqk, None),
         "K2v qkv": lambda: fa._flash_int8_cuda(q8, k8, v8, sqk, None, quant="qkv", sv=sv),
         "K2v qkpv": lambda: fa._flash_int8_cuda(q8, k8, v8, sqk, None, quant="qkpv", sv=sv),
         "K3 qk": lambda: fa._flash_int8_cuda(q8, k8, v, sqk, None, mstat=mstat),
+        "K3 qkv": lambda: fa._flash_int8_cuda(q8, k8, v8, sqk, None, quant="qkv", sv=sv,
+                                              mstat=mstat),
         "K2-LSE qk [1]": lambda: fa._flash_int8_cuda(q8s, k8s, vs, sqks, None, with_lse=True),
+        "K2-LSE qkv [1]": lambda: fa._flash_int8_cuda(q8s, k8s, v8s, sqks, None, quant="qkv",
+                                                      sv=svs, with_lse=True),
+        "K2-LSE qkpv [1]": lambda: fa._flash_int8_cuda(q8s, k8s, v8s, sqks, None, quant="qkpv",
+                                                       sv=svs, with_lse=True,
+                                                       pv_block=fa.STATS_BLOCK_K),
         "K1": lambda: fa._flash_fwd_cuda(q, k, v, None, d ** -0.5),
         "SDPA": lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt),
     }
@@ -393,6 +411,10 @@ def main() -> int:
         time_vae()
         return 0
     models, dit_bf16 = chip_smoke.build_models("cuda")
+    if sys.argv[1:] == ["qkpv"]:
+        profile_path("qkpv (W8A8 + K2v-qkpv + K5)",
+                     dataclasses.replace(models, attn_quant="qkpv"))
+        return 0
     if sys.argv[1:] == ["train"]:
         profile_train(models, dit_bf16)
         return 0

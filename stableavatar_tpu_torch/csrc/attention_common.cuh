@@ -1,8 +1,9 @@
-// Shared building blocks of the mma.sync kernels (the int8-V template and
-// K1-rope in flash_attention.cu, K4's rope branch in flash_attention_bwd.cu,
-// cross_attention.cu and the dots probe of probes.cu); K1 / K2 / K3-qk, the
-// fused K4 and mm_probe are built on hopper_common.cuh and take only the
-// constants and pack_bf16 / quad_sum / ld32 from here.
+// Shared building blocks of the mma.sync kernels (K1-rope in
+// flash_attention.cu, K4's rope branch in flash_attention_bwd.cu,
+// cross_attention.cu and the dots probe of probes.cu); the wgmma forward
+// (K1, K2, K2v, K3), the fused K4 and mm_probe are built on
+// hopper_common.cuh and take only the constants and pack_bf16 / quad_sum /
+// ld32 from here.
 //
 // Tiling, common to these kernels: one thread block of 4 warps owns 64
 // query rows of one (batch, head); each warp owns 16 of them and keeps its
@@ -11,7 +12,7 @@
 // 64 keys stream through shared memory with cp.async; the loop over tiles
 // inside the block takes the place of the TPU grid's sequential k axis.
 // Products run on the tensor cores through mma.sync (bf16 m16n8k16, and
-// s8 m16n8k32 for the int8 Q.K^T), with f32 / s32 accumulators.
+// s8 m16n8k32 for the dots probe's int8 Q.K^T), with f32 / s32 accumulators.
 //
 // Softmax is computed in the base-2 domain like the TPU kernels: log2(e) is
 // folded into the logit scale by the caller and exp2 replaces exp.  Masked

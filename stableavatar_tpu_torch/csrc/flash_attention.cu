@@ -23,15 +23,15 @@
 //   - K3-qk (`_int8_fwd_body_static`): p = exp2(s - M) with M = sqk *
 //     max|q8| * max|k8| over 64 query rows and all keys (Cauchy-Schwarz,
 //     computed by the wrapper, `static_bound`): no running max, no rescale;
-//   - K2v "qkv" (`v_int8` branch): V int8, widened to bf16 in registers for
-//     the P.V product, its per-channel scale applied once at finalize; K3-qkv
-//     the same under the static bound;
+//   - K2v "qkv" (`v_int8` branch): V int8, widened to bf16 for the P.V
+//     product (int8 values are exact in bf16), its per-channel scale sv
+//     applied once at finalize, before the single bf16 rounding; K3-qkv the
+//     same under the static bound;
 //   - K2v "qkpv" (`quant_pv` branch): P rescaled to its row max within the
 //     JAX package's key block (`pv_block` keys, a multiple of 64: 1536 or
 //     1024 capped to the sequence rounded up to 128), rounded to int8 and
-//     multiplied with int8 V into s32, times exp2(m_block - m_new) / 127.
-//     Each block of pv_block / 64 key tiles is swept twice: first for the
-//     row max of its logits, then for P.V (Q.K^T is computed twice).
+//     multiplied with int8 V into s32 summed over the whole block (as the
+//     TPU sums it), times exp2(m_block - m_new) / 127.
 // With a non-null `lse` every variant also writes the natural-log LSE of
 // each query row, m * ln2 + log(max(l, 1e-30)) (M in place of m for K3), in
 // fp32 laid out [B, N, Lq]: K2-LSE, the combinable partials of ring
@@ -43,12 +43,13 @@
 // and P.V) -- at the DiT self-attention [3, 21504, 12, 128] 8.5e12
 // operations against 0.2 GB of operands, so operations: 8.6 ms at 989
 // TFLOP/s for K1, 6.5 ms for K2 / K3 (Q.K^T at the 1,979 TOP/s int8 peak),
-// with the softmax's exp2 on the SFUs (64 per thread and key tile) as the
-// next limit.  The first designs (4 warps of mma.sync over 64-key tiles, one
-// cp.async stage, two block barriers a tile) ran at a fifth of that, and
-// their products without the softmax (the S3 probe) took 83% of their time.
-// So K1, K2 and K3-qk are one Hopper design (`ffwd::flash_fwd_kernel<D,
-// QK>`, D = 128 and D = 64, QK = bf16, int8 or int8 under the static bound):
+// 4.3 ms for qkpv (both products int8), with the softmax's exp2 on the SFUs
+// (64 per thread and key tile) as the next limit.  The first designs (4
+// warps of mma.sync over 64-key tiles, one cp.async stage, two block
+// barriers a tile) ran at a fifth of that.  So every instance is one Hopper
+// design (`ffwd::flash_fwd_kernel<D, QK, VM>`, D = 128 and 64; QK = bf16,
+// int8 or int8 under the static bound; VM = the V path: bf16, int8 widened,
+// or int8 P.V):
 //
 // - a block owns 128 query rows of one (batch, head); one producer thread
 //   (a warpgroup with its registers handed over by setmaxnreg, 24 / 240)
@@ -58,8 +59,8 @@
 //   mbarriers of their own, and an `empty` mbarrier hands the stage back).
 //   bf16: 128-byte swizzle, 3 stages, 224 KB at D = 128.  int8: Q8 and K8
 //   rows of D bytes in the 128-byte swizzle, or at D = 64 the 64-byte one
-//   (8 rows in 512 bytes, its own descriptor layout); V stays bf16; 4 stages
-//   (16 KB of Q8 plus 48 KB a stage: 208 KB at D = 128);
+//   (8 rows in 512 bytes, its own descriptor layout); bf16 V: 4 stages (16
+//   KB of Q8 plus 48 KB a stage: 208 KB at D = 128);
 // - two consumer warpgroups own 64 query rows each: S = Q K^T is one
 //   wgmma m64n128 chain with both operands K-major in shared memory (bf16
 //   k16 steps into fp32, or s8 k32 steps into s32, converted in place and
@@ -74,6 +75,40 @@
 //   wait for each other, so one's softmax also overlaps the other's
 //   products.  On the card this gained 2-3% for K1 over one tile at a time
 //   with two stages (PERF.md);
+// - int8 V (qkv, K3-qkv): V8 lands by TMA unswizzled, [128 keys, D] bytes,
+//   and the producer warpgroup's three idle warps widen it into a bf16 tile
+//   in the 128-byte swizzle -- the layout K1's V has -- then signal the
+//   stage's V mbarrier (16 channels a thread at a time: a 16-byte load,
+//   8 x (byte permute, two masks, one bf16x2 subtraction), two 16-byte
+//   stores, free of bank conflicts).  The consumers are K2's / K3-qk's,
+//   unchanged.  3 stages of K8 16 + V8 16 + bf16 V 32 KB (208 KB at D =
+//   128).  The widening and the turn below need more than 24 registers (at
+//   24 they spilled), so the int8-V instances hand over 40 / 232;
+// - int8 P.V (qkpv): s8 wgmma takes 8-bit operands K-major only, and int8 V
+//   is the B operand of P.V with D contiguous.  The turn is made in shared
+//   memory (not by a layout pass in the wrapper, which would add a read and
+//   a write of V8 to every call): the three idle warps turn each raw V8
+//   tile into [D, 128 keys] in the 128-byte swizzle (mm_probe's turn, lane l
+//   on n-word l and key word (l / 2) ^ c, conflict-free stores).  P's A
+//   fragments come from the s32 logits' accumulator layout, in which thread
+//   t of a quad holds keys 8j + 2t + {0, 1}; an 8-bit A fragment wants keys
+//   4t..4t + 3 of each 16.  So A column 4t + i (and 16 + 4t + i) of a k32
+//   step holds key 2t + {0, 1, 8, 9}[i] (and 16 + that), and the turn
+//   writes V8's rows in the same order: the permutation costs nothing (the
+//   sum over keys does not depend on it).  Each `pv_block` is swept twice:
+//   sweep 1 runs Q8 K8^T only and takes the block's row max on the integer
+//   logits (the slab scale is positive, so it commutes with the max; the
+//   producer streams only K for it), sweep 2 recomputes Q8 K8^T, quantises
+//   P into s8 A fragments in registers (127 p rounded half to even by a
+//   multiply and an add of 1.5 * 2^23, the byte taken from the sum) and runs
+//   a register-A s8 wgmma m64n{D}k32 into an s32 accumulator kept across the
+//   block's tiles, converted once at the block's end as the TPU converts
+//   it.  O (64), the s32 sum (64), S (64) and P8 (16 registers) stay live
+//   together, so P of tile j + 1 is quantised after P V of tile j is done
+//   (quantising it into a second P8 while that product ran spilled and
+//   serialised the wgmmas).  K and V have rings of their own (4 stages
+//   each; 208 KB at D = 128); a block of 64 keys (or any pv_block % 128 ==
+//   64) splits a key tile, so each block masks keys outside its own range;
 // - zero fill is not a mask (a zero key has logit 0): keys at or past
 //   k_lens[b] (and Lk) get p = 0 in the kernel, tiles wholly past
 //   k_lens[b] are not loaded (a block with none writes zero rows and the LSE
@@ -86,11 +121,7 @@
 // 64-key tiles, with the split-pair rotation of `_fwd_body`'s `rope=`
 // branch (`_rot`, :142-143) inside -- Q is rotated in fp32 on its way into
 // the A fragments, each K tile in place in shared memory after it lands,
-// both rounded to bf16 once as `_rot(...).astype(dt)` does.  So do the
-// int8-V variants (K2v-qkv, K2v-qkpv, K3-qkv; `flash_fwd_int8v_kernel`):
-// s8 wgmma takes 8-bit operands only K-major, and int8 V is the B operand
-// of P.V with D contiguous (MN-major), so they need a V8 laid out K-major by
-// the prep, or a transpose in shared memory -- a design of their own.
+// both rounded to bf16 once as `_rot(...).astype(dt)` does.
 #include "attention_common.cuh"
 #include "hopper_common.cuh"
 
@@ -174,7 +205,7 @@ flash_fwd_bf16_rope_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // --------------------------------------------------------------------------
-// K1, K1-LSE, K2, K2-LSE qk and K3-qk: one producer warpgroup feeds a TMA
+// K1, K1-LSE, K2, K2v, K2-LSE and K3: one producer warpgroup feeds a TMA
 // ring, two consumer warpgroups run wgmma
 // --------------------------------------------------------------------------
 
@@ -183,6 +214,7 @@ namespace ffwd {
 constexpr int kBlockM = 128;   // query rows per block: two consumer warpgroups of 64
 constexpr int kBlockN = 128;   // keys per K / V tile
 constexpr int kConsumers = 256;
+constexpr int kTurners = 96;   // the producer warpgroup's warps 9-11 (int8 V)
 constexpr int kThreads = 384;  // two consumer warpgroups, one producer warpgroup
 constexpr int kRow = 128;      // bytes of one swizzled bf16 row (64 bf16)
 
@@ -193,26 +225,41 @@ enum Qk {
   kQkInt8Static = 2,  // K3-qk: as K2 under K3's static bound, no running max
 };
 
+// the V path of an instance (template parameter)
+enum Vm {
+  kVBf16 = 0,  // K1, K2, K3-qk: bf16 V by TMA
+  kVInt8 = 1,  // K2v-qkv, K3-qkv: int8 V widened to bf16 in shared memory, scaled at finalize
+  kVPv8 = 2,   // K2v-qkpv: P quantised per key block, int8 P.V on the s8 tensor cores
+};
+
 // shared-memory layout (byte offsets from a 1024-byte boundary); every
 // swizzled operand starts on a 1024-byte boundary
-template <int D, int QK>
+template <int D, int QK, int VM>
 struct Smem {
   static constexpr bool kInt8 = QK != kQkBf16;
   // S runs a tile ahead of P V: at least 3 stages.  K8 is half the bytes of
   // a bf16 K, so int8 fits a fourth (208 KB at D = 128): K2 ran 1% faster
-  // with it than with 3 on the H100 (PERF.md)
-  static constexpr int kStages = kInt8 ? 4 : 3;
+  // with it than with 3 on the H100 (PERF.md).  qkv's widened V takes 32 KB
+  // more a stage: 3 (208 KB).  qkpv: 4 K8 and 4 V8 stages (208 KB)
+  static constexpr int kStages = kInt8 && VM != kVInt8 ? 4 : 3;
   static constexpr int kQKRow = kInt8 ? D : kRow;     // bytes of a swizzled Q / K row
   static constexpr int kQKParts = kInt8 ? 1 : D / 64;  // swizzled column tiles of Q / K
   static constexpr int kVHalves = D / 64;
   static constexpr int kQ = kQKParts * kBlockM * kQKRow;  // the block's Q
   static constexpr int kK = kQKParts * kBlockN * kQKRow;  // one K stage
-  static constexpr int kV = kVHalves * kBlockN * kRow;    // one V stage
+  // one V stage as wgmma reads it: bf16 [128 keys, D] MN-major, or qkpv's
+  // turned V8 [D, 128 keys] K-major
+  static constexpr int kV = VM == kVPv8 ? D * kBlockN : kVHalves * kBlockN * kRow;
+  static constexpr int kVRaw = VM == kVBf16 ? 0 : kBlockN * D;  // one raw V8 tile
   static constexpr int off_q = 0;
   static constexpr int off_k = off_q + kQ;
   static constexpr int off_v = off_k + kStages * kK;
-  static constexpr int off_bar = off_v + kStages * kV;
-  static constexpr int bytes = off_bar + (1 + 3 * kStages) * 8;
+  static constexpr int off_raw = off_v + kStages * kV;
+  static constexpr int off_bar = off_raw + kStages * kVRaw;
+  // q_full, then per stage k_full, v_full, empty (and raw_full for int8 V,
+  // v_empty for qkpv)
+  static constexpr int kBars = 1 + (VM == kVBf16 ? 3 : VM == kVInt8 ? 4 : 5) * kStages;
+  static constexpr int bytes = off_bar + kBars * 8;
   static constexpr int launch_bytes = bytes + 1024;  // room to align the base
 };
 
@@ -371,18 +418,306 @@ __device__ __forceinline__ void logits_softmax(float (&sacc)[64], int (&si)[NI],
   }
 }
 
+// ---------------- int8 V (qkv, K3-qkv): V8 widened to bf16 in shared memory
+
+// bytes b0, b1 of w (picked by `sel`, 0x4140 for bytes 0-1, 0x4342 for 2-3)
+// as two bf16, exactly: 0x43nn with nn = b & 0x7f is 128 + (b & 0x7f), and
+// 0x43nn with nn = b & 0x80 is 128 (b >= 0) or 256 (b < 0); their
+// difference is b
+__device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t w, uint32_t sel) {
+  const uint32_t p = __byte_perm(w, 0x43434343u, sel);
+  uint32_t r;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(p & 0x437f437fu), "r"(p & 0x43804380u));
+  return r;
+}
+
+// raw V8 [128 keys, D] (unswizzled rows of D bytes) -> bf16 V as K1 has it:
+// D / 64 tiles of [128 keys, 64] in the 128-byte swizzle.  The kTurners
+// threads take 16 channels of a key at a time (a 16-byte load, two 16-byte
+// stores).  At D = 128 a quarter-warp takes 64 channels of rows r and
+// r + 1 from opposite column tiles: its loads cover 128 bytes of distinct
+// banks, and its stores land in chunks of opposite parity, so neither
+// conflicts; at D = 64 a quarter-warp takes rows r and r + 1 whole
+template <int D>
+__device__ __forceinline__ void widen_v8(unsigned char* vb, const unsigned char* raw, int tid) {
+  for (int u = tid; u < kBlockN * D / 16; u += kTurners) {
+    int r, h, c;  // key, 64-channel column tile, 16-channel chunk of it
+    if constexpr (D == 128) {
+      const int v = u & 15, a = (v >> 2) & 1;
+      r = 2 * (u >> 4) + a;
+      h = a ^ (v >> 3);
+      c = v & 3;
+    } else {
+      r = u >> 2;
+      h = 0;
+      c = u & 3;
+    }
+    const uint4 w = *reinterpret_cast<const uint4*>(raw + r * D + h * 64 + c * 16);
+    uint4 lo, hi;
+    lo.x = s8x2_to_bf16x2(w.x, 0x4140);
+    lo.y = s8x2_to_bf16x2(w.x, 0x4342);
+    lo.z = s8x2_to_bf16x2(w.y, 0x4140);
+    lo.w = s8x2_to_bf16x2(w.y, 0x4342);
+    hi.x = s8x2_to_bf16x2(w.z, 0x4140);
+    hi.y = s8x2_to_bf16x2(w.z, 0x4342);
+    hi.z = s8x2_to_bf16x2(w.w, 0x4140);
+    hi.w = s8x2_to_bf16x2(w.w, 0x4342);
+    unsigned char* row = vb + h * kBlockN * kRow + r * kRow;
+    *reinterpret_cast<uint4*>(row + (((2 * c) ^ (r & 7)) << 4)) = lo;
+    *reinterpret_cast<uint4*>(row + (((2 * c + 1) ^ (r & 7)) << 4)) = hi;
+  }
+}
+
+// ---------------- int8 P.V (qkpv)
+
+// raw V8 [128 keys, D] -> the K-major B operand [D, 128 keys] in the
+// 128-byte swizzle (16-byte chunk c of row n at c ^ (n % 8)), with the keys
+// of each 32-key k-step in P's A-fragment order: 4-byte key word kw holds
+// keys 32 (kw / 8) + 16 ((kw / 4) % 2) + 2 (kw % 4) + {0, 1, 8, 9}.  Warp
+// `tw` (0-2) of the turners takes the sweeps i = tw, tw + 3, ...; lane l
+// turns the 4 x 4 bytes of n-word l (l % 16 at D = 64) and key word
+// (l / 2) ^ c around in registers (mm_probe's turn: at D = 128 its loads hit
+// 32 banks, at D = 64 two lanes share one; its stores hit 32 banks)
+template <int D>
+__device__ __forceinline__ void turn_v8(unsigned char* vt, const unsigned char* raw, int tw) {
+  const int lane = threadIdx.x & 31;
+  const int nw = D == 128 ? lane : (lane & 15);
+  for (int i = tw; i < D / 4; i += 3) {
+    // D = 64: the sweeps c in [0, 8) and [16, 24) cover each (n-word, key word) once
+    const int c = D == 128 ? i : ((i & 7) | ((i & 8) << 1));
+    const int kw = (lane >> 1) ^ c;
+    const int r0 = 32 * (kw >> 3) + 16 * ((kw >> 2) & 1) + 2 * (kw & 3);
+    const unsigned char* src = raw + r0 * D + nw * 4;
+    const uint32_t w0 = ld32(src), w1 = ld32(src + D);
+    const uint32_t w2 = ld32(src + 8 * D), w3 = ld32(src + 9 * D);
+    const uint32_t t0 = __byte_perm(w0, w1, 0x5140), t1 = __byte_perm(w0, w1, 0x7362);
+    const uint32_t t2 = __byte_perm(w2, w3, 0x5140), t3 = __byte_perm(w2, w3, 0x7362);
+    const uint32_t col[4] = {__byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
+                             __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632)};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = nw * 4 + j;
+      const int off = n * 128 + ((((kw >> 2) ^ (n & 7)) << 4) | ((kw & 3) << 2));
+      *reinterpret_cast<uint32_t*>(vt + off) = col[j];
+    }
+  }
+}
+
+// qkpv's first sweep: fold one tile's integer logits of the keys in
+// [lo, hi) into this thread's row maxima (rows g and g + 8).  MASK: the
+// tile holds keys outside [lo, hi)
+template <bool MASK>
+__device__ __forceinline__ void block_row_max(const int (&si)[64], int k0, int lo, int hi,
+                                              int& mx0, int& mx1) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < kBlockN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = k0 + 8 * j + 2 * t + e;
+      if (!MASK || (key >= lo && key < hi)) {
+        mx0 = max(mx0, si[4 * j + e]);
+        mx1 = max(mx1, si[4 * j + 2 + e]);
+      }
+    }
+  }
+}
+
+// the low bytes of four words, in order
+__device__ __forceinline__ uint32_t low_bytes(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
+
+// qkpv's second sweep on one tile (TPU `quant_pv`): p_rel = exp2(s - m_block)
+// with s = float(si) * slab (keys outside [lo, hi) 0), its row sums added to
+// rs0 / rs1, and p8 = round_half_even(127 p_rel) in [0, 127] (p_rel <= 1)
+// packed as the s8 A fragments of the four k32 steps: register r of step kk
+// holds accumulator elements 16 kk + {0, 1, 4, 5}, {2, 3, 6, 7},
+// {8, 9, 12, 13}, {10, 11, 14, 15} (rows g, g + 8, g, g + 8; keys 2t +
+// {0, 1, 8, 9} of the step's first 16, then of its second 16)
+template <bool MASK>
+__device__ __forceinline__ void quant_tile(const int (&si)[64], float slab, int k0, int lo, int hi,
+                                           float mb0, float mb1, float& rs0, float& rs1,
+                                           uint32_t (&pa)[kBlockN / 32][4]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int kk = 0; kk < kBlockN / 32; ++kk) {
+    uint32_t b[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      // element 4j + e: row g (e < 2) or g + 8, key k0 + 8j + 2t + (e & 1)
+      const int x = 16 * kk + i;
+      const int key = k0 + 8 * (x >> 2) + 2 * t + (x & 1);
+      float s = __fmul_rn(__int2float_rn(si[x]), slab);
+      if (MASK && (key < lo || key >= hi)) s = kNegInf;
+      const float p = exp2f(__fsub_rn(s, (x & 2) ? mb1 : mb0));
+      if (x & 2) {
+        rs1 += p;
+      } else {
+        rs0 += p;
+      }
+      // 1.5 * 2^23 + k holds k in its low byte: 127 p rounded once, then
+      // to an integer half to even, as jnp.round(p * 127.0)
+      b[i] = __float_as_uint(__fadd_rn(__fmul_rn(p, 127.f), 12582912.f));
+    }
+    pa[kk][0] = low_bytes(b[0], b[1], b[4], b[5]);
+    pa[kk][1] = low_bytes(b[2], b[3], b[6], b[7]);
+    pa[kk][2] = low_bytes(b[8], b[9], b[12], b[13]);
+    pa[kk][3] = low_bytes(b[10], b[11], b[14], b[15]);
+  }
+}
+
+// PV += P8 V8 of one tile on the s8 tensor cores: A (P8) from registers, V8
+// turned K-major [D, 128 keys]; the first k-step overwrites PV unless
+// `accumulate`; issued and committed, not waited for
+template <int D>
+__device__ __forceinline__ void issue_pv8(int (&pv)[D / 2], const uint32_t (&pa)[kBlockN / 32][4],
+                                          uint32_t vt, int accumulate) {
+  fence_regs(pv);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBlockN / 32; ++kk) {
+    wgmma_s8_rs_d<D>(pv, pa[kk], make_desc(vt + kk * 32, 16, 1024), kk > 0 ? 1 : accumulate);
+  }
+  wgmma_commit();
+}
+
+// qkpv's consumer warpgroup: for each block of pv_block keys, sweep 1 takes
+// its row max m_block (S only), O and l are rescaled to the new running max
+// once, and sweep 2 sums p8 . v8 over the block's tiles in s32 (S of tile
+// j + 1 issued before P V of tile j, quantised once both are done: a
+// second P buffer, quantised while P V runs, spilled); the block's sum
+// enters O as float(sum) * exp2(m_block - m_new) / 127.  K tiles come from
+// the K ring (k_full / empty, one tile per sweep and key tile), V tiles from
+// the V ring (v_full / v_empty, sweep 2 only).  Every address derives from
+// the shared-memory base `sb` at the layout's fixed offsets, so that
+// nothing but O, PV, S and P8 takes many registers
+template <int D, typename S>
+__device__ __forceinline__ void consume_pv8(float (&o)[D / 2], float& m0, float& m1, float& l0,
+                                            float& l1, uint32_t sb, uint32_t q_wg, int klen,
+                                            int pv_block, float slab) {
+  constexpr int kS = S::kStages;
+  // mbarriers: q_full, k_full[kS], v_full[kS], empty[kS], raw_full[kS], v_empty[kS]
+  const uint32_t k_full = sb + S::off_bar + 8, v_full = k_full + 8 * kS;
+  const uint32_t k_empty = v_full + 8 * kS, v_empty = k_empty + 16 * kS;
+  int si[64], pv[D / 2];
+  uint32_t pa[kBlockN / 32][4];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) pv[i] = 0;
+  int kt = 0, vt = 0;  // K and V tiles taken from the rings
+  for (int lo = 0; lo < klen; lo += pv_block) {
+    const int hi = min(lo + pv_block, klen);
+    const int t0 = lo / kBlockN, n = (hi + kBlockN - 1) / kBlockN - t0;
+
+    // sweep 1: the row max of the block's integer logits (sqk > 0 commutes
+    // with the max; a block always holds a valid key)
+    int mx0 = -2147483647 - 1, mx1 = -2147483647 - 1;
+    for (int j = 0; j < n; ++j, ++kt) {
+      const int s = kt % kS, k0 = (t0 + j) * kBlockN;
+      mbar_wait(k_full + 8 * s, (kt / kS) & 1);
+      issue_qk_s8<D>(si, q_wg, sb + S::off_k + s * S::kK);
+      wgmma_wait<0>();
+      fence_regs(si);
+      mbar_arrive(k_empty + 8 * s);
+      if (k0 < lo || k0 + kBlockN > hi) {  // keys of a neighbouring block, or past klen
+        block_row_max<true>(si, k0, lo, hi, mx0, mx1);
+      } else {
+        block_row_max<false>(si, k0, lo, hi, mx0, mx1);
+      }
+    }
+    mx0 = max(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = max(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = max(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = max(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mb0 = __fmul_rn(__int2float_rn(mx0), slab);
+    const float mb1 = __fmul_rn(__int2float_rn(mx1), slab);
+    {
+      const float mn0 = fmaxf(m0, mb0), mn1 = fmaxf(m1, mb1);
+      const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        o[4 * i] *= c0;
+        o[4 * i + 1] *= c0;
+        o[4 * i + 2] *= c1;
+        o[4 * i + 3] *= c1;
+      }
+      l0 *= c0;
+      l1 *= c1;
+      m0 = mn0;
+      m1 = mn1;
+    }
+
+    // sweep 2: P quantised against m_block, p8 . v8 summed in s32
+    float rs0 = 0.f, rs1 = 0.f;
+    {
+      const int s = kt % kS, k0 = t0 * kBlockN;
+      mbar_wait(k_full + 8 * s, (kt / kS) & 1);
+      issue_qk_s8<D>(si, q_wg, sb + S::off_k + s * S::kK);
+      wgmma_wait<0>();
+      fence_regs(si);
+      mbar_arrive(k_empty + 8 * s);
+      ++kt;
+      if (k0 < lo || k0 + kBlockN > hi) {
+        quant_tile<true>(si, slab, k0, lo, hi, mb0, mb1, rs0, rs1, pa);
+      } else {
+        quant_tile<false>(si, slab, k0, lo, hi, mb0, mb1, rs0, rs1, pa);
+      }
+    }
+    for (int j = 0; j < n; ++j, ++vt) {
+      const bool more = j + 1 < n;
+      const int s = kt % kS, vs = vt % kS, k1 = (t0 + j + 1) * kBlockN;
+      if (more) {
+        mbar_wait(k_full + 8 * s, (kt / kS) & 1);
+        issue_qk_s8<D>(si, q_wg, sb + S::off_k + s * S::kK);
+      }
+      mbar_wait(v_full + 8 * vs, (vt / kS) & 1);
+      issue_pv8<D>(pv, pa, sb + S::off_v + vs * S::kV, j > 0);
+      wgmma_wait<0>();
+      fence_regs(pv);
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 32; ++kk) fence_regs(pa[kk]);  // read until here
+      mbar_arrive(v_empty + 8 * vs);
+      if (more) {
+        fence_regs(si);
+        mbar_arrive(k_empty + 8 * s);
+        ++kt;
+        if (k1 < lo || k1 + kBlockN > hi) {
+          quant_tile<true>(si, slab, k1, lo, hi, mb0, mb1, rs0, rs1, pa);
+        } else {
+          quant_tile<false>(si, slab, k1, lo, hi, mb0, mb1, rs0, rs1, pa);
+        }
+      }
+    }
+    // the block's factor exp2(m_block - m_new), and / 127 for the sum
+    const float f0 = exp2f(mb0 - m0), f1 = exp2f(mb1 - m1);
+    const float g0 = f0 * (1.f / 127.f), g1 = f1 * (1.f / 127.f);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      o[4 * i] += __int2float_rn(pv[4 * i]) * g0;
+      o[4 * i + 1] += __int2float_rn(pv[4 * i + 1]) * g0;
+      o[4 * i + 2] += __int2float_rn(pv[4 * i + 2]) * g1;
+      o[4 * i + 3] += __int2float_rn(pv[4 * i + 3]) * g1;
+    }
+    l0 += rs0 * f0;
+    l1 += rs1 * f1;
+  }
+}
+
 // `sqk` [B*N] (int8 instances): the slab scales of the int32 logits
 // (sq * sk * scale * log2 e); `mstat` [B*N, ceil(Lq / 64)] (K3): the bound
-// of each 64 query rows; `scale_log2` (K1): the scale of the bf16 logits
-template <int D, int QK>
+// of each 64 query rows; `sv` [B*N, D] (int8 V): V8's per-channel scales;
+// `scale_log2` (K1): the scale of the bf16 logits; `pv_block` (qkpv): the
+// key block P is quantised on, a positive multiple of 64.  tm_v maps bf16 V
+// (swizzled boxes of 64 channels) or V8 (unswizzled [128 keys, D] boxes)
+template <int D, int QK, int VM>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ k_lens,
                  const float* __restrict__ sqk, const float* __restrict__ mstat,
-                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Lq, int Lk, int N,
-                 float scale_log2) {
-  using S = Smem<D, QK>;
+                 const float* __restrict__ sv, __nv_bfloat16* __restrict__ out,
+                 float* __restrict__ lse, int Lq, int Lk, int N, float scale_log2, int pv_block) {
+  using S = Smem<D, QK, VM>;
   constexpr bool kInt8 = S::kInt8, kStatic = QK == kQkInt8Static;
   constexpr int kStages = S::kStages;
   constexpr int kAcc = D / 2;  // fp32 registers of a [64, D] output accumulator
@@ -414,15 +749,20 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + S::off_bar);  // Q landed
-  uint64_t* k_full = q_full + 1;         // K of stage s landed
-  uint64_t* v_full = k_full + kStages;   // V of stage s landed
-  uint64_t* empty = v_full + kStages;    // both consumer warpgroups are done with stage s
+  uint64_t* k_full = q_full + 1;          // K of stage s landed
+  uint64_t* v_full = k_full + kStages;    // V of stage s ready (landed, widened or turned)
+  uint64_t* empty = v_full + kStages;     // both consumer warpgroups are done with stage s
+                                          // (qkpv: with its K)
+  uint64_t* raw_full = empty + kStages;   // int8 V: the raw V8 tile of stage s landed
+  uint64_t* v_empty = raw_full + kStages;  // qkpv: both consumer warpgroups are done with its V
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&k_full[s], 1);
-      mbar_init(&v_full[s], 1);
+      mbar_init(&v_full[s], VM == kVBf16 ? 1 : kTurners);
       mbar_init(&empty[s], kConsumers);
+      if constexpr (VM != kVBf16) mbar_init(&raw_full[s], 1);
+      if constexpr (VM == kVPv8) mbar_init(&v_empty[s], kConsumers);
     }
     mbar_init_fence();
   }
@@ -430,8 +770,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (warp >= 8) {
-    // ---------------- producer warpgroup: one thread issues every load
-    SA_SETMAXNREG_DEC(24);
+    // ---------------- producer warpgroup: one thread issues every load; for
+    // int8 V the other three warps widen or turn each V8 tile
+    if constexpr (VM == kVBf16) {
+      SA_SETMAXNREG_DEC(24);
+    } else {
+      SA_SETMAXNREG_DEC(40);  // the turners' loops: 24 registers spilled
+    }
     if (warp == 8 && lane == 0) {
       mbar_arrive_expect_tx(q_full, S::kQ);
 #pragma unroll
@@ -439,26 +784,85 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         tma_load_3d(sm + S::off_q + p * kBlockM * S::kQKRow, &tm_q, q_full, h * D + p * 64, q0,
                     b);
       }
-      for (int it = 0; it < ntiles; ++it) {
-        const int s = it % kStages, k0 = it * kBlockN;
-        mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
-        mbar_arrive_expect_tx(&k_full[s], S::kK);
-#pragma unroll
-        for (int p = 0; p < S::kQKParts; ++p) {
-          tma_load_3d(sm + S::off_k + s * S::kK + p * kBlockN * S::kQKRow, &tm_k, &k_full[s],
-                      h * D + p * 64, k0, b);
+      if constexpr (VM == kVPv8) {
+        // per key block: its K tiles for sweep 1, then K and V for sweep 2
+        int kt = 0, vt = 0;
+        for (int lo = 0; lo < klen; lo += pv_block) {
+          const int hi = min(lo + pv_block, klen);
+          for (int pass = 0; pass < 2; ++pass) {
+            for (int t = lo / kBlockN; t * kBlockN < hi; ++t, ++kt) {
+              const int s = kt % kStages;
+              mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
+              mbar_arrive_expect_tx(&k_full[s], S::kK);
+              tma_load_3d(sm + S::off_k + s * S::kK, &tm_k, &k_full[s], h * D, t * kBlockN, b);
+              if (pass == 1) {
+                const int vs = vt % kStages;
+                mbar_wait(&v_empty[vs], ((vt / kStages) & 1) ^ 1);
+                mbar_arrive_expect_tx(&raw_full[vs], S::kVRaw);
+                tma_load_3d(sm + S::off_raw + vs * S::kVRaw, &tm_v, &raw_full[vs], h * D,
+                            t * kBlockN, b);
+                ++vt;
+              }
+            }
+          }
         }
-        mbar_arrive_expect_tx(&v_full[s], S::kV);
+      } else {
+        for (int it = 0; it < ntiles; ++it) {
+          const int s = it % kStages, k0 = it * kBlockN;
+          mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+          mbar_arrive_expect_tx(&k_full[s], S::kK);
 #pragma unroll
-        for (int hf = 0; hf < S::kVHalves; ++hf) {
-          tma_load_3d(sm + S::off_v + s * S::kV + hf * kBlockN * kRow, &tm_v, &v_full[s],
-                      h * D + hf * 64, k0, b);
+          for (int p = 0; p < S::kQKParts; ++p) {
+            tma_load_3d(sm + S::off_k + s * S::kK + p * kBlockN * S::kQKRow, &tm_k, &k_full[s],
+                        h * D + p * 64, k0, b);
+          }
+          if constexpr (VM == kVBf16) {
+            mbar_arrive_expect_tx(&v_full[s], S::kV);
+#pragma unroll
+            for (int hf = 0; hf < S::kVHalves; ++hf) {
+              tma_load_3d(sm + S::off_v + s * S::kV + hf * kBlockN * kRow, &tm_v, &v_full[s],
+                          h * D + hf * 64, k0, b);
+            }
+          } else {
+            mbar_arrive_expect_tx(&raw_full[s], S::kVRaw);
+            tma_load_3d(sm + S::off_raw + s * S::kVRaw, &tm_v, &raw_full[s], h * D, k0, b);
+          }
+        }
+      }
+    } else if constexpr (VM != kVBf16) {
+      if (warp > 8) {
+        // ---------------- warps 9-11: each raw V8 tile into the operand
+        if constexpr (VM == kVInt8) {
+          for (int it = 0; it < ntiles; ++it) {
+            const int s = it % kStages;
+            mbar_wait(&raw_full[s], (it / kStages) & 1);
+            widen_v8<D>(sm + S::off_v + s * S::kV, sm + S::off_raw + s * S::kVRaw,
+                        threadIdx.x - 9 * 32);
+            fence_proxy_async();  // the generic-proxy stores, visible to wgmma
+            mbar_arrive(&v_full[s]);
+          }
+        } else {
+          int vt = 0;
+          for (int lo = 0; lo < klen; lo += pv_block) {
+            const int hi = min(lo + pv_block, klen);
+            for (int t = lo / kBlockN; t * kBlockN < hi; ++t, ++vt) {
+              const int s = vt % kStages;
+              mbar_wait(&raw_full[s], (vt / kStages) & 1);
+              turn_v8<D>(sm + S::off_v + s * S::kV, sm + S::off_raw + s * S::kVRaw, warp - 9);
+              fence_proxy_async();
+              mbar_arrive(&v_full[s]);
+            }
+          }
         }
       }
     }
   } else {
     // ---------------- two consumer warpgroups of 64 query rows each
-    SA_SETMAXNREG_INC(240);
+    if constexpr (VM == kVBf16) {
+      SA_SETMAXNREG_INC(240);
+    } else {
+      SA_SETMAXNREG_INC(232);  // 2 x 128 x 232 + 128 x 40 = 384 x 168
+    }
     const int wg = warp >> 2, wl = warp & 3;
     const int g = lane >> 2, t = lane & 3;
     const int row_a = q0 + wg * 64 + wl * 16 + g, row_b = row_a + 8;
@@ -476,56 +880,61 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     // of rows g and g + 8
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
-    // S of tile it + 1 is issued before P V of tile it, and its softmax runs
-    // while that product is on the tensor cores
-    float sacc[64], c0 = 1.f, c1 = 1.f;
-    int si[kInt8 ? 64 : 1];  // the int8 instances' s32 logits
-    uint32_t pa[kBlockN / 16][4];
-    mbar_wait(q_full, 0);
-    mbar_wait(&k_full[0], 0);
-    if constexpr (kInt8) {
-      issue_qk_s8<D>(si, q_wg, smem_u32(sm + S::off_k));
+    if constexpr (VM == kVPv8) {
+      mbar_wait(q_full, 0);
+      consume_pv8<D, S>(o, m0, m1, l0, l1, smem_u32(sm), q_wg, klen, pv_block, slab);
     } else {
-      issue_qk<D>(sacc, q_wg, smem_u32(sm + S::off_k));
-    }
-    wgmma_wait<0>();
-    logits_softmax<QK>(sacc, si, 0, klen, scale_log2, slab, bound, m0, m1, l0, l1, c0,
-                       c1);  // O is 0: no rescale
-    pack_p(pa, sacc);
-    for (int it = 0; it < ntiles - 1; ++it) {
-      const int s = it % kStages, s1 = (it + 1) % kStages;
-      mbar_wait(&k_full[s1], ((it + 1) / kStages) & 1);
+      // S of tile it + 1 is issued before P V of tile it, and its softmax
+      // runs while that product is on the tensor cores
+      float sacc[64], c0 = 1.f, c1 = 1.f;
+      int si[kInt8 ? 64 : 1];  // the int8 instances' s32 logits
+      uint32_t pa[kBlockN / 16][4];
+      mbar_wait(q_full, 0);
+      mbar_wait(&k_full[0], 0);
       if constexpr (kInt8) {
-        issue_qk_s8<D>(si, q_wg, smem_u32(sm + S::off_k + s1 * S::kK));
+        issue_qk_s8<D>(si, q_wg, smem_u32(sm + S::off_k));
       } else {
-        issue_qk<D>(sacc, q_wg, smem_u32(sm + S::off_k + s1 * S::kK));
+        issue_qk<D>(sacc, q_wg, smem_u32(sm + S::off_k));
       }
-      mbar_wait(&v_full[s], (it / kStages) & 1);
-      issue_pv<D>(o, pa, smem_u32(sm + S::off_v + s * S::kV));
-      wgmma_wait<1>();  // S of tile it + 1 (committed first) is done
-      logits_softmax<QK>(sacc, si, (it + 1) * kBlockN, klen, scale_log2, slab, bound, m0, m1,
-                         l0, l1, c0, c1);
+      wgmma_wait<0>();
+      logits_softmax<QK>(sacc, si, 0, klen, scale_log2, slab, bound, m0, m1, l0, l1, c0,
+                         c1);  // O is 0: no rescale
+      pack_p(pa, sacc);
+      for (int it = 0; it < ntiles - 1; ++it) {
+        const int s = it % kStages, s1 = (it + 1) % kStages;
+        mbar_wait(&k_full[s1], ((it + 1) / kStages) & 1);
+        if constexpr (kInt8) {
+          issue_qk_s8<D>(si, q_wg, smem_u32(sm + S::off_k + s1 * S::kK));
+        } else {
+          issue_qk<D>(sacc, q_wg, smem_u32(sm + S::off_k + s1 * S::kK));
+        }
+        mbar_wait(&v_full[s], (it / kStages) & 1);
+        issue_pv<D>(o, pa, smem_u32(sm + S::off_v + s * S::kV));
+        wgmma_wait<1>();  // S of tile it + 1 (committed first) is done
+        logits_softmax<QK>(sacc, si, (it + 1) * kBlockN, klen, scale_log2, slab, bound, m0, m1,
+                           l0, l1, c0, c1);
+        wgmma_wait<0>();
+        fence_regs(o);
+#pragma unroll
+        for (int kq = 0; kq < kBlockN / 16; ++kq) fence_regs(pa[kq]);  // read until here
+        mbar_arrive(&empty[s]);  // K and V of stage s are read
+        if constexpr (!kStatic) {
+#pragma unroll
+          for (int i = 0; i < kAcc / 4; ++i) {
+            o[4 * i] *= c0;
+            o[4 * i + 1] *= c0;
+            o[4 * i + 2] *= c1;
+            o[4 * i + 3] *= c1;
+          }
+        }
+        pack_p(pa, sacc);
+      }
+      const int s_last = (ntiles - 1) % kStages;
+      mbar_wait(&v_full[s_last], ((ntiles - 1) / kStages) & 1);
+      issue_pv<D>(o, pa, smem_u32(sm + S::off_v + s_last * S::kV));
       wgmma_wait<0>();
       fence_regs(o);
-#pragma unroll
-      for (int kq = 0; kq < kBlockN / 16; ++kq) fence_regs(pa[kq]);  // read until here
-      mbar_arrive(&empty[s]);  // K and V of stage s are read
-      if constexpr (!kStatic) {
-#pragma unroll
-        for (int i = 0; i < kAcc / 4; ++i) {
-          o[4 * i] *= c0;
-          o[4 * i + 1] *= c0;
-          o[4 * i + 2] *= c1;
-          o[4 * i + 3] *= c1;
-        }
-      }
-      pack_p(pa, sacc);
     }
-    const int s_last = (ntiles - 1) % kStages;
-    mbar_wait(&v_full[s_last], ((ntiles - 1) / kStages) & 1);
-    issue_pv<D>(o, pa, smem_u32(sm + S::off_v + s_last * S::kV));
-    wgmma_wait<0>();
-    fence_regs(o);
 
     const float lf0 = fmaxf(quad_sum(l0), 1e-30f), lf1 = fmaxf(quad_sum(l1), 1e-30f);
     const long long rs = (long long)N * D;
@@ -533,14 +942,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int c = 8 * j + 2 * t;
-      if (row_a < Lq) {
-        *reinterpret_cast<uint32_t*>(ob + row_a * rs + c) =
-            pack_bf16(o[4 * j] / lf0, o[4 * j + 1] / lf0);
+      float x0 = o[4 * j] / lf0, x1 = o[4 * j + 1] / lf0;
+      float x2 = o[4 * j + 2] / lf1, x3 = o[4 * j + 3] / lf1;
+      if constexpr (VM != kVBf16) {
+        // V8's per-channel scale, once, before the bf16 rounding
+        const float s0 = sv[(long long)bh * D + c], s1 = sv[(long long)bh * D + c + 1];
+        x0 *= s0;
+        x1 *= s1;
+        x2 *= s0;
+        x3 *= s1;
       }
-      if (row_b < Lq) {
-        *reinterpret_cast<uint32_t*>(ob + row_b * rs + c) =
-            pack_bf16(o[4 * j + 2] / lf1, o[4 * j + 3] / lf1);
-      }
+      if (row_a < Lq) *reinterpret_cast<uint32_t*>(ob + row_a * rs + c) = pack_bf16(x0, x1);
+      if (row_b < Lq) *reinterpret_cast<uint32_t*>(ob + row_b * rs + c) = pack_bf16(x2, x3);
     }
     if (lse != nullptr && t == 0) {
       // K3's M is its bound; the others' the running max
@@ -553,314 +966,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 }  // namespace ffwd
 
-// V path of the int8-V kernels (template parameter); K2 and K3-qk (bf16 V)
-// are instances of ffwd::flash_fwd_kernel above.
-enum VMode {
-  kVInt8 = 1,  // K2v-qkv / K3-qkv: int8 V widened to bf16 for the P.V product
-  kPV8 = 2,    // K2v-qkpv: P quantised per row to its key-block max, int8 P.V into s32
-};
-
-// K3's softmax for one key tile: p = exp2(s - M) under the static bound M of
-// this block's query rows, no running max and no rescale (TPU
-// `_int8_fwd_body_static`).  Keys at or past `klen` are masked.
-__device__ __forceinline__ void softmax_static(float (&s)[kNT][4], float bound, float (&l)[2],
-                                               int k0, int klen) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const bool masked = k0 + nt * 8 + t * 2 + e >= klen;
-      s[nt][e] = exp2f((masked ? kNegInf : s[nt][e]) - bound);
-      s[nt][2 + e] = exp2f((masked ? kNegInf : s[nt][2 + e]) - bound);
-      l[0] += s[nt][e];
-      l[1] += s[nt][2 + e];
-    }
-  }
-}
-
-// K2v-qkpv, first sweep: fold this tile's masked logits into the running
-// row maxima mx (per thread; the caller reduces them over the quad).
-__device__ __forceinline__ void tile_row_max(const float (&s)[kNT][4], float (&mx)[2], int k0,
-                                             int klen) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      if (k0 + nt * 8 + t * 2 + e < klen) {
-        mx[0] = fmaxf(mx[0], s[nt][e]);
-        mx[1] = fmaxf(mx[1], s[nt][2 + e]);
-      }
-    }
-  }
-}
-
-// K2v-qkpv, second sweep (TPU `_int8_fwd_body`, `quant_pv`): `s` leaves as
-// p_rel = exp2(s - m_block) with m_block the row max over the whole key
-// block (masked keys 0), and the row sum gains sum(p_rel) * f_raw with
-// f_raw = exp2(m_block - m_new), the block's factor.
-__device__ __forceinline__ void softmax_pv8(float (&s)[kNT][4], const float (&mb)[2],
-                                            const float (&f_raw)[2], float (&l)[2], int k0,
-                                            int klen) {
-  const int t = threadIdx.x & 3;
-  float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const bool masked = k0 + nt * 8 + t * 2 + e >= klen;
-      s[nt][e] = masked ? 0.f : exp2f(s[nt][e] - mb[0]);
-      s[nt][2 + e] = masked ? 0.f : exp2f(s[nt][2 + e] - mb[1]);
-      rs0 += s[nt][e];
-      rs1 += s[nt][2 + e];
-    }
-  }
-  l[0] += rs0 * f_raw[0];
-  l[1] += rs1 * f_raw[1];
-}
-
-// acc[16, D] += bf16(P[16, 64]) . bf16(V8_tile[64, D]): as pv_bf16, with V
-// int8 in shared memory (int8 values are exact in bf16).
-template <int D>
-__device__ __forceinline__ void pv_int8_bf16(float (&acc)[D / 8][4], const float (&p)[kNT][4],
-                                             const int8_t* Vs) {
-  constexpr int kPitch = D + 16;  // bytes
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < kBlockK / 16; ++j) {
-    const uint32_t pa[4] = {pack_bf16(p[2 * j][0], p[2 * j][1]),
-                            pack_bf16(p[2 * j][2], p[2 * j][3]),
-                            pack_bf16(p[2 * j + 1][0], p[2 * j + 1][1]),
-                            pack_bf16(p[2 * j + 1][2], p[2 * j + 1][3])};
-    const int8_t* v0 = Vs + (j * 16 + t * 2) * kPitch + g;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      const int8_t* vc = v0 + nd * 8;
-      mma_bf16_16816(acc[nd], pa, pack_bf16(float(vc[0]), float(vc[kPitch])),
-                     pack_bf16(float(vc[8 * kPitch]), float(vc[9 * kPitch])));
-    }
-  }
-}
-
-// four int8 -> one register, the first in the low byte (mma fragment order)
-__device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
-  return (uint32_t(a) & 0xffu) | ((uint32_t(b) & 0xffu) << 8) | ((uint32_t(c) & 0xffu) << 16) |
-         (uint32_t(d) & 0xffu) << 24;
-}
-
-// p8 = clamp(round_half_even(127 p), 0, 127)
-__device__ __forceinline__ int quant_p(float p) { return min(max(__float2int_rn(p * 127.f), 0), 127); }
-
-// acc[16, D] += (int8(P) . V8_tile) * f on the s8 tensor cores (m16n8k32,
-// s32 sums).  P's A fragments come from the logit C fragments of four
-// neighbouring n-tiles, so the 32 keys of a k-step are taken in a permuted
-// order: A column 4t + i (and 16 + 4t + i) holds key (i / 2) * 8 + 2t + i % 2
-// (and 16 + that), the keys thread t already holds; V's B fragments read
-// their rows in the same order.  The sum over keys does not depend on it.
-template <int D>
-__device__ __forceinline__ void pv_int8(float (&acc)[D / 8][4], const float (&p)[kNT][4],
-                                        const int8_t* Vs, const float (&f)[2]) {
-  constexpr int kPitch = D + 16;  // bytes
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  int pv[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) pv[nd][0] = pv[nd][1] = pv[nd][2] = pv[nd][3] = 0;
-#pragma unroll
-  for (int j = 0; j < kBlockK / 32; ++j) {
-    const float(&p0)[4] = p[4 * j], (&p1)[4] = p[4 * j + 1];
-    const float(&p2)[4] = p[4 * j + 2], (&p3)[4] = p[4 * j + 3];
-    const uint32_t pa[4] = {
-        pack_s8(quant_p(p0[0]), quant_p(p0[1]), quant_p(p1[0]), quant_p(p1[1])),
-        pack_s8(quant_p(p0[2]), quant_p(p0[3]), quant_p(p1[2]), quant_p(p1[3])),
-        pack_s8(quant_p(p2[0]), quant_p(p2[1]), quant_p(p3[0]), quant_p(p3[1])),
-        pack_s8(quant_p(p2[2]), quant_p(p2[3]), quant_p(p3[2]), quant_p(p3[3]))};
-    const int8_t* v0 = Vs + (j * 32 + t * 2) * kPitch + g;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      const int8_t* vc = v0 + nd * 8;
-      const uint32_t b0 = pack_s8(vc[0], vc[kPitch], vc[8 * kPitch], vc[9 * kPitch]);
-      const uint32_t b1 =
-          pack_s8(vc[16 * kPitch], vc[17 * kPitch], vc[24 * kPitch], vc[25 * kPitch]);
-      mma_s8_16832(pv[nd], pa, b0, b1);
-    }
-  }
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    acc[nd][0] += float(pv[nd][0]) * f[0];
-    acc[nd][1] += float(pv[nd][1]) * f[0];
-    acc[nd][2] += float(pv[nd][2]) * f[1];
-    acc[nd][3] += float(pv[nd][3]) * f[1];
-  }
-}
-
-// S[16, 64] = Q8[16, D] . K8_tile[64, D]^T on the s8 tensor cores, times
-// the slab scale (int32 -> fp32: the products are integers).
-template <int D>
-__device__ __forceinline__ void qk_int8(float (&s)[kNT][4], const uint32_t (&qa)[D / 32][4],
-                                        const int8_t* Ks, float scale) {
-  constexpr int kPitch8 = D + 16;  // bytes
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  int si[kNT][4];
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) si[nt][0] = si[nt][1] = si[nt][2] = si[nt][3] = 0;
-#pragma unroll
-  for (int kk = 0; kk < D / 32; ++kk) {
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      const int8_t* kr = Ks + (nt * 8 + g) * kPitch8 + kk * 32 + t * 4;
-      mma_s8_16832(si[nt], qa[kk], ld32(kr), ld32(kr + 16));
-    }
-  }
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) {
-    s[nt][0] = float(si[nt][0]) * scale;
-    s[nt][1] = float(si[nt][1]) * scale;
-    s[nt][2] = float(si[nt][2]) * scale;
-    s[nt][3] = float(si[nt][3]) * scale;
-  }
-}
-
-// The int8-V flash forward on mma.sync: K2v (kVInt8 / kPV8, online) and
-// K3-qkv (kVInt8, STATIC).  `sv` [B, N, D] scales the int8 V at
-// finalize; `mstat` [B*N, Lq / 64 blocks] is K3's bound; `pv_block` is
-// kPV8's quantisation block in keys (a multiple of kBlockK); `lse` (may be
-// null) receives m * ln2 + log(max(l, 1e-30)) as [B, N, Lq] -- K2-LSE, or
-// K3's M * ln2 + log(l).
-// At most 168 registers a thread (3 blocks of 128 threads on an SM's 65,536):
-// at 173 the online K2v-qkv instance fell to 2 blocks per SM and ran 8.7%
-// slower than at 168 (profile_window.py kernels, NVIDIA H100 80GB HBM3).
-template <int D, int VMODE, bool STATIC>
-__global__ void __launch_bounds__(kThreads, 3)
-flash_fwd_int8v_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
-                       const int8_t* __restrict__ v8, const float* __restrict__ sv,
-                       const float* __restrict__ sqk, const float* __restrict__ mstat,
-                       const int* __restrict__ k_lens, __nv_bfloat16* __restrict__ out,
-                       float* __restrict__ lse, int Lq, int Lk, int N, int pv_block) {
-  constexpr int kPitch8 = D + 16;  // bytes
-  __shared__ __align__(16) int8_t Ks[kBlockK * kPitch8];
-  __shared__ __align__(16) int8_t Vs[kBlockK * kPitch8];
-
-  const int bh = blockIdx.y, b = bh / N, h = bh % N;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row_a = blockIdx.x * kBlockQ + warp * 16 + g, row_b = row_a + 8;
-  const long long rs = (long long)N * D;
-  const int klen = k_lens ? min(k_lens[b], Lk) : Lk;
-  const float scale = sqk[bh];
-  const float bound = STATIC ? mstat[(long long)bh * gridDim.x + blockIdx.x] : 0.f;
-
-  // int8 A fragments (m16n8k32): 4 consecutive int8 per register
-  uint32_t qa[D / 32][4];
-  const int8_t* qb = q8 + ((long long)b * Lq * N + h) * D;
-#pragma unroll
-  for (int kk = 0; kk < D / 32; ++kk) {
-    const int c = kk * 32 + t * 4;
-    qa[kk][0] = row_a < Lq ? ld32(qb + row_a * rs + c) : 0u;
-    qa[kk][1] = row_b < Lq ? ld32(qb + row_b * rs + c) : 0u;
-    qa[kk][2] = row_a < Lq ? ld32(qb + row_a * rs + c + 16) : 0u;
-    qa[kk][3] = row_b < Lq ? ld32(qb + row_b * rs + c + 16) : 0u;
-  }
-
-  const char* kb = reinterpret_cast<const char*>(k8 + ((long long)b * Lk * N + h) * D);
-  const char* vb = reinterpret_cast<const char*>(v8 + ((long long)b * Lk * N + h) * D);
-
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-
-  // tiles (and kPV8's blocks) wholly past klen are skipped: their mass is 0
-  const int ntiles = (klen + kBlockK - 1) / kBlockK;
-  float mb[2], f_raw[2], f[2];  // kPV8: the block's row max and factors
-  for (int it = 0; it < ntiles; ++it) {
-    const int k0 = it * kBlockK;
-    if constexpr (VMODE == kPV8) {
-      if (k0 % pv_block == 0) {
-        // a new quantisation block: first sweep for the row max of its
-        // masked logits, then rescale acc and l once to the new running max
-        const int t1 = min(ntiles, it + pv_block / kBlockK);
-        float mx[2] = {kNegInf, kNegInf};
-        for (int jt = it; jt < t1; ++jt) {
-          load_tile<D>(reinterpret_cast<char*>(Ks), kb, rs, jt * kBlockK, Lk);
-          cp_async_commit();
-          cp_async_wait<0>();
-          __syncthreads();
-          float s[kNT][4];
-          qk_int8<D>(s, qa, Ks, scale);
-          tile_row_max(s, mx, jt * kBlockK, klen);
-          __syncthreads();
-        }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-          const float mn = fmaxf(m[r], mx[r]);
-          const float c = exp2f(m[r] - mn);
-          l[r] *= c;
-#pragma unroll
-          for (int nd = 0; nd < D / 8; ++nd) {
-            acc[nd][2 * r] *= c;
-            acc[nd][2 * r + 1] *= c;
-          }
-          m[r] = mn;
-          mb[r] = mx[r];
-          f_raw[r] = exp2f(mx[r] - mn);
-          f[r] = f_raw[r] * (1.f / 127.f);
-        }
-      }
-    }
-    load_tile<D>(reinterpret_cast<char*>(Ks), kb, rs, k0, Lk);
-    cp_async_commit();
-    load_tile<D>(reinterpret_cast<char*>(Vs), vb, rs, k0, Lk);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    float s[kNT][4];
-    qk_int8<D>(s, qa, Ks, scale);
-    if constexpr (STATIC) {
-      softmax_static(s, bound, l, k0, klen);
-    } else if constexpr (VMODE == kPV8) {
-      softmax_pv8(s, mb, f_raw, l, k0, klen);
-    } else {
-      softmax_update<D>(s, m, l, acc, k0, klen);
-    }
-
-    cp_async_wait<0>();
-    __syncthreads();
-    if constexpr (VMODE == kVInt8) {
-      pv_int8_bf16<D>(acc, s, Vs);
-    } else {
-      pv_int8<D>(acc, s, Vs, f);
-    }
-    __syncthreads();
-  }
-
-  const float l0 = fmaxf(quad_sum(l[0]), 1e-30f), l1 = fmaxf(quad_sum(l[1]), 1e-30f);
-  const float* svb = sv + (long long)bh * D;
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    acc[nd][0] /= l0;
-    acc[nd][1] /= l0;
-    acc[nd][2] /= l1;
-    acc[nd][3] /= l1;
-    const int c = nd * 8 + t * 2;
-    acc[nd][0] *= svb[c];
-    acc[nd][1] *= svb[c + 1];
-    acc[nd][2] *= svb[c];
-    acc[nd][3] *= svb[c + 1];
-  }
-  store_rows<D>(out + ((long long)b * Lq * N + h) * D, rs, row_a, Lq, acc);
-  if (lse != nullptr && t == 0) {
-    // the running max m is shared by the quad (reduced before every update);
-    // K3's M is the block's bound
-    const float m0 = STATIC ? bound : m[0], m1 = STATIC ? bound : m[1];
-    float* lse_bh = lse + (long long)bh * Lq;
-    if (row_a < Lq) lse_bh[row_a] = m0 * kLn2 + logf(l0);
-    if (row_b < Lq) lse_bh[row_b] = m1 * kLn2 + logf(l1);
-  }
-}
-
 }  // namespace sa
 
 // --------------------------------------------------------------------------
@@ -871,45 +976,47 @@ flash_fwd_int8v_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__
 
 namespace {
 
-// K1 (QK = kQkBf16: q, k bf16) or K2 / K3-qk (q8, k8 int8 with the slab
-// scales sqk, and K3's bounds mstat); v bf16
-template <int D, int QK>
-int launch_fwd(const void* q, const void* k, const void* v, const void* k_lens, const void* sqk,
-               const void* mstat, void* out, void* lse, int B, int Lq, int Lk, int N,
-               float scale_log2, cudaStream_t st) {
+// K1 (QK = kQkBf16: q, k bf16) or K2 / K2v / K3 (q8, k8 int8 with the slab
+// scales sqk, and K3's bounds mstat); v bf16 (VM = kVBf16), or int8 with
+// its per-channel scales sv and, for qkpv, the key block pv_block
+template <int D, int QK, int VM>
+int launch_fwd(const void* q, const void* k, const void* v, const void* sv, const void* k_lens,
+               const void* sqk, const void* mstat, void* out, void* lse, int B, int Lq, int Lk,
+               int N, float scale_log2, int pv_block, cudaStream_t st) {
   using namespace sa::ffwd;
-  using S = Smem<D, QK>;
+  using S = Smem<D, QK, VM>;
   CUtensorMap mq, mk, mv;
   const bool ok = S::kInt8 ? sa::make_map_s8(&mq, q, B, Lq, N * D, kBlockM, D) &&
                                  sa::make_map_s8(&mk, k, B, Lk, N * D, kBlockN, D)
                            : sa::make_map(&mq, q, B, Lq, N * D, kBlockM) &&
                                  sa::make_map(&mk, k, B, Lk, N * D, kBlockN);
-  if (!ok || !sa::make_map(&mv, v, B, Lk, N * D, kBlockN)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const bool ok_v = VM == kVBf16 ? sa::make_map(&mv, v, B, Lk, N * D, kBlockN)
+                                 : sa::make_map_s8(&mv, v, B, Lk, N * D, kBlockN, D, false);
+  if (!ok || !ok_v) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = S::launch_bytes;
   int rc;
-  if ((rc = sa::allow_smem(flash_fwd_kernel<D, QK>, smem))) return rc;
+  if ((rc = sa::allow_smem(flash_fwd_kernel<D, QK, VM>, smem))) return rc;
   const dim3 grid((Lq + kBlockM - 1) / kBlockM, B * N);
-  flash_fwd_kernel<D, QK><<<grid, kThreads, smem, st>>>(
+  flash_fwd_kernel<D, QK, VM><<<grid, kThreads, smem, st>>>(
       mq, mk, mv, static_cast<const int*>(k_lens), static_cast<const float*>(sqk),
-      static_cast<const float*>(mstat), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), Lq, Lk, N, scale_log2);
+      static_cast<const float*>(mstat), static_cast<const float*>(sv),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), Lq, Lk, N, scale_log2,
+      pv_block);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int QK>
-int launch_fwd_d(const void* q, const void* k, const void* v, const void* k_lens,
+template <int QK, int VM>
+int launch_fwd_d(const void* q, const void* k, const void* v, const void* sv, const void* k_lens,
                  const void* sqk, const void* mstat, void* out, void* lse, int B, int Lq, int Lk,
-                 int N, int D, float scale_log2, void* stream) {
+                 int N, int D, float scale_log2, int pv_block, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 128) {
-    return launch_fwd<128, QK>(q, k, v, k_lens, sqk, mstat, out, lse, B, Lq, Lk, N, scale_log2,
-                               st);
+    return launch_fwd<128, QK, VM>(q, k, v, sv, k_lens, sqk, mstat, out, lse, B, Lq, Lk, N,
+                                   scale_log2, pv_block, st);
   }
   if (D == 64) {
-    return launch_fwd<64, QK>(q, k, v, k_lens, sqk, mstat, out, lse, B, Lq, Lk, N, scale_log2,
-                              st);
+    return launch_fwd<64, QK, VM>(q, k, v, sv, k_lens, sqk, mstat, out, lse, B, Lq, Lk, N,
+                                  scale_log2, pv_block, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -922,8 +1029,9 @@ int launch_fwd_d(const void* q, const void* k, const void* v, const void* k_lens
 extern "C" int sa_flash_fwd_bf16(const void* q, const void* k, const void* v, const void* k_lens,
                                  void* out, void* lse, int B, int Lq, int Lk, int N, int D,
                                  float scale_log2, void* stream) {
-  return launch_fwd_d<sa::ffwd::kQkBf16>(q, k, v, k_lens, nullptr, nullptr, out, lse, B, Lq, Lk,
-                                         N, D, scale_log2, stream);
+  return launch_fwd_d<sa::ffwd::kQkBf16, sa::ffwd::kVBf16>(
+      q, k, v, nullptr, k_lens, nullptr, nullptr, out, lse, B, Lq, Lk, N, D, scale_log2, 0,
+      stream);
 }
 
 // K1-rope: q and k in split-pair layout, rotated in the kernel by the packed
@@ -954,48 +1062,13 @@ extern "C" int sa_flash_fwd_bf16_rope(const void* q, const void* k, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-namespace {
-
-// the int8-V instances of the mma.sync template
-template <int VMODE, bool STATIC>
-int launch_int8v(const void* q8, const void* k8, const void* v8, const void* sv, const void* sqk,
-                 const void* mstat, const void* k_lens, void* out, void* lse, int B, int Lq,
-                 int Lk, int N, int D, int pv_block, void* stream) {
-  if (VMODE == sa::kPV8 && (pv_block <= 0 || pv_block % sa::kBlockK != 0)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid((Lq + sa::kBlockQ - 1) / sa::kBlockQ, B * N);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto q_ = static_cast<const int8_t*>(q8);
-  auto k_ = static_cast<const int8_t*>(k8);
-  auto v_ = static_cast<const int8_t*>(v8);
-  auto sv_ = static_cast<const float*>(sv);
-  auto s_ = static_cast<const float*>(sqk);
-  auto ms_ = static_cast<const float*>(mstat);
-  auto kl = static_cast<const int*>(k_lens);
-  auto o_ = static_cast<__nv_bfloat16*>(out);
-  auto lse_ = static_cast<float*>(lse);
-  if (D == 128) {
-    sa::flash_fwd_int8v_kernel<128, VMODE, STATIC><<<grid, sa::kThreads, 0, st>>>(
-        q_, k_, v_, sv_, s_, ms_, kl, o_, lse_, Lq, Lk, N, pv_block);
-  } else if (D == 64) {
-    sa::flash_fwd_int8v_kernel<64, VMODE, STATIC><<<grid, sa::kThreads, 0, st>>>(
-        q_, k_, v_, sv_, s_, ms_, kl, o_, lse_, Lq, Lk, N, pv_block);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// K2 (and K2-LSE with a non-null lse [B, N, Lq]): bf16 V, on the wgmma
-// kernel
+// The int8 instances: q8, k8 int8 [B, L, N, D], sqk [B*N], lse [B, N, Lq] or
+// NULL.  K2 (and K2-LSE): bf16 V
 extern "C" int sa_flash_fwd_int8_qk(const void* q8, const void* k8, const void* v,
                                     const void* sqk, const void* k_lens, void* out, void* lse,
                                     int B, int Lq, int Lk, int N, int D, void* stream) {
-  return launch_fwd_d<sa::ffwd::kQkInt8>(q8, k8, v, k_lens, sqk, nullptr, out, lse, B, Lq, Lk, N,
-                                         D, 0.f, stream);
+  return launch_fwd_d<sa::ffwd::kQkInt8, sa::ffwd::kVBf16>(
+      q8, k8, v, nullptr, k_lens, sqk, nullptr, out, lse, B, Lq, Lk, N, D, 0.f, 0, stream);
 }
 
 // K2v-qkv: int8 V [B, Lk, N, D] with per-channel scales sv [B, N, D]
@@ -1003,8 +1076,8 @@ extern "C" int sa_flash_fwd_int8_qkv(const void* q8, const void* k8, const void*
                                      const void* sv, const void* sqk, const void* k_lens,
                                      void* out, void* lse, int B, int Lq, int Lk, int N, int D,
                                      void* stream) {
-  return launch_int8v<sa::kVInt8, false>(q8, k8, v8, sv, sqk, nullptr, k_lens, out, lse, B, Lq,
-                                         Lk, N, D, 0, stream);
+  return launch_fwd_d<sa::ffwd::kQkInt8, sa::ffwd::kVInt8>(
+      q8, k8, v8, sv, k_lens, sqk, nullptr, out, lse, B, Lq, Lk, N, D, 0.f, 0, stream);
 }
 
 // K2v-qkpv: as qkv, with P quantised to int8 per row against its maximum
@@ -1013,18 +1086,18 @@ extern "C" int sa_flash_fwd_int8_qkpv(const void* q8, const void* k8, const void
                                       const void* sv, const void* sqk, const void* k_lens,
                                       void* out, void* lse, int B, int Lq, int Lk, int N, int D,
                                       int pv_block, void* stream) {
-  return launch_int8v<sa::kPV8, false>(q8, k8, v8, sv, sqk, nullptr, k_lens, out, lse, B, Lq, Lk,
-                                       N, D, pv_block, stream);
+  if (pv_block <= 0 || pv_block % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_fwd_d<sa::ffwd::kQkInt8, sa::ffwd::kVPv8>(
+      q8, k8, v8, sv, k_lens, sqk, nullptr, out, lse, B, Lq, Lk, N, D, 0.f, pv_block, stream);
 }
 
-// K3 with bf16 V, on the wgmma kernel; mstat [B*N, ceil(Lq / 64)], lse
-// [B, N, Lq] or NULL
+// K3 with bf16 V; mstat [B*N, ceil(Lq / 64)]
 extern "C" int sa_flash_fwd_int8_static_qk(const void* q8, const void* k8, const void* v,
                                            const void* sqk, const void* mstat,
                                            const void* k_lens, void* out, void* lse, int B,
                                            int Lq, int Lk, int N, int D, void* stream) {
-  return launch_fwd_d<sa::ffwd::kQkInt8Static>(q8, k8, v, k_lens, sqk, mstat, out, lse, B, Lq,
-                                               Lk, N, D, 0.f, stream);
+  return launch_fwd_d<sa::ffwd::kQkInt8Static, sa::ffwd::kVBf16>(
+      q8, k8, v, nullptr, k_lens, sqk, mstat, out, lse, B, Lq, Lk, N, D, 0.f, 0, stream);
 }
 
 // K3 with int8 V and its scales
@@ -1032,6 +1105,6 @@ extern "C" int sa_flash_fwd_int8_static_qkv(const void* q8, const void* k8, cons
                                             const void* sv, const void* sqk, const void* mstat,
                                             const void* k_lens, void* out, void* lse, int B,
                                             int Lq, int Lk, int N, int D, void* stream) {
-  return launch_int8v<sa::kVInt8, true>(q8, k8, v8, sv, sqk, mstat, k_lens, out, lse, B, Lq, Lk,
-                                        N, D, 0, stream);
+  return launch_fwd_d<sa::ffwd::kQkInt8Static, sa::ffwd::kVInt8>(
+      q8, k8, v8, sv, k_lens, sqk, mstat, out, lse, B, Lq, Lk, N, D, 0.f, 0, stream);
 }

@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: shared-memory
 // addresses, mbarriers, TMA tensor loads and bulk reductions, wgmma
-// descriptors and products (bf16 into fp32, s8 into s32), named barriers and
-// register hand-over (setmaxnreg), and the host side: TMA tensor maps (bf16
-// and int8, 3-D over [B, L, N * D] and 2-D over matrices) and the dynamic
-// shared-memory opt-in.  Used by flash_attention.cu (K1, K1-LSE, K2, K2-LSE
-// qk, K3-qk), flash_attention_bwd.cu (the fused K4) and probes.cu (mm_probe).
+// descriptors and products (bf16 into fp32, s8 into s32, A from shared
+// memory or registers), named barriers and register hand-over (setmaxnreg),
+// and the host side: TMA tensor maps (bf16 and int8, 3-D over [B, L, N * D]
+// and 2-D over matrices) and the dynamic shared-memory opt-in.  Used by
+// flash_attention.cu (K1, K1-LSE, K2, K2v, K2-LSE, K3), flash_attention_bwd.cu
+// (the fused K4) and probes.cu (mm_probe).
 //
 // Shared-memory operands are stored in the 128-byte swizzle that TMA's
 // CU_TENSOR_MAP_SWIZZLE_128B writes: a tile of R rows x 128 bytes (64 bf16
@@ -39,9 +40,11 @@ __device__ __forceinline__ void mbar_init_fence() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+__device__ __forceinline__ void mbar_arrive(uint32_t addr) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(addr) : "memory");
 }
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) { mbar_arrive(smem_u32(bar)); }
 
 // one arrival that also announces `bytes` of asynchronous (TMA) traffic
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
@@ -50,9 +53,9 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
                : "memory");
 }
 
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
+// wait until the phase of parity `parity` has completed (the barrier given
+// by its shared-memory address, or by a pointer)
+__device__ __forceinline__ void mbar_wait(uint32_t addr, uint32_t parity) {
   uint32_t done = 0;
   while (!done) {
     asm volatile(
@@ -63,6 +66,10 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   }
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  mbar_wait(smem_u32(bar), parity);
 }
 
 // --------------------------------------------------------------------------
@@ -290,6 +297,37 @@ __device__ __forceinline__ void wgmma_s8_n128_first(int (&d)[64], uint64_t da, u
       : "l"(da), "l"(db), "r"(0));
 }
 
+// D[64, 128] (+)= A . B^T on the s8 tensor cores, A in registers (per warp
+// the m16n8k32 fragment: rows g and g + 8, columns 4t..4t + 3 and 16 + 4t..
+// 16 + 4t + 3, four int8 a register), B K-major in shared memory
+__device__ __forceinline__ void wgmma_s8_rs_n128(int (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : SA_ACC8I(0), SA_ACC8I(8), SA_ACC8I(16), SA_ACC8I(24), SA_ACC8I(32), SA_ACC8I(40),
+        SA_ACC8I(48), SA_ACC8I(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// D[64, 64] (+)= A . B^T, the same with N = 64
+__device__ __forceinline__ void wgmma_s8_rs_n64(int (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : SA_ACC8I(0), SA_ACC8I(8), SA_ACC8I(16), SA_ACC8I(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 #undef SA_ACC8I
 #undef SA_OUT8I
 #undef SA_ACC8
@@ -303,6 +341,18 @@ __device__ __forceinline__ void wgmma_rs_d(float (&d)[D / 2], const uint32_t (&a
     wgmma_rs_n128(d, a, db, 1);
   } else {
     wgmma_rs_n64(d, a, db, 1);
+  }
+}
+
+// D[64, D] (+)= A . B^T on the s8 tensor cores, A in registers, B a [D, 32]
+// k-step of a K-major tile (D = 64 or 128)
+template <int D>
+__device__ __forceinline__ void wgmma_s8_rs_d(int (&d)[D / 2], const uint32_t (&a)[4], uint64_t db,
+                                              int accumulate) {
+  if constexpr (D == 128) {
+    wgmma_s8_rs_n128(d, a, db, accumulate);
+  } else {
+    wgmma_s8_rs_n64(d, a, db, accumulate);
   }
 }
 
@@ -366,15 +416,18 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int B, int L, int ND, in
 }
 
 // the same over a [B, L, N * D] int8 tensor: boxes of `rows` x `width`
-// bytes (128, or 64 with a 64-byte swizzle).  TMA has no signed 8-bit type;
-// the bytes move unchanged as UINT8
+// bytes (128, or 64 with a 64-byte swizzle; unswizzled rows of `width`
+// bytes without `swizzle`).  TMA has no signed 8-bit type; the bytes move
+// unchanged as UINT8
 inline bool make_map_s8(CUtensorMap* map, const void* ptr, int B, int L, int ND, int rows,
-                        int width) {
+                        int width, bool swizzle = true) {
   const cuuint64_t dims[3] = {(cuuint64_t)ND, (cuuint64_t)L, (cuuint64_t)B};
   const cuuint64_t strides[2] = {(cuuint64_t)ND, (cuuint64_t)L * ND};
   const cuuint32_t box[3] = {(cuuint32_t)width, (cuuint32_t)rows, 1};
-  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, ptr, dims, strides, box,
-                    width == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
+  const CUtensorMapSwizzle sw = !swizzle      ? CU_TENSOR_MAP_SWIZZLE_NONE
+                                : width == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                               : CU_TENSOR_MAP_SWIZZLE_64B;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, ptr, dims, strides, box, sw);
 }
 
 // 2-D map over a row-major [rows, cols] matrix of `elem_bytes`-byte elements

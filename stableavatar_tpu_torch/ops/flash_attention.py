@@ -2,8 +2,8 @@
 with the split-pair rotation inside), K2 (int8 Q.K^T forward), K2v (K2 with
 int8 V: "qkv", "qkpv"), K2-LSE (K2 / K2v with the LSE output), K3 (K2 /
 K2v-qkv with the static-bound softmax) and K4 (the bf16 backward, with its
-rope branch, K4a-rope / K4b-rope).  K1, K2, K2-LSE qk and K3-qk run one
-wgmma / TMA kernel; the int8-V variants keep an mma.sync one.
+rope branch, K4a-rope / K4b-rope).  K1, K2, K2v, K2-LSE and K3 are
+instances of one wgmma / TMA kernel; K1-rope keeps an mma.sync one.
 
 Port of `stableavatar_tpu/ops/flash_attention.py`.  On a CUDA tensor
 `flash_attention` launches a hand-written Hopper kernel

@@ -178,15 +178,59 @@ def test_int8_qk_kernels_match_plain(gen, b, lq, lk, n, d, k_lens, static):
     assert torch.equal(fa._flash_int8_cuda(q8, k8, v, sqk, kl, mstat=mstat), out)
 
 
+# the int8-V instances of the same kernel (widened V8 for "qkv" and K3-qkv,
+# s8 P.V for "qkpv"): the ring slice and the tile-edge cases of
+# INT8_QK_CASES, Lq and Lk apart
+INT8V_CASES = [INT8_QK_CASES[2], *INT8_QK_CASES[3:]]
+
+
+@pytest.mark.parametrize("b,lq,lk,n,d,k_lens", INT8V_CASES)
+@pytest.mark.parametrize("variant", ["qkv", "qkpv", "static_qkv"])
+def test_int8v_kernels_match_plain_at_tile_edges(gen, b, lq, lk, n, d, k_lens, variant):
+    """K2v-qkv, K2v-qkpv (on `flash_attention`'s JAX key block) and K3-qkv,
+    each with its LSE, against their plain versions at the wgmma kernel's
+    tile edges: out within rel-L2 1e-2 and max-abs 6e-2, the LSE within
+    1e-3, a batch with no valid key zero rows; the output does not depend on
+    the LSE write."""
+    q8, k8, v, sqk = _int8_operands(gen, b, lq, lk, n, d)
+    v8, sv = fa.quantize_v(v)
+    kl = None if k_lens is None else torch.tensor(k_lens, dtype=torch.int32, device="cuda")
+    static = variant.startswith("static_")
+    quant = variant.removeprefix("static_")
+    mstat = fa.static_bound(q8, k8, sqk) if static else None
+    block = fa.jax_key_block(lk, fa.INT8_BLOCK_K)
+    if static:
+        want, want_lse = fa._flash_int8_static_plain(q8, k8, v8, sqk, kl, quant=quant, sv=sv,
+                                                     out_dtype=torch.bfloat16, with_lse=True)
+    else:
+        want, want_lse = fa._flash_int8_plain(q8, k8, v8, sqk, kl, quant=quant, sv=sv,
+                                              block_k=block, out_dtype=torch.bfloat16,
+                                              with_lse=True)
+    out, lse = fa._flash_int8_cuda(q8, k8, v8, sqk, kl, quant=quant, sv=sv, mstat=mstat,
+                                   with_lse=True, pv_block=block)
+    assert out.dtype == torch.bfloat16 and lse.shape == (b, n, lq)
+    assert _rel(out, want) < REL_TOL, _rel(out, want)
+    assert float((out.float() - want.float()).abs().max()) < 6e-2
+    assert float((lse - want_lse).abs().max()) < 1e-3
+    if k_lens is not None and 0 in k_lens:  # no valid key: zero rows
+        assert not out[k_lens.index(0)].any()
+    assert torch.equal(fa._flash_int8_cuda(q8, k8, v8, sqk, kl, quant=quant, sv=sv, mstat=mstat,
+                                           pv_block=block), out)
+
+
 @pytest.mark.parametrize("b,lq,lk,n,d,k_lens", [INT8_QK_CASES[1], INT8_QK_CASES[3],
                                                 INT8_QK_CASES[5]])
-def test_k2_lse_run_to_run(gen, b, lq, lk, n, d, k_lens):
+@pytest.mark.parametrize("quant", ["qk", "qkv", "qkpv"])
+def test_k2_lse_run_to_run(gen, b, lq, lk, n, d, k_lens, quant):
     """K2-LSE writes every output once, without atomics: two launches on
-    the same inputs agree bit for bit, out and LSE."""
+    the same inputs agree bit for bit, out and LSE, for every V path."""
     q8, k8, v, sqk = _int8_operands(gen, b, lq, lk, n, d)
+    sv = None
+    if quant != "qk":
+        v, sv = fa.quantize_v(v)
     kl = None if k_lens is None else torch.tensor(k_lens, dtype=torch.int32, device="cuda")
-    first = fa._flash_int8_cuda(q8, k8, v, sqk, kl, with_lse=True)
-    second = fa._flash_int8_cuda(q8, k8, v, sqk, kl, with_lse=True)
+    first = fa._flash_int8_cuda(q8, k8, v, sqk, kl, quant=quant, sv=sv, with_lse=True)
+    second = fa._flash_int8_cuda(q8, k8, v, sqk, kl, quant=quant, sv=sv, with_lse=True)
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
@@ -351,11 +395,12 @@ def test_k2_lse_matches_plain(gen, b, l, n, d, k_lens, quant):
     assert torch.equal(out, got)
 
 
-@pytest.mark.parametrize("pv_block", [1536, 1024, 256, 64])
+@pytest.mark.parametrize("pv_block", [1536, 1024, 256, 64, 192])
 def test_k2v_qkpv_kernel_on_any_block(gen, pv_block):
-    """The regrouped qkpv kernel quantises P on the block it is given (a
-    first sweep per block takes the row max) and agrees with the plain
-    version on the same block; ragged keys end inside a block."""
+    """The qkpv kernel quantises P on the block it is given (a first sweep
+    per block takes the row max) and agrees with the plain version on the
+    same block; ragged keys end inside a block, and blocks of 64 and 192
+    keys split the kernel's 128-key tiles."""
     b, l, n, d = 2, 4000, 2, 128
     q, k, v = (_randn(gen, b, l, n, d) for _ in range(3))
     kl = torch.tensor([3333, 4000], dtype=torch.int32, device="cuda")

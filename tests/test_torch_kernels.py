@@ -76,11 +76,13 @@ def _check_rows(got, want, k_lens, rel=1e-3, atol=1e-2):
     pytest.param("qk", False, None, id="qk-False"), pytest.param("qk", True, None, id="qk-True"),
     pytest.param("qkv", False, None, id="qkv-False"),
     pytest.param("qkpv", False, None, id="qkpv-False"),
-    *(pytest.param("qk", False, e, id=_edge("qk", e)) for e in EDGE_CASES)])
+    *(pytest.param(quant, False, e, id=_edge(quant, e))
+      for quant in ("qk", "qkv", "qkpv") for e in EDGE_CASES)])
 def test_k2_plain_matches_pallas(quant, rope, edge):
     """Same int8 operands on both sides (the prep is bit-identical), so the
     only difference is fp32 summation order; also at the wgmma kernel's tile
-    edges."""
+    edges, for every V path ("qkpv" on the JAX block of 128 on both
+    sides)."""
     q, k, v, k_lens = _edge_inputs(3, edge)
     d = q.shape[-1]
     jrope = trope = None
@@ -278,15 +280,17 @@ STATS_K_LENS = np.array([1100, 1300], np.int32)
 @pytest.mark.parametrize("quant,edge", [
     pytest.param("qk", None, id="qk"), pytest.param("qkv", None, id="qkv"),
     pytest.param("qkpv", None, id="qkpv"),
-    *(pytest.param("qk", e, id=_edge("qk", e)) for e in EDGE_CASES)])
+    *(pytest.param(quant, e, id=_edge(quant, e))
+      for quant in ("qk", "qkv", "qkpv") for e in EDGE_CASES)])
 def test_k2_lse_plain_matches_pallas_with_stats(quant, edge):
     """K2-LSE: the port's `flash_attention_with_stats(quant=...)` (plain
     version on CPU tensors) against the JAX function with its Pallas int8
     kernel in interpret mode, at the JAX defaults (block 1024, so "qkpv"
     quantises P on two key blocks) with ragged keys, and at the wgmma
-    kernel's tile edges; the K2 test's tolerance on the output, 1e-3 on the
-    LSE (an empty row's, -1e30 ln 2 + log of its sum, rounds alike in fp32
-    on both sides)."""
+    kernel's tile edges, for every V path ("qkpv" on the JAX function's
+    block, min(1024, round_up(Lk, 128))); the K2 test's tolerance on the
+    output, 1e-3 on the LSE (an empty row's, -1e30 ln 2 + log of its sum,
+    rounds alike in fp32 on both sides)."""
     if edge is None:
         q, k, v = _qkv(21, lq=256, lk=1300)
         k_lens = STATS_K_LENS
@@ -364,7 +368,7 @@ def test_k5_plain_matches_pallas_bf16():
 
 @pytest.mark.parametrize("quant,edge", [
     pytest.param("qk", None, id="qk"), pytest.param("qkv", None, id="qkv"),
-    *(pytest.param("qk", e, id=_edge("qk", e)) for e in EDGE_CASES)])
+    *(pytest.param(quant, e, id=_edge(quant, e)) for quant in ("qk", "qkv") for e in EDGE_CASES)])
 def test_k3_plain_matches_pallas(quant, edge):
     """Plain K3 against the Pallas static-bound kernel in interpret mode at
     block 128 (tests/test_fastpath.py:143): the same int8 operands and the
@@ -455,10 +459,10 @@ def _entry_body(src, name):
 
 def test_int8_kernel_entry_points_route_by_variant(monkeypatch):
     """`_flash_int8_cuda` (the CUDA path, its launch recorded here) sends
-    K2, K2-LSE qk and K3-qk to the entry points that launch the wgmma / TMA
-    kernel (`launch_fwd_d` in csrc/flash_attention.cu), and the int8-V
-    variants to the mma.sync template (`launch_int8v`), which keeps no bf16-V
-    instance."""
+    every int8 variant to its entry point, and each entry point launches the
+    wgmma / TMA kernel (`launch_fwd_d` in csrc/flash_attention.cu) with its
+    V path: bf16 V for K2, K2-LSE qk and K3-qk, widened V8 for qkv and
+    K3-qkv, s8 P.V for qkpv; the mma.sync int8-V template is gone."""
     from stableavatar_tpu_torch.ops import cuda_lib
 
     calls = []
@@ -493,12 +497,14 @@ def test_int8_kernel_entry_points_route_by_variant(monkeypatch):
         assert {c: tfa.launch_counts[c] - before[c] for c in before
                 if tfa.launch_counts[c] != before[c]} == {count: 1}
     src = (cuda_lib.CSRC / "flash_attention.cu").read_text()
-    for entry in ("sa_flash_fwd_int8_qk", "sa_flash_fwd_int8_static_qk", "sa_flash_fwd_bf16"):
-        assert "launch_fwd_d<" in _entry_body(src, entry)
-    for entry in ("sa_flash_fwd_int8_qkv", "sa_flash_fwd_int8_qkpv",
-                  "sa_flash_fwd_int8_static_qkv"):
-        assert "launch_int8v<" in _entry_body(src, entry)
-    assert "kVBf16" not in src
+    for entry, v_path in (("sa_flash_fwd_bf16", "kVBf16"), ("sa_flash_fwd_int8_qk", "kVBf16"),
+                          ("sa_flash_fwd_int8_static_qk", "kVBf16"),
+                          ("sa_flash_fwd_int8_qkv", "kVInt8"),
+                          ("sa_flash_fwd_int8_static_qkv", "kVInt8"),
+                          ("sa_flash_fwd_int8_qkpv", "kVPv8")):
+        body = _entry_body(src, entry)
+        assert "launch_fwd_d<" in body and f"sa::ffwd::{v_path}>" in body, entry
+    assert "flash_fwd_int8v_kernel" not in src and "launch_int8v" not in src
 
 
 def test_k2v_qkpv_plain_masks_whole_tiles():
