@@ -8,11 +8,15 @@ Phases (each prints its own lines; any failed check raises and the script
 exits non-zero):
 
 1. device   -- require CUDA, print the card's name and power limit, build the
-               hand-written kernels from csrc/ and print the build seconds;
+               hand-written kernels from csrc/, print the build seconds and
+               ptxas's report (registers, spills, warnings), and fail on a
+               spill in any wgmma forward or K5 instance;
 2. kernels  -- K1 (bf16 flash), K2 (int8-QK flash), K2v (int8 V: "qkv",
                "qkpv"), K3 (static-bound softmax, "qk" and "qkv", with its
                LSE and the count of rows whose sum underflows), K5
-               (dual-context cross-attention), K1 with its LSE output and
+               (dual-context cross-attention, beside K1's text and image
+               calls and two SDPA calls and their add, and at its tile
+               edges at D 64 and 128), K1 with its LSE output and
                the fused K4 backward (dQ, dK, dV in one pass) against their plain
                PyTorch versions at the main-path shapes (K1, K1-LSE and K4
                also at the cross-attention shapes, Lk 512 and 257) and on
@@ -70,7 +74,8 @@ exits non-zero):
                at the scripts' shape and the DiT's linears, int8 outputs
                exactly, with torch.matmul / torch._int_mm as yardsticks,
                _int_mm also with B turned inside the call, and the dots
-               probes); then
+               probes beside K1 / K2 / K2v: each kernel's time beyond its
+               two products); then
                `flash_attention(rope=)` forward, with stats and under
                autograd, and each probe script's `main` with its own CH
                (`stableavatar_tpu_torch/scripts/`), each with exact launch
@@ -158,11 +163,14 @@ KERNEL_SOURCES = {
                          "scripts/microbench_pallas_int8_variants.py:55"),
     "mm_probe_scaled": ("stableavatar_tpu_torch/csrc/probes.cu",
                         "scripts/microbench_pallas_int8_variants.py:64"),
-    "dots_probe_bf16": ("stableavatar_tpu_torch/csrc/probes.cu",
+    # S3: two instances of the forward template
+    "dots_probe_bf16": ("stableavatar_tpu_torch/csrc/flash_attention.cu",
                         "scripts/bench_attn_blocks.py:61"),
-    "dots_probe_int8": ("stableavatar_tpu_torch/csrc/probes.cu",
+    "dots_probe_int8": ("stableavatar_tpu_torch/csrc/flash_attention.cu",
                         "scripts/bench_attn_blocks.py:119"),
 }
+# the wgmma / TMA kernels whose ptxas report must show no spill
+NO_SPILL_KERNELS = ("flash_fwd_kernel", "dual_context_kernel")
 INFERENCE_KERNELS = ("flash_fwd_bf16", "flash_fwd_int8_qk", "dual_context")
 CLI_KERNELS = ("flash_fwd_int8_static_qk",)
 VARIANT_KERNELS = ("flash_fwd_int8_qkv", "flash_fwd_int8_qkpv", "flash_fwd_int8_static_qkv")
@@ -239,11 +247,19 @@ def phase_device():
     path = cuda_lib.build()
     cuda_lib.library()
     log(f"kernels built in {time.perf_counter() - t0:.2f} s: {path}")
+    spilled, function = [], ""
     for line in (path.parent / "build.log").read_text().splitlines():
         if "Function properties for" in line:
-            log(f"  ptxas: {line.split('for', 1)[1].strip()[:60]}")
-        elif "registers" in line or "spill" in line:
+            function = line.split("for", 1)[1].strip()
+            log(f"  ptxas: {function[:60]}")
+        elif "registers" in line or "spill" in line or "warning" in line:
             log(f"  ptxas:   {line.replace('ptxas info    :', '').strip()}")
+            if (any(k in function for k in NO_SPILL_KERNELS)
+                    and " 0 bytes spill stores, 0 bytes spill loads" not in line
+                    and "spill" in line):
+                spilled.append(function)
+    if spilled:
+        raise AssertionError(f"ptxas spilled in the wgmma kernels: {spilled}")
 
 
 def _rand(gen, shape, dtype):
@@ -279,7 +295,6 @@ def fwd_shape_entry(q, k, v, with_lse: bool, library_ms: float) -> dict:
 def phase_kernels(results):
     import torch
 
-    from stableavatar_tpu_torch.ops import cross_attention as ca
     from stableavatar_tpu_torch.ops import flash_attention as fa
     from stableavatar_tpu_torch.ops.rope import pack_split, rope_freqs_3d
 
@@ -326,7 +341,7 @@ def phase_kernels(results):
            # int8 Q.K^T, bf16 P.V; q8/k8 1 byte, v/out 2 bytes
            bound_ms(fwd_ops / 2, b * l * n * d * (1 + 1 + 2 + 2.0), ops_int8=fwd_ops / 2))
     phase_kernels_int8(record, q8, k8, v, sqk, (b, l, n, d), fwd_ops)
-    del q8, k8, got, want
+    del got, want
 
     got = fa._flash_fwd_cuda(q, k, v, None, scale)
     want = fa._flash_fwd_plain(q, k, v, None, scale)
@@ -336,6 +351,8 @@ def phase_kernels(results):
            time_ms(lambda: fa._flash_fwd_plain(q, k, v, None, scale), 3),
            bound_ms(fwd_ops, io_bytes), sdpa_ms(q, k, v))
     del got, want
+    log_softmax_shares(results, q, k, v, q8, k8)
+    del q8, k8
     # K1 at the DiT cross-attention shapes: text 512 and image 257 keys
     for lk in (512, 257):
         kc, vc = (_rand(gen, (b, lk, n, d), bf16) for _ in range(2))
@@ -347,18 +364,8 @@ def phase_kernels(results):
             fwd_shape_entry(q, kc, vc, False, sdpa_ms(q, kc, vc)))
         del kc, vc
 
-    # K5 at the DiT cross-attention shape: text 512, image 257
-    k1, v1 = (_rand(gen, (b, 512, n, d), bf16) for _ in range(2))
-    k2, v2 = (_rand(gen, (b, 257, n, d), bf16) for _ in range(2))
-    got = ca._dual_cuda(q, k1, v1, k2, v2, scale)
-    want = ca._dual_plain(q, k1, v1, k2, v2, scale)
-    err = compare("dual_context [3,21504,12,128] x (512, 257)", got, want)
-    record("dual_context", "main", err,
-           time_ms(lambda: ca._dual_cuda(q, k1, v1, k2, v2, scale), 5),
-           time_ms(lambda: ca._dual_plain(q, k1, v1, k2, v2, scale), 3),
-           bound_ms(4.0 * b * n * l * (512 + 257) * d,
-                    2.0 * b * n * d * (2 * l + 2 * (512 + 257))))
-    del q, k, v, k1, v1, k2, v2, got, want
+    phase_k5_main(record, results, q, scale)
+    del q, k, v
 
     phase_kernels_train(record, sdpa_ms, gen, results)
 
@@ -380,13 +387,92 @@ def phase_kernels(results):
         for name, quant, static in INT8_VARIANTS:
             err = check_int8(name, quant, static, q8, k8, v, v8, sv, sqk, k_lens, tag)[0]
             record(name, tag, err, None, None)
-        k1, v1 = (_rand(gen, (b, 77, n, d), bf16) for _ in range(2))
-        k2, v2 = (_rand(gen, (b, 33, n, d), bf16) for _ in range(2))
-        record("dual_context", tag, compare(
-            f"dual_context {tag} x (77, 33)", ca._dual_cuda(q, k1, v1, k2, v2, scale),
-            ca._dual_plain(q, k1, v1, k2, v2, scale)), None, None)
+    phase_k5_edges(record, gen)
     phase_int8_qk_edges(record, gen)
     torch.cuda.synchronize()
+
+
+def log_softmax_shares(results, q, k, v, q8, k8):
+    """S3 (the forward template's two products with no softmax) on the
+    operands K1, K2 and K2v were timed on, [B * N, L, D]: each kernel's time
+    less S3's is its softmax's (and V path's) share."""
+    from stableavatar_tpu_torch.ops import probes
+
+    b, l, n, d = q.shape
+    qd, kd, vd, q8d, k8d = (x.transpose(1, 2).reshape(b * n, l, d).contiguous()
+                            for x in (q, k, v, q8, k8))
+    s3 = {False: time_ms(lambda: probes.dots_probe(qd, kd, vd), 5),
+          True: time_ms(lambda: probes.dots_probe(q8d, k8d, vd, int8=True), 5)}
+    for name, int8 in (("flash_fwd_bf16", False), ("flash_fwd_int8_qk", True),
+                       ("flash_fwd_int8_qkv", True), ("flash_fwd_int8_qkpv", True)):
+        ms = results[name]["ms"]
+        log(f"  {name} {ms:.3f} ms - S3 {'int8' if int8 else 'bf16'} {s3[int8]:.3f} ms on its "
+            f"operands = {ms - s3[int8]:.3f} ms ({(ms - s3[int8]) / ms:.1%} of the kernel) "
+            "beyond its two products")
+
+
+def phase_k5_main(record, results, q, scale):
+    """K5 at the DiT cross-attention shape (q [3, 21504, 12, 128], text 512
+    and image 257 keys) against its plain version, beside K1's text and
+    image calls on the same inputs and the two-SDPA yardstick (two calls and
+    their add: no single PyTorch call computes K5's function)."""
+    import torch
+
+    from stableavatar_tpu_torch.ops import cross_attention as ca
+    from stableavatar_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    b, l, n, d = q.shape
+    k1, v1 = (_rand(gen, (b, 512, n, d), torch.bfloat16) for _ in range(2))
+    k2, v2 = (_rand(gen, (b, 257, n, d), torch.bfloat16) for _ in range(2))
+    tag = f"[{b},{l},{n},{d}] x (512, 257)"
+    err = compare(f"dual_context {tag}", ca._dual_cuda(q, k1, v1, k2, v2, scale),
+                  ca._dual_plain(q, k1, v1, k2, v2, scale))
+    k5 = time_ms(lambda: ca._dual_cuda(q, k1, v1, k2, v2, scale), 5)
+    tile = ca.KERNEL_BLOCK_K  # a segment's last tile is computed whole
+    keys = sum(-(-lk // tile) * tile for lk in (512, 257))
+    record("dual_context", "main", err, k5,
+           time_ms(lambda: ca._dual_plain(q, k1, v1, k2, v2, scale), 3),
+           bound_ms(4.0 * b * n * l * (512 + 257) * d,
+                    2.0 * b * n * d * (2 * l + 2 * (512 + 257))))
+    k1_ms = [time_ms(lambda: fa._flash_fwd_cuda(q, kc, vc, None, scale), 5)
+             for kc, vc in ((k1, v1), (k2, v2))]
+    qt, k1t, v1t, k2t, v2t = (x.transpose(1, 2) for x in (q, k1, v1, k2, v2))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    two_sdpa = time_ms(lambda: sdpa(qt, k1t, v1t) + sdpa(qt, k2t, v2t), 5)
+    results["dual_context"].update(k1_text_ms=k1_ms[0], k1_image_ms=k1_ms[1],
+                                   sdpa_two_calls_and_add_ms=two_sdpa)
+    log(f"  dual_context {tag}: {k5:.3f} ms ({keys} key columns a row for 769 keys); K1 text + "
+        f"image {k1_ms[0]:.3f} + {k1_ms[1]:.3f} = {sum(k1_ms):.3f} ms; two SDPA calls and "
+        f"their add {two_sdpa:.3f} ms")
+    del k1, v1, k2, v2
+
+
+# K5's tile edges (128 query rows, 128-key tiles, a segment's last tile
+# masked) -- (B, Lq, L1, L2, N, scale of k2): last tiles of 77 and 33 keys;
+# the image context's 257 keys (a 1-key last tile) after 160 text keys; a
+# 1-key segment; the DiT's 512 + 257 keys at a ragged Lq 200; B * N = 9
+# with last tiles of 2 and 65 keys; image logits 30x the text ones
+K5_EDGES = ((2, 3000, 77, 33, 2, 1.0), (1, 2100, 160, 257, 2, 1.0), (1, 2100, 96, 1, 2, 1.0),
+            (1, 200, 512, 257, 2, 1.0), (3, 1000, 130, 65, 3, 1.0), (2, 700, 512, 257, 2, 30.0))
+
+
+def phase_k5_edges(record, gen):
+    """K5 at K5_EDGES, D 64 and 128, against its plain version."""
+    import torch
+
+    from stableavatar_tpu_torch.ops import cross_attention as ca
+
+    for b, lq, l1, l2, n, k2_scale in K5_EDGES:
+        for d in (128, 64):
+            q = _rand(gen, (b, lq, n, d), torch.bfloat16)
+            k1, v1 = (_rand(gen, (b, l1, n, d), torch.bfloat16) for _ in range(2))
+            k2 = (_rand(gen, (b, l2, n, d), torch.float32) * k2_scale).bfloat16()
+            v2 = _rand(gen, (b, l2, n, d), torch.bfloat16)
+            tag = f"[{b},{lq},{n},{d}] x ({l1}, {l2}) k2 x {k2_scale}"
+            record("dual_context", tag, compare(
+                f"dual_context {tag}", ca._dual_cuda(q, k1, v1, k2, v2, d ** -0.5),
+                ca._dual_plain(q, k1, v1, k2, v2, d ** -0.5)), None, None)
 
 
 # the int8 wgmma kernel's tile edges (128 query rows, 128-key tiles): Lq
@@ -1454,8 +1540,9 @@ def phase_probe_kernels(results):
     bound assumes), with `torch.matmul` (bf16) and `torch._int_mm` (int8, B
     taken column-major as cuBLASLt wants it, prepared outside the timing) as
     library yardsticks; the dots probes at S3's [36, 21504, 128], their
-    inputs scaled for unit-size P and outputs in the same way.  The times
-    do not depend on the values."""
+    inputs scaled for unit-size P and outputs in the same way (S3's time
+    moves with its data: `log_softmax_shares` times it again on the forward
+    kernels' own operands)."""
     import torch
 
     from stableavatar_tpu_torch.ops import probes
@@ -1789,7 +1876,9 @@ def main() -> int:
             "launches": launches.get(name, 0), "max_abs_err": r.get("max_abs_err"),
             "ms": r.get("ms"), "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"), "library_ms": r.get("library_ms"),
-            **{k: r[k] for k in ("library_with_transpose_ms", "shapes") if k in r},
+            **{k: r[k] for k in ("library_with_transpose_ms", "shapes", "k1_text_ms",
+                                 "k1_image_ms", "sdpa_two_calls_and_add_ms")
+               if k in r},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

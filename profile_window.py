@@ -5,9 +5,9 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 profile_window.py          # generate_long, fast and bf16 paths
     python3 profile_window.py train    # train_step, 1.3B / 512x512 / 81 frames
-    python3 profile_window.py kernels  # the int8 flash kernels alone, beside K1 and SDPA
+    python3 profile_window.py kernels  # the flash forward kernels, S3 and K5 alone
     python3 profile_window.py probes   # the GEMM probe (S1 / S2) beside cuBLAS
-    python3 profile_window.py backward # the flash backward (K4) and K5 alone
+    python3 profile_window.py backward # the flash backward (K4) alone
     python3 profile_window.py forward  # the bf16 flash forward (K1, K1-LSE) alone
     python3 profile_window.py vae      # the VAE's bf16 decode and fp32 train encode
     python3 profile_window.py qkpv     # generate_long with attn_quant="qkpv" (K2v-qkpv)
@@ -36,9 +36,12 @@ device memory of the steps.
 its default key block), K3 ("qk", "qkv") and K2-LSE ("qk", "qkv", "qkpv" on
 the block of 1024) -- at the DiT self-attention shape [3, 21504, 12, 128]
 (K2-LSE at one sample's [1, 21504, 12, 128]) on the same roped, prepared
-operands, beside K1 and one SDPA call
-on the bf16 operands: the median of 20 CUDA-event timings each, after a
-warm-up, as one JSON line.  It uses only wrapper arguments that every
+operands, beside K1 and one SDPA call on the bf16 operands; the S3 dots
+probe on the same operands laid out [36, 21504, 128] (bf16, and int8 on the
+prepared q8 / k8); and K5 at [3, 21504, 12, 128] x (512, 257), and with
+the image context cut to 256 keys (its ragged last tile's cost), beside
+K1's text and image calls and two SDPA calls and their add: the median of
+20 CUDA-event timings each, after a warm-up, as one JSON line.  It uses only wrapper arguments that every
 version of the kernels takes, so the same file compares two checkouts in
 one call (copy it into each and run it from there, in turns).
 
@@ -53,8 +56,8 @@ the same row-major B with the transpose inside the timed call: medians of
 128] with Lk 21504, 512 and 257 (self, text and image attention): the
 whole `_flash_bwd_cuda` call (delta, buffers and casts included) and its
 kernels alone -- the fused K4 where the checkout has it (`sa_flash_bwd`),
-else K4a and K4b -- beside SDPA's backward, and K5 at [3, 21504, 12, 128]
-x (512, 257): medians of 20 CUDA-event timings, one JSON line.  It too
+else K4a and K4b -- beside SDPA's backward: medians of 20 CUDA-event
+timings, one JSON line.  It too
 compares two checkouts in one call.
 
 `forward` times K1 at [3, 21504, 12, 128] and K1-LSE at [1, 21504, 12,
@@ -96,12 +99,15 @@ KINDS = (
      re.compile(r"ffwd::flash_fwd_kernel<\d+, [12](, 0)?>")),
     ("K1 flash_fwd_bf16 (with or without LSE)",
      re.compile(r"flash_fwd_bf16_kernel|ffwd::flash_fwd_kernel<\d+, 0(, 0)?>")),
+    # S3's dots: the template's QK 3 (bf16) and 4 (int8)
+    ("S3 dots_probe (wgmma)", re.compile(r"ffwd::flash_fwd_kernel<\d+, [34], 0>")),
     # the mma.sync template of older checkouts: K2v / K3-qkv (and K2 / K3-qk)
     ("K2 / K2v / K2-LSE / K3 flash_fwd_int8 (mma.sync)",
      re.compile(r"flash_fwd_int8v?_kernel")),
     ("K4 flash_bwd (fused)", re.compile(r"flash_bwd_fused_kernel")),
     ("K4a flash_bwd_dkdv", re.compile(r"flash_bwd_dkdv")),
     ("K4b flash_bwd_dq", re.compile(r"flash_bwd_dq")),
+    # k5::dual_context_kernel<D> (wgmma), or the mma.sync kernel of older checkouts
     ("K5 dual_context", re.compile(r"dual_context_kernel")),
     ("SDPA (VAE attention)", re.compile(r"fmha|pytorch_flash|flash_fwd_kernel|attention", re.I)),
     ("GEMM (cuBLAS: bf16 and _int_mm)", re.compile(r"gemm|cutlass|xmma|nvjet|cublas", re.I)),
@@ -202,7 +208,9 @@ def time_kernels():
     import torch
 
     import chip_smoke
+    from stableavatar_tpu_torch.ops import cross_attention as ca
     from stableavatar_tpu_torch.ops import flash_attention as fa
+    from stableavatar_tpu_torch.ops import probes
     from stableavatar_tpu_torch.ops.rope import pack_split, rope_freqs_3d
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -216,6 +224,7 @@ def time_kernels():
     q8s, k8s, vs, sqks = q8[:1].contiguous(), k8[:1].contiguous(), v[:1].contiguous(), sqk[:n]
     v8s, svs = v8[:1].contiguous(), sv[:1].contiguous()
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     runs = {
         "K2 qk": lambda: fa._flash_int8_cuda(q8, k8, v, sqk, None),
         "K2v qkv": lambda: fa._flash_int8_cuda(q8, k8, v8, sqk, None, quant="qkv", sv=sv),
@@ -230,8 +239,27 @@ def time_kernels():
                                                        sv=svs, with_lse=True,
                                                        pv_block=fa.STATS_BLOCK_K),
         "K1": lambda: fa._flash_fwd_cuda(q, k, v, None, d ** -0.5),
-        "SDPA": lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt),
+        "SDPA": lambda: sdpa(qt, kt, vt),
     }
+    # S3 (the dots probe) on the same work, [36, 21504, 128]: each kernel's
+    # time less S3's is its softmax's share
+    qd, kd, vd = (x.transpose(1, 2).reshape(b * n, l, d).contiguous() for x in (q, k, v))
+    q8d, k8d = (x.transpose(1, 2).reshape(b * n, l, d).contiguous() for x in (q8, k8))
+    runs["S3 bf16"] = lambda: probes.dots_probe(qd, kd, vd)
+    runs["S3 int8"] = lambda: probes.dots_probe(q8d, k8d, vd, int8=True)
+    # K5 at the DiT cross-attention shape, beside K1's text and image calls
+    # and two SDPA calls and their add
+    k1, v1, k2, v2 = (torch.randn((b, lk, n, d), generator=gen, device="cuda").bfloat16()
+                      for lk in (512, 512, 257, 257))
+    runs["K5"] = lambda: ca._dual_cuda(q, k1, v1, k2, v2, d ** -0.5)
+    # the image context's ragged last tile (257 = 2 x 128 + 1): K5 on its
+    # first 256 keys
+    k2w, v2w = k2[:, :256].contiguous(), v2[:, :256].contiguous()
+    runs["K5, image 256 keys"] = lambda: ca._dual_cuda(q, k1, v1, k2w, v2w, d ** -0.5)
+    runs["K1 text"] = lambda: fa._flash_fwd_cuda(q, k1, v1, None, d ** -0.5)
+    runs["K1 image"] = lambda: fa._flash_fwd_cuda(q, k2, v2, None, d ** -0.5)
+    c1, c2 = ((x.transpose(1, 2), y.transpose(1, 2)) for x, y in ((k1, v1), (k2, v2)))
+    runs["SDPA text + image + add"] = lambda: sdpa(qt, *c1) + sdpa(qt, *c2)
     print(json.dumps({name: round(chip_smoke.time_ms(fn, 20), 3) for name, fn in runs.items()}),
           flush=True)
 
@@ -265,7 +293,6 @@ def time_backward():
     import torch
 
     import chip_smoke
-    from stableavatar_tpu_torch.ops import cross_attention as ca
     from stableavatar_tpu_torch.ops import cuda_lib
     from stableavatar_tpu_torch.ops import flash_attention as fa
 
@@ -315,9 +342,6 @@ def time_backward():
             lambda: torch.autograd.grad(o, (qt, kt, vt), gt, retain_graph=True), 20)
         res[f"lk_{lk}"] = row
         del q, g, k, v, out, lse, delta, qt, kt, vt, o
-    q = rand(3, lq, n, d)
-    k1, v1, k2, v2 = rand(3, 512, n, d), rand(3, 512, n, d), rand(3, 257, n, d), rand(3, 257, n, d)
-    res["k5_ms"] = chip_smoke.time_ms(lambda: ca._dual_cuda(q, k1, v1, k2, v2, scale), 20)
     print(json.dumps(res), flush=True)
 
 

@@ -1,9 +1,8 @@
 // Shared building blocks of the mma.sync kernels (K1-rope in
-// flash_attention.cu, K4's rope branch in flash_attention_bwd.cu,
-// cross_attention.cu and the dots probe of probes.cu); the wgmma forward
-// (K1, K2, K2v, K3), the fused K4 and mm_probe are built on
-// hopper_common.cuh and take only the constants and pack_bf16 / quad_sum /
-// ld32 from here.
+// flash_attention.cu, K4's rope branch in flash_attention_bwd.cu); the wgmma
+// forward (K1, K2, K2v, K3, the S3 dots), the fused K4, K5 and mm_probe are
+// built on hopper_common.cuh and take only the constants and pack_bf16 /
+// quad_sum / ld32 from here.
 //
 // Tiling, common to these kernels: one thread block of 4 warps owns 64
 // query rows of one (batch, head); each warp owns 16 of them and keeps its
@@ -11,8 +10,8 @@
 // f32 output accumulator in registers for the whole key loop.  K/V tiles of
 // 64 keys stream through shared memory with cp.async; the loop over tiles
 // inside the block takes the place of the TPU grid's sequential k axis.
-// Products run on the tensor cores through mma.sync (bf16 m16n8k16, and
-// s8 m16n8k32 for the dots probe's int8 Q.K^T), with f32 / s32 accumulators.
+// Products run on the tensor cores through mma.sync (bf16 m16n8k16) with f32
+// accumulators.
 //
 // Softmax is computed in the base-2 domain like the TPU kernels: log2(e) is
 // folded into the logit scale by the caller and exp2 replaces exp.  Masked
@@ -44,15 +43,6 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_s8_16832(int (&c)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
@@ -98,24 +88,6 @@ __device__ __forceinline__ void load_tile(char* smem, const char* g, long long g
     const bool ok = row0 + r < L;
     const char* src = g + (ok ? (long long)(row0 + r) * g_row_stride : 0) + c * 16;
     cp_async16(smem + r * kPitch + c * 16, src, ok);
-  }
-}
-
-// A fragments of this warp's 16 bf16 query rows (rows >= Lq read as zero).
-// q points at element (b, 0, h, 0) of a [B, Lq, N, D] tensor; consecutive
-// tokens are `rs` elements apart.
-template <int D>
-__device__ __forceinline__ void load_q_bf16(uint32_t (&qa)[D / 16][4], const __nv_bfloat16* q,
-                                            long long rs, int row_a, int Lq) {
-  const int t = threadIdx.x & 3;
-  const int row_b = row_a + 8;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + t * 2;
-    qa[kk][0] = row_a < Lq ? ld32(q + row_a * rs + c) : 0u;
-    qa[kk][1] = row_b < Lq ? ld32(q + row_b * rs + c) : 0u;
-    qa[kk][2] = row_a < Lq ? ld32(q + row_a * rs + c + 8) : 0u;
-    qa[kk][3] = row_b < Lq ? ld32(q + row_b * rs + c + 8) : 0u;
   }
 }
 
@@ -267,10 +239,12 @@ __device__ __forceinline__ void rot_inv_pair(float& g0, float& g1, float c, floa
   g1 = y1;
 }
 
-// load_q_bf16 with the rotation applied in fp32 on the way into the A
-// fragments: the thread that holds channel j of a row (fragment kk < D/32)
-// also holds j + D/2 (fragment kk + D/32), so each pair rotates in
-// registers.  Rows >= Lq read as zero; rope rows are the query positions.
+// A fragments of this warp's 16 bf16 query rows, rotated in fp32 on the way
+// in (q points at element (b, 0, h, 0) of a [B, Lq, N, D] tensor,
+// consecutive tokens `rs` elements apart): the thread that holds channel j
+// of a row (fragment kk < D/32) also holds j + D/2 (fragment kk + D/32), so
+// each pair rotates in registers.  Rows >= Lq read as zero; rope rows are
+// the query positions.
 template <int D>
 __device__ __forceinline__ void load_q_bf16_rope(uint32_t (&qa)[D / 16][4],
                                                  const __nv_bfloat16* q, long long rs, int row_a,

@@ -1,5 +1,5 @@
 // Flash-attention forward kernels for Hopper (sm_90a): K1 (bf16), K2 (int8
-// Q.K^T), K2v (int8 V) and K3 (static-bound softmax).
+// Q.K^T), K2v (int8 V) and K3 (static-bound softmax), and the S3 probe.
 //
 // K1 replaces stableavatar_tpu/ops/flash_attention.py:_flash_fwd_impl (body
 // `_fwd_body`): softmax(q k^T * scale) v over [B, L, N, D] bf16, read in
@@ -116,6 +116,14 @@
 //   K3's bound is per 64 query rows, so each consumer warpgroup reads its
 //   own.  No atomics: two launches agree bit for bit.
 //
+// S3, the dots probe (`sa_dots_probe`, scripts/bench_attn_blocks.py:
+// dots_only / int8_dots_only), is two more instances, QK = kQkBf16Dots and
+// kQkInt8Dots with bf16 V: K1's or K2's producer, ring and consumers with
+// the softmax taken out -- P = bf16(S), or bf16(float(S >> 7)) of the s32
+// logits, no running max, no row sum, no divide, no mask (zero-filled keys
+// give P = 0 against zero-filled V).  So K1 - S3 bf16 and K2 - S3 int8 are
+// the softmax's share of the template's time.
+//
 // K1-rope (`flash_attention(rope=)`, on no main path) keeps the first
 // mma.sync design: 4 warps own 64 query rows, one cp.async K/V stage of
 // 64-key tiles, with the split-pair rotation of `_fwd_body`'s `rope=`
@@ -223,7 +231,12 @@ enum Qk {
   kQkBf16 = 0,        // K1: bf16 Q, K; online softmax
   kQkInt8 = 1,        // K2: int8 Q8, K8 on the s8 tensor cores, times sqk; online softmax
   kQkInt8Static = 2,  // K3-qk: as K2 under K3's static bound, no running max
+  kQkBf16Dots = 3,    // S3 bf16: K1's Q.K^T, P = bf16(S), no softmax
+  kQkInt8Dots = 4,    // S3 int8: K2's Q8.K8^T, P = bf16(float(S >> 7)), no softmax
 };
+
+// Q and K arrive as int8 (the s8 tensor-core instances)
+constexpr bool int8_qk(int qk) { return qk == kQkInt8 || qk == kQkInt8Static || qk == kQkInt8Dots; }
 
 // the V path of an instance (template parameter)
 enum Vm {
@@ -236,7 +249,7 @@ enum Vm {
 // swizzled operand starts on a 1024-byte boundary
 template <int D, int QK, int VM>
 struct Smem {
-  static constexpr bool kInt8 = QK != kQkBf16;
+  static constexpr bool kInt8 = int8_qk(QK);
   // S runs a tile ahead of P V: at least 3 stages.  K8 is half the bytes of
   // a bf16 K, so int8 fits a fourth (208 KB at D = 128): K2 ran 1% faster
   // with it than with 3 on the H100 (PERF.md).  qkv's widened V takes 32 KB
@@ -404,17 +417,25 @@ __device__ __forceinline__ void logits_softmax(float (&sacc)[64], int (&si)[NI],
                                                float scale_log2, float slab, float bound,
                                                float& m0, float& m1, float& l0, float& l1,
                                                float& c0, float& c1) {
-  if constexpr (QK != kQkBf16) {
-    fence_regs(si);
+  if constexpr (QK == kQkBf16Dots) {
+    fence_regs(sacc);  // S3: P is S itself (rounded by the packing)
+  } else if constexpr (QK == kQkInt8Dots) {
+    fence_regs(si);  // exact: |S >> 7| < 2^24
 #pragma unroll
-    for (int i = 0; i < 64; ++i) sacc[i] = __int2float_rn(si[i]) * slab;
+    for (int i = 0; i < 64; ++i) sacc[i] = __int2float_rn(si[i] >> 7);
   } else {
-    fence_regs(sacc);
-  }
-  if constexpr (QK == kQkInt8Static) {
-    softmax_static_tile(sacc, k0, klen, bound, l0, l1);
-  } else {
-    softmax_tile(sacc, k0, klen, QK == kQkBf16 ? scale_log2 : 1.f, m0, m1, l0, l1, c0, c1);
+    if constexpr (QK != kQkBf16) {
+      fence_regs(si);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sacc[i] = __int2float_rn(si[i]) * slab;
+    } else {
+      fence_regs(sacc);
+    }
+    if constexpr (QK == kQkInt8Static) {
+      softmax_static_tile(sacc, k0, klen, bound, l0, l1);
+    } else {
+      softmax_tile(sacc, k0, klen, QK == kQkBf16 ? scale_log2 : 1.f, m0, m1, l0, l1, c0, c1);
+    }
   }
 }
 
@@ -719,6 +740,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  float* __restrict__ lse, int Lq, int Lk, int N, float scale_log2, int pv_block) {
   using S = Smem<D, QK, VM>;
   constexpr bool kInt8 = S::kInt8, kStatic = QK == kQkInt8Static;
+  constexpr bool kDots = QK == kQkBf16Dots || QK == kQkInt8Dots;  // S3: no softmax
   constexpr int kStages = S::kStages;
   constexpr int kAcc = D / 2;  // fp32 registers of a [64, D] output accumulator
   extern __shared__ unsigned char smem_raw[];
@@ -869,7 +891,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t q_wg = smem_u32(sm + S::off_q) + wg * 64 * S::kQKRow;  // this warpgroup's rows
     // the int8 logits leave the tensor cores unscaled; K3's bound is this
     // warpgroup's (its 64 rows are one 64-row block of the bound)
-    const float slab = kInt8 ? sqk[bh] : 0.f;
+    const float slab = kInt8 && !kDots ? sqk[bh] : 0.f;
     const int qb = blockIdx.x * 2 + wg;
     const float bound = kStatic && qb < nqb ? mstat[(long long)bh * nqb + qb] : 0.f;
 
@@ -918,7 +940,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int kq = 0; kq < kBlockN / 16; ++kq) fence_regs(pa[kq]);  // read until here
         mbar_arrive(&empty[s]);  // K and V of stage s are read
-        if constexpr (!kStatic) {
+        if constexpr (!kStatic && !kDots) {
 #pragma unroll
           for (int i = 0; i < kAcc / 4; ++i) {
             o[4 * i] *= c0;
@@ -936,7 +958,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(o);
     }
 
-    const float lf0 = fmaxf(quad_sum(l0), 1e-30f), lf1 = fmaxf(quad_sum(l1), 1e-30f);
+    // S3 sums P V unnormalised
+    const float lf0 = kDots ? 1.f : fmaxf(quad_sum(l0), 1e-30f);
+    const float lf1 = kDots ? 1.f : fmaxf(quad_sum(l1), 1e-30f);
     const long long rs = (long long)N * D;
     __nv_bfloat16* ob = out + ((long long)b * Lq * N + h) * D;
 #pragma unroll
@@ -1107,4 +1131,17 @@ extern "C" int sa_flash_fwd_int8_static_qkv(const void* q8, const void* k8, cons
                                             int Lq, int Lk, int N, int D, void* stream) {
   return launch_fwd_d<sa::ffwd::kQkInt8Static, sa::ffwd::kVInt8>(
       q8, k8, v8, sv, k_lens, sqk, mstat, out, lse, B, Lq, Lk, N, D, 0.f, 0, stream);
+}
+
+// S3 (the probe of csrc/probes.cu's header): out [BH, L, D] bf16 from q, k
+// [BH, L, D] (bf16, or int8 with int8 != 0) and v [BH, L, D] bf16 -- the
+// template's [B, L, N * D] with N = 1, every key valid
+extern "C" int sa_dots_probe(const void* q, const void* k, const void* v, void* out, int BH,
+                             int L, int D, int int8, void* stream) {
+  if (int8) {
+    return launch_fwd_d<sa::ffwd::kQkInt8Dots, sa::ffwd::kVBf16>(
+        q, k, v, nullptr, nullptr, nullptr, nullptr, out, nullptr, BH, L, L, 1, D, 0.f, 0, stream);
+  }
+  return launch_fwd_d<sa::ffwd::kQkBf16Dots, sa::ffwd::kVBf16>(
+      q, k, v, nullptr, nullptr, nullptr, nullptr, out, nullptr, BH, L, L, 1, D, 0.f, 0, stream);
 }

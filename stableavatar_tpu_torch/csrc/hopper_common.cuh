@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: shared-memory
-// addresses, mbarriers, TMA tensor loads and bulk reductions, wgmma
-// descriptors and products (bf16 into fp32, s8 into s32, A from shared
+// addresses, mbarriers, TMA tensor loads and stores and bulk reductions,
+// wgmma descriptors and products (bf16 into fp32, s8 into s32, A from shared
 // memory or registers), named barriers and register hand-over (setmaxnreg),
 // and the host side: TMA tensor maps (bf16 and int8, 3-D over [B, L, N * D]
 // and 2-D over matrices) and the dynamic shared-memory opt-in.  Used by
-// flash_attention.cu (K1, K1-LSE, K2, K2v, K2-LSE, K3), flash_attention_bwd.cu
-// (the fused K4) and probes.cu (mm_probe).
+// flash_attention.cu (K1, K1-LSE, K2, K2v, K2-LSE, K3, the S3 dots),
+// flash_attention_bwd.cu (the fused K4), cross_attention.cu (K5) and
+// probes.cu (mm_probe).
 //
 // Shared-memory operands are stored in the 128-byte swizzle that TMA's
 // CU_TENSOR_MAP_SWIZZLE_128B writes: a tile of R rows x 128 bytes (64 bf16
@@ -94,6 +95,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// a 3-D box of shared memory out to `map` at [c0, c1, c2]; parts past the
+// tensor's edges are not written.  Completes in this thread's bulk group
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 

@@ -1,4 +1,5 @@
-// Hopper probes (sm_90a): the GEMM of S1-S2 and the flash-grid dots of S3.
+// Hopper probes (sm_90a): the GEMM of S1-S2 (the flash-grid dots of S3 are
+// instances of flash_attention.cu's forward template).
 //
 // mm_probe replaces the Pallas GEMMs of scripts/microbench_pallas_int8.py:
 // mm_pallas (:19) and scripts/microbench_pallas_int8_variants.py:build (:27)
@@ -38,15 +39,15 @@
 //   outputs exact, bf16 rounded once), stages the tile in shared memory and
 //   writes it out in coalesced 16-byte stores.
 //
-// dots_probe replaces scripts/bench_attn_blocks.py:dots_only (:61) and
+// dots_probe (S3) replaces scripts/bench_attn_blocks.py:dots_only (:61) and
 // int8_dots_only (:119): the flash grid with no softmax, out [BH, L, D] =
 // sum over all keys of bf16(q . k^T) . v (bf16 q, k) or of
 // bf16(int32(q8 . k8^T) >> 7) . v (int8 q8, k8), fp32 sums, bf16 out; v is
-// bf16.  k8 is read row-major [L, D] (the TPU's [D, L] pre-transpose is a
-// layout of its matrix unit).  It is its own kernel on attention_common.cuh's
-// tiles and fragments (K1's first design: 64 query rows, 64-key tiles), so
-// it measures what the mma.sync kernels issued.  Bound: 4 L^2 D operations
-// per (batch, head), compute-bound like K1 / K2.
+// bf16.  It is two instances of the wgmma forward template
+// (flash_attention.cu: `ffwd::flash_fwd_kernel<D, kQkBf16Dots / kQkInt8Dots,
+// kVBf16>`, entry `sa_dots_probe` there), so that it measures what K1 and K2
+// issue without their softmax.  Bound: 4 L^2 D operations per (batch,
+// head), compute-bound like K1 / K2.
 #include <type_traits>
 
 #include "attention_common.cuh"
@@ -242,94 +243,6 @@ mm_probe_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant_
 
 }  // namespace probe
 
-// S[16, 64] = float(int32(Q8 . K8_tile^T) >> 7) on the s8 tensor cores
-// (the shifted integers are below 2^24, exact in fp32)
-template <int D>
-__device__ __forceinline__ void qk_s8_shift7(float (&s)[kNT][4], const uint32_t (&qa)[D / 32][4],
-                                             const int8_t* Ks) {
-  constexpr int kPitch8 = D + 16;  // bytes
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  int si[kNT][4];
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) si[nt][0] = si[nt][1] = si[nt][2] = si[nt][3] = 0;
-#pragma unroll
-  for (int kk = 0; kk < D / 32; ++kk) {
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      const int8_t* kr = Ks + (nt * 8 + g) * kPitch8 + kk * 32 + t * 4;
-      mma_s8_16832(si[nt], qa[kk], ld32(kr), ld32(kr + 16));
-    }
-  }
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = static_cast<float>(si[nt][e] >> 7);
-  }
-}
-
-// One block: 64 query rows of one (batch, head) against all L keys in
-// 64-key tiles; P = bf16(S) is packed into A fragments by pv_bf16 and never
-// leaves registers.  Ragged L needs no mask: zero-filled K rows give S = 0
-// and zero-filled V rows add nothing.
-template <int D, bool INT8>
-__global__ void __launch_bounds__(kThreads)
-dots_probe_kernel(const void* __restrict__ q, const void* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int L) {
-  constexpr int kKRow = INT8 ? D : 2 * D;  // bytes of one K row
-  __shared__ __align__(16) char Ks[kBlockK * (kKRow + 16)];
-  __shared__ __align__(16) unsigned short Vs[kBlockK * (D + 8)];
-
-  const int bh = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row_a = blockIdx.x * kBlockQ + warp * 16 + g, row_b = row_a + 8;
-  const long long off = (long long)bh * L * D;
-
-  uint32_t qa[INT8 ? D / 32 : D / 16][4];
-  if constexpr (INT8) {
-    const int8_t* qb = static_cast<const int8_t*>(q) + off;
-#pragma unroll
-    for (int kk = 0; kk < D / 32; ++kk) {
-      const int c = kk * 32 + t * 4;
-      qa[kk][0] = row_a < L ? ld32(qb + (long long)row_a * D + c) : 0u;
-      qa[kk][1] = row_b < L ? ld32(qb + (long long)row_b * D + c) : 0u;
-      qa[kk][2] = row_a < L ? ld32(qb + (long long)row_a * D + c + 16) : 0u;
-      qa[kk][3] = row_b < L ? ld32(qb + (long long)row_b * D + c + 16) : 0u;
-    }
-  } else {
-    load_q_bf16<D>(qa, static_cast<const __nv_bfloat16*>(q) + off, D, row_a, L);
-  }
-  const char* kb = static_cast<const char*>(k) + off * (kKRow / D);
-  const char* vb = reinterpret_cast<const char*>(v + off);
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-
-  const int ntiles = (L + kBlockK - 1) / kBlockK;
-  for (int it = 0; it < ntiles; ++it) {
-    const int k0 = it * kBlockK;
-    load_tile<kKRow>(Ks, kb, kKRow, k0, L);
-    cp_async_commit();
-    load_tile<D * 2>(reinterpret_cast<char*>(Vs), vb, D * 2, k0, L);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    float s[kNT][4];
-    if constexpr (INT8) {
-      qk_s8_shift7<D>(s, qa, reinterpret_cast<const int8_t*>(Ks));
-    } else {
-      qk_bf16<D>(s, qa, reinterpret_cast<const unsigned short*>(Ks));
-    }
-
-    cp_async_wait<0>();
-    __syncthreads();
-    pv_bf16<D>(acc, s, Vs);
-    __syncthreads();
-  }
-  store_rows<D>(out + off, D, row_a, L, acc);
-}
-
 }  // namespace sa
 
 // --------------------------------------------------------------------------
@@ -373,26 +286,4 @@ extern "C" int sa_mm_probe(const void* a, const void* b, void* out, int M, int N
     default:
       return run(p::mm_probe_kernel<p::kScaled>, s8);
   }
-}
-
-// out [BH, L, D] bf16 from q, k [BH, L, D] (bf16, or int8 with int8 != 0)
-// and v [BH, L, D] bf16; D is 64 or 128
-extern "C" int sa_dots_probe(const void* q, const void* k, const void* v, void* out, int BH,
-                             int L, int D, int int8, void* stream) {
-  const dim3 grid((L + sa::kBlockQ - 1) / sa::kBlockQ, BH);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto v_ = static_cast<const __nv_bfloat16*>(v);
-  auto o_ = static_cast<__nv_bfloat16*>(out);
-  if (D == 128 && int8) {
-    sa::dots_probe_kernel<128, true><<<grid, sa::kThreads, 0, st>>>(q, k, v_, o_, L);
-  } else if (D == 128) {
-    sa::dots_probe_kernel<128, false><<<grid, sa::kThreads, 0, st>>>(q, k, v_, o_, L);
-  } else if (D == 64 && int8) {
-    sa::dots_probe_kernel<64, true><<<grid, sa::kThreads, 0, st>>>(q, k, v_, o_, L);
-  } else if (D == 64) {
-    sa::dots_probe_kernel<64, false><<<grid, sa::kThreads, 0, st>>>(q, k, v_, o_, L);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -3,10 +3,10 @@
 Port of `stableavatar_tpu/ops/cross_attention.py`:
 out = attn(q, k1, v1) + attn(q, k2, v2) with a separate softmax per context
 (text L1 = 512, CLIP image L2 = 257 at the Wan token budgets).  On a CUDA
-tensor it launches the hand-written Hopper kernel (`csrc/cross_attention.cu`,
-two sweeps of each segment's keys: row statistics, then the normalised
-P.V); on a CPU tensor it runs `_dual_plain`, the TPU kernel's arithmetic
-(`_dual_body`).
+tensor it launches the hand-written Hopper kernel (`csrc/cross_attention.cu`:
+wgmma and a TMA ring, two sweeps of each segment's keys: row statistics,
+then the normalised P.V); on a CPU tensor it runs `_dual_plain`, the TPU
+kernel's arithmetic (`_dual_body`).
 
 The TPU kernel normalises P per segment, rounds it to the value dtype and
 runs one P.V over both segments; `_dual_plain` and the Hopper kernel round
@@ -30,6 +30,10 @@ from stableavatar_tpu_torch.ops.flash_attention import (
 )
 
 launch_counts = {"dual_context": 0}
+
+# keys per K / V tile of the kernel (`csrc/cross_attention.cu`: k5::kBlockN);
+# a segment's ragged last tile is masked, not skipped
+KERNEL_BLOCK_K = 128
 
 
 def _dual_plain(q, k1, v1, k2, v2, scale):
@@ -62,6 +66,8 @@ def _dual_cuda(q, k1, v1, k2, v2, scale):
     l1, l2 = k1.shape[1], k2.shape[1]
     if d not in (64, 128):
         raise ValueError(f"head dim {d}: the kernel takes 64 or 128")
+    if min(l1, l2) < 1:
+        raise ValueError(f"contexts of {l1} and {l2} keys: the kernel takes at least one each")
     _check("q", q, torch.bfloat16)
     for name, t, l in (("k1", k1, l1), ("v1", v1, l1), ("k2", k2, l2), ("v2", v2, l2)):
         _check(name, t, torch.bfloat16, (b, l, n, d))

@@ -63,7 +63,7 @@ SIGNATURES = {
     # q, k, v, dout, lse, delta, k_lens, rope, dq, B, Lq, Lk, N, D, scale, scale_log2, stream
     "sa_flash_bwd_dq_rope": [_P] * 9 + [_I] * 5 + [_F, _F, _P],
     # q, k1, v1, k2, v2, out, B, Lq, L1, L2, N, D, scale_log2, stream
-    "sa_dual_context": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "sa_dual_context": [_P] * 6 + [_I] * 6 + [_F, _P],
     # a, b, out, M, N, K, epilogue, stream
     "sa_mm_probe": [_P] * 3 + [_I] * 4 + [_P],
     # q, k, v, out, BH, L, D, int8, stream

@@ -9,8 +9,9 @@ dots_only` / `int8_dots_only`), driven by the port's scripts in
 int8 tensor-core product runs at about twice bf16 inside a hand-written
 kernel.
 
-On a CUDA tensor each wrapper launches its kernel (`csrc/probes.cu`); on a
-CPU tensor it runs the plain PyTorch version beside it (`_mm_plain`,
+On a CUDA tensor each wrapper launches its kernel (`csrc/probes.cu` for the
+GEMM; the dots are two instances of the wgmma flash forward template,
+`csrc/flash_attention.cu`); on a CPU tensor it runs the plain PyTorch version beside it (`_mm_plain`,
 `_dots_plain`).  A CUDA call the kernel does not take raises.
 
 - `mm_probe(a, b, epilogue)`: a [M, K] . b [K, N], both row-major as in the

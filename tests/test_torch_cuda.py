@@ -22,6 +22,7 @@ probes stay within rel-L2 1e-2.
 import pytest
 import torch
 
+import chip_smoke
 from stableavatar_tpu_torch.ops import cross_attention as ca
 from stableavatar_tpu_torch.ops import flash_attention as fa
 from stableavatar_tpu_torch.ops import probes
@@ -259,20 +260,31 @@ def test_backward_through_attention(gen):
         fa.flash_attention(q, k, v, quant="qk")
 
 
-def test_dual_context_kernel_matches_plain(gen):
-    b, l, n, d = 2, 3000, 2, 128
+# K5's tile edges (chip_smoke.K5_EDGES: B, Lq, L1, L2, N, scale of k2), each
+# with its max-abs bound.  The kernel and its plain version differ by the
+# order of their fp32 sums: one bf16 ulp of the output, 3.9e-3 where outputs
+# stay below 1 (the first case).  A 1-key segment or a peaked softmax puts
+# single V rows (|v| up to 5) in the output, whose ulp is 1.6e-2 to 3.1e-2
+# (1.56e-2 measured on the H100): the other cases take chip_smoke.py's
+# ABS_TOL
+K5_CASES = [(*edge, 1e-2 if i == 0 else chip_smoke.ABS_TOL)
+            for i, edge in enumerate(chip_smoke.K5_EDGES)]
+
+
+@pytest.mark.parametrize("d", [128, 64])
+@pytest.mark.parametrize("b,l,l1,l2,n,k2_scale,abs_tol", K5_CASES)
+def test_dual_context_kernel_matches_plain(gen, b, l, l1, l2, n, k2_scale, abs_tol, d):
     q = _randn(gen, b, l, n, d)
-    k1, v1 = _randn(gen, b, 77, n, d), _randn(gen, b, 77, n, d)
-    k2, v2 = _randn(gen, b, 33, n, d), _randn(gen, b, 33, n, d)
+    k1, v1 = _randn(gen, b, l1, n, d), _randn(gen, b, l1, n, d)
+    k2, v2 = (_randn(gen, b, l2, n, d) * k2_scale).bfloat16(), _randn(gen, b, l2, n, d)
     before = ca.launch_counts["dual_context"]
     out = ca.dual_context_attention(q, k1, v1, k2, v2)
+    assert ca.launch_counts["dual_context"] == before + 1
     want = ca._dual_plain(q, k1, v1, k2, v2, d ** -0.5)
-    # K5 rounds P where the plain version does: the two differ by the order
-    # of their fp32 sums, one bf16 ulp of the output (3.9e-3 on the H100)
+    # K5 rounds P where the plain version does (K5_CASES: the bounds)
     max_abs = float((out.float() - want.float()).abs().max())
     print(f"K5 against _dual_plain: max_abs {max_abs:.3e}")
-    assert _rel(out, want) < REL_TOL and max_abs < 1e-2
-    assert ca.launch_counts["dual_context"] == before + 1
+    assert _rel(out, want) < REL_TOL and max_abs < abs_tol
 
 
 def test_attention_dispatch_on_cuda(gen):
@@ -494,7 +506,10 @@ def test_mm_probe_matches_plain(gen, m, k, n, epilogue):
             assert torch.equal(got.cpu(), probes.mm_probe(a.cpu(), b.cpu(), epilogue))
 
 
-@pytest.mark.parametrize("bh,l,d", [(3, 1000, 128), (2, 700, 64)])
+# S3 on the wgmma template's tile edges (128 query rows, 128-key tiles):
+# ragged L 200, 700, 1000 and 3000, D 64 and 128
+@pytest.mark.parametrize("bh,l,d", [(3, 1000, 128), (2, 700, 64), (2, 200, 128), (2, 200, 64),
+                                    (1, 3000, 128), (1, 3000, 64)])
 @pytest.mark.parametrize("int8", [False, True])
 def test_dots_probe_matches_plain(gen, bh, l, d, int8):
     q, k, v = (torch.randn((bh, l, d), generator=gen, device="cuda") for _ in range(3))

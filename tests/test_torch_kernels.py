@@ -338,17 +338,30 @@ def test_k2v_qkpv_quantises_on_the_jax_block():
                                              out_dtype=torch.float32))
 
 
-def _mk(b=2, lq=256, l1=96, l2=33, n=2, d=64, seed=0):
+def _mk(b=2, lq=256, l1=96, l2=33, n=2, d=64, seed=0, k2_scale=1.0):
     rng = np.random.default_rng(seed)
-    return [rng.standard_normal(s).astype(np.float32)
+    arrs = [rng.standard_normal(s).astype(np.float32)
             for s in [(b, lq, n, d), (b, l1, n, d), (b, l1, n, d), (b, l2, n, d), (b, l2, n, d)]]
+    arrs[3] *= np.float32(k2_scale)
+    return arrs
 
 
-@pytest.mark.parametrize("case", ["both_padded", "ragged_q", "lane_aligned"])
+# the Hopper kernel's tile edges (128 query rows, 128-key tiles, a
+# segment's last tile masked): the image context's 257 keys (a 1-key last
+# tile) at D 128, a 1-key segment, the DiT's 512 + 257 keys at a ragged Lq,
+# B * N = 9 with last tiles of 2 and 65 keys, and image logits 30x the text
+# ones (a max shared by the segments would underflow the text's P)
+K5_CASES = {"both_padded": dict(), "ragged_q": dict(lq=200),
+            "lane_aligned": dict(l1=128, l2=128, seed=3),
+            "l2_257_d128": dict(l1=160, l2=257, d=128, seed=4), "l2_1": dict(l2=1, seed=5),
+            "dit_contexts_lq200": dict(lq=200, l1=512, l2=257, seed=6),
+            "bn9": dict(b=3, n=3, lq=136, l1=130, l2=65, seed=8),
+            "segment_scales_30x": dict(k2_scale=30.0, seed=9)}
+
+
+@pytest.mark.parametrize("case", list(K5_CASES))
 def test_k5_plain_matches_pallas_f32(case):
-    kw = {"both_padded": dict(), "ragged_q": dict(lq=200),
-          "lane_aligned": dict(l1=128, l2=128, seed=3)}[case]
-    arrs = _mk(**kw)
+    arrs = _mk(**K5_CASES[case])
     want = jca.dual_context_attention(*map(jnp.asarray, arrs), block_q=128, interpret=True)
     got = tca.dual_context_attention(*map(t, arrs))
     assert got.shape == tuple(want.shape)
