@@ -10,7 +10,8 @@ exits non-zero):
 1. device   -- require CUDA, print the card's name and power limit, build the
                hand-written kernels from csrc/, print the build seconds and
                ptxas's report (registers, spills, warnings), and fail on a
-               spill in any wgmma forward or K5 instance;
+               spill in any wgmma forward, K5 or fused K4 instance or in
+               the rope passes;
 2. kernels  -- K1 (bf16 flash), K2 (int8-QK flash), K2v (int8 V: "qkv",
                "qkpv"), K3 (static-bound softmax, "qk" and "qkv", with its
                LSE and the count of rows whose sum underflows), K5
@@ -68,8 +69,11 @@ exits non-zero):
                gloo (tests/test_torch_parallel.py).
 
 11. remaining -- the entry points of the last kernels: K1-rope (with and
-               without its LSE) and K4's rope branch against their plain
-               versions (and K1 behind two out-of-kernel rotation passes),
+               without its LSE) and K4-rope against their plain versions
+               and, bit for bit, against the same functions with the
+               rotation or the inverse rotation done by PyTorch; the rope
+               passes (`rope_rotate`, `rope_finalize_bwd`) exactly against
+               their plain versions, with their byte bounds;
                the probes S1-S3 (`ops/probes.py`: the GEMM's four epilogues
                at the scripts' shape and the DiT's linears, int8 outputs
                exactly, with torch.matmul / torch._int_mm as yardsticks,
@@ -143,17 +147,22 @@ KERNEL_SOURCES = {
                                "stableavatar_tpu/ops/flash_attention.py:1073"),
     "flash_fwd_int8_qkpv_lse": ("stableavatar_tpu_torch/csrc/flash_attention.cu",
                                 "stableavatar_tpu/ops/flash_attention.py:1073"),
-    # K1-rope: `_rot` applied in `_fwd_body` (:142-143), reached from
-    # flash_attention(rope=) / flash_attention_with_stats(rope=)
+    # K1-rope: `_fwd_body`'s rope branch (`_rot` at :142-143), reached from
+    # flash_attention(rope=) / flash_attention_with_stats(rope=): the
+    # rotation pass, then K1 on the rotated copies (its row's source)
     "flash_fwd_bf16_rope": ("stableavatar_tpu_torch/csrc/flash_attention.cu",
                             "stableavatar_tpu/ops/flash_attention.py:142"),
     "flash_fwd_bf16_rope_lse": ("stableavatar_tpu_torch/csrc/flash_attention.cu",
                                 "stableavatar_tpu/ops/flash_attention.py:142"),
-    # K4's rope branch: `_rot` on the tiles, `_rot_inv` on dK / dQ
-    "flash_bwd_dkdv_rope": ("stableavatar_tpu_torch/csrc/flash_attention_bwd.cu",
-                            "stableavatar_tpu/ops/flash_attention.py:731"),
-    "flash_bwd_dq_rope": ("stableavatar_tpu_torch/csrc/flash_attention_bwd.cu",
-                          "stableavatar_tpu/ops/flash_attention.py:804"),
+    # K4-rope: the rope branches of both backward bodies (`_rot` at :731 /
+    # :804, `_rot_inv` at :771 / :837): the fused K4, then the finalize pass
+    "flash_bwd_rope": ("stableavatar_tpu_torch/csrc/flash_attention_bwd.cu",
+                       "stableavatar_tpu/ops/flash_attention.py:731"),
+    # the two passes of rope.cu: `_rot` (:87) and `_rot_inv` (:96)
+    "rope_rotate": ("stableavatar_tpu_torch/csrc/rope.cu",
+                    "stableavatar_tpu/ops/flash_attention.py:87"),
+    "rope_finalize_bwd": ("stableavatar_tpu_torch/csrc/rope.cu",
+                          "stableavatar_tpu/ops/flash_attention.py:96"),
     # S1-S3, the probe scripts' Pallas kernels
     "mm_probe_bf16": ("stableavatar_tpu_torch/csrc/probes.cu",
                       "scripts/microbench_pallas_int8.py:19"),
@@ -169,8 +178,9 @@ KERNEL_SOURCES = {
     "dots_probe_int8": ("stableavatar_tpu_torch/csrc/flash_attention.cu",
                         "scripts/bench_attn_blocks.py:119"),
 }
-# the wgmma / TMA kernels whose ptxas report must show no spill
-NO_SPILL_KERNELS = ("flash_fwd_kernel", "dual_context_kernel")
+# the kernels whose ptxas report must show no spill
+NO_SPILL_KERNELS = ("flash_fwd_kernel", "dual_context_kernel", "flash_bwd_fused_kernel",
+                    "rope_rotate_kernel", "rope_finalize_bwd_kernel")
 INFERENCE_KERNELS = ("flash_fwd_bf16", "flash_fwd_int8_qk", "dual_context")
 CLI_KERNELS = ("flash_fwd_int8_static_qk",)
 VARIANT_KERNELS = ("flash_fwd_int8_qkv", "flash_fwd_int8_qkpv", "flash_fwd_int8_static_qkv")
@@ -1213,7 +1223,7 @@ def phase_train(models, dit_params, reset_counts, counts):
         # clip-level mode (global vocal); forward twice under remat, one backward
         calls = cfg.num_layers * (3 * TRAIN_STEPS + n_clip)
         want = {"flash_fwd_bf16_lse": 2 * calls, "flash_bwd": calls,
-                "flash_bwd_dkdv_rope": 0, "flash_bwd_dq_rope": 0,
+                "rope_rotate": 0, "rope_finalize_bwd": 0,
                 "flash_fwd_bf16": 0, "flash_fwd_int8_qk": 0, "dual_context": 0}
         if {k: launches[k] for k in want} != want:
             raise AssertionError(f"training launch counts {launches} != {want}")
@@ -1413,24 +1423,41 @@ def phase_ring_path(reset_counts, counts):
     return launches
 
 
-# phase 11: the entry points of the remaining kernels
-ROPE_KERNELS = ("flash_fwd_bf16_rope", "flash_fwd_bf16_rope_lse", "flash_bwd_dkdv_rope",
-                "flash_bwd_dq_rope")
+# phase 11: the entry points of the remaining kernels.  K1-rope is one
+# `rope_rotate` and one K1 launch, K4-rope one fused K4 and one
+# `rope_finalize_bwd`: their rows count the K1 / K4 launches that ran
+# behind a rotation in the rope path's run
+ROPE_KERNELS = ("rope_rotate", "rope_finalize_bwd", "flash_fwd_bf16_rope",
+                "flash_fwd_bf16_rope_lse", "flash_bwd_rope")
 PROBE_KERNELS = ("mm_probe_bf16", "mm_probe_int8", "mm_probe_requant", "mm_probe_scaled",
                  "dots_probe_bf16", "dots_probe_int8")
 
 
-def phase_rope_kernels(results, l=21504, grid=(21, 32, 32)):
-    """K1-rope (with and without its LSE) and K4's rope branch against their
-    plain versions (rotate, plain K1 / K4, inverse-rotate dQ and dK): at the
-    DiT self-attention shape [3, 21504, 12, 128] for the forward, the
-    training shape [1, 21504, 12, 128] for K1-rope-LSE and K4-rope, and one
-    ragged case each; times with their bounds (K1's and K4's work plus the
-    fp32 table read once), and K1 behind two out-of-kernel rotation passes
-    (`rope_apply_split` x 2 + K1), the dispatch `ops/attention.py` keeps."""
+def require_equal(name: str, got, want) -> None:
+    """Raise unless two results are equal bit for bit."""
     import torch
 
-    from stableavatar_tpu_torch.ops import cuda_lib
+    for a, w in zip(got, want) if isinstance(got, tuple) else [(got, want)]:
+        if not torch.equal(a, w):
+            raise AssertionError(f"{name}: not equal bit for bit "
+                                 f"(max_abs {float((a.float() - w.float()).abs().max()):.3e})")
+    log(f"  {name}: equal bit for bit")
+
+
+def phase_rope_kernels(results, l=21504, grid=(21, 32, 32)):
+    """K1-rope (with and without its LSE) and K4-rope against their plain
+    versions (rotate, plain K1 / K4, inverse-rotate dQ and dK) and against
+    the same functions composed out of the rope kernels (the rotation in
+    PyTorch then K1; K4 then the inverse rotation in PyTorch), which they
+    must equal bit for bit: at the DiT self-attention shape [3, 21504, 12,
+    128] for the forward, the training shape [1, 21504, 12, 128] for
+    K1-rope-LSE and K4-rope, and ragged cases (one with one query split and
+    whole key blocks past k_lens).  The two passes of `csrc/rope.cu`
+    (`rope_rotate`, `rope_finalize_bwd`) must equal their plain versions
+    exactly and are timed beside their byte bounds and those versions (two
+    and three PyTorch passes)."""
+    import torch
+
     from stableavatar_tpu_torch.ops import flash_attention as fa
     from stableavatar_tpu_torch.ops.rope import pack_split, rope_apply_split, rope_freqs_3d
 
@@ -1440,66 +1467,107 @@ def phase_rope_kernels(results, l=21504, grid=(21, 32, 32)):
     rope = pack_split(rope_freqs_3d(grid, d, device="cuda"))
     table_bytes = 4.0 * l * d
 
-    def record(name, err, ms=None, plain_ms=None, bound=None, tag=""):
+    def record(name, err, ms=None, plain_ms=None, bound=None, tag="", composed_ms=None):
         entry = results.setdefault(name, {"max_abs_err": 0.0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         if ms is not None:
             entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
                          library_ms=None)
+            if composed_ms is not None:
+                entry["out_of_kernel_ms"] = composed_ms
             log(f"  {name} {tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-                f"{bound[0]:.3f} ms ({bound[1]}), library —")
+                f"{bound[0]:.3f} ms ({bound[1]}), library —"
+                + ("" if composed_ms is None else f", out of the kernels {composed_ms:.3f} ms"))
 
-    # K1-rope at the DiT self-attention shape
+    # K1-rope and rope_rotate at the DiT self-attention shape
     b = 3
     q, k, v = (_rand(gen, (b, l, n, d), bf16) for _ in range(3))
     scale = d ** -0.5
     tag = f"[{b},{l},{n},{d}]"
+    qk_bytes = 2.0 * b * l * n * d * 2  # q and k, bf16
+
+    def torch_rotation():
+        return rope_apply_split(q, rope).to(bf16), rope_apply_split(k, rope).to(bf16)
+
+    rotated = fa._rope_rotate_cuda(q, k, rope)
+    require_equal(f"rope_rotate {tag} against rope_apply_split x 2 + cast", rotated,
+                  torch_rotation())
+    record("rope_rotate", 0.0, time_ms(lambda: fa._rope_rotate_cuda(q, k, rope), 20),
+           time_ms(torch_rotation, 5), bound_ms(0.0, 2 * qk_bytes + table_bytes), tag)
+    del rotated
     got = fa._flash_fwd_cuda(q, k, v, None, scale, rope=rope)
     want = fa._flash_fwd_plain(q, k, v, None, scale, rope=rope)
-    err = compare(f"flash_fwd_bf16_rope {tag}", got, want)
+    err = compare(f"flash_fwd_bf16 rope {tag}", got, want)
     del want
-    fwd_ops = 4.0 * b * n * l * l * d
-    ms = time_ms(lambda: fa._flash_fwd_cuda(q, k, v, None, scale, rope=rope), 5)
-    record("flash_fwd_bf16_rope", err, ms,
-           time_ms(lambda: fa._flash_fwd_plain(q, k, v, None, scale, rope=rope), 3),
-           bound_ms(fwd_ops, 2.0 * 4 * b * l * n * d + table_bytes), tag)
 
     def out_of_kernel():
-        qr = rope_apply_split(q, rope).to(bf16)
-        kr = rope_apply_split(k, rope).to(bf16)
-        return fa._flash_fwd_cuda(qr, kr, v, None, scale)
+        return fa._flash_fwd_cuda(*torch_rotation(), v, None, scale)
 
-    compare(f"rope_apply_split x 2 + flash_fwd_bf16 {tag} against K1-rope", out_of_kernel(), got)
-    k1_ms = time_ms(lambda: fa._flash_fwd_cuda(q, k, v, None, scale), 5)
-    rot_ms = time_ms(lambda: rope_apply_split(q, rope).to(bf16), 5)
-    log(f"  K1-rope {tag}: {ms:.3f} ms in one kernel; out of the kernel "
-        f"{time_ms(out_of_kernel, 5):.3f} ms (rope_apply_split + cast {rot_ms:.3f} ms per "
-        f"tensor, K1 {k1_ms:.3f} ms)")
+    require_equal(f"rope_apply_split x 2 + flash_fwd_bf16 {tag} against K1-rope",
+                  out_of_kernel(), got)
+    fwd_ops = 4.0 * b * n * l * l * d
+    record("flash_fwd_bf16_rope", err,
+           time_ms(lambda: fa._flash_fwd_cuda(q, k, v, None, scale, rope=rope), 5),
+           time_ms(lambda: fa._flash_fwd_plain(q, k, v, None, scale, rope=rope), 3),
+           bound_ms(fwd_ops, 2.0 * 4 * b * l * n * d + table_bytes), tag,
+           time_ms(out_of_kernel, 5))
+    log(f"  K1 alone {tag}: {time_ms(lambda: fa._flash_fwd_cuda(q, k, v, None, scale), 5):.3f} ms")
     del q, k, v, got
 
-    # K1-rope-LSE and K4-rope at the training shape, and a ragged case each
+    # K1-rope-LSE and K4-rope at the training shape, and ragged cases
     for (b, l_, n_, d_), k_lens in (((1, l, n, d), None), ((2, 3000, 2, 128), [2500, 3000]),
-                                    ((1, 2100, 3, 64), None)):
+                                    ((1, 2100, 3, 64), None),
+                                    ((2, 8192, 4, 64), [5000, 8192])):
         q, k, v, do = (_rand(gen, (b, l_, n_, d_), bf16) for _ in range(4))
         kl = None if k_lens is None else torch.tensor(k_lens, dtype=torch.int32, device="cuda")
-        # the ragged cases take a table of 3 x 32 x 32 = 3072 positions
+        # the ragged cases take a table of F x 32 x 32 positions
         tbl = rope if (b, l_) == (1, l) else pack_split(
-            rope_freqs_3d((3, 32, 32), d_, device="cuda"))
+            rope_freqs_3d((max(3, -(-l_ // 1024)), 32, 32), d_, device="cuda"))
         scale = d_ ** -0.5
         tag = f"[{b},{l_},{n_},{d_}]" + ("" if k_lens is None else f" k_lens={k_lens}")
         out, lse = fa._flash_fwd_cuda(q, k, v, kl, scale, with_lse=True, rope=tbl)
         want_out, want_lse = fa._flash_fwd_plain(q, k, v, kl, scale, with_lse=True, rope=tbl)
-        err_fwd = max(compare(f"flash_fwd_bf16_rope_lse {tag}", out, want_out),
-                      compare_lse(f"flash_fwd_bf16_rope_lse {tag}", lse, want_lse))
-        grads = fa._flash_bwd_cuda(q, k, v, kl, out, lse, do, scale, rope=tbl)
-        want = fa._flash_bwd_plain(q, k, v, kl, out, lse, do, scale, rope=tbl)
+        err_fwd = max(compare(f"flash_fwd_bf16_lse rope {tag}", out, want_out),
+                      compare_lse(f"flash_fwd_bf16_lse rope {tag}", lse, want_lse))
+        del want_out, want_lse
+        qr, kr = fa._rope_rotate_cuda(q, k, tbl)
+
+        def fwd_out_of_kernel():
+            return fa._flash_fwd_cuda(fa._rope_rows(q, tbl), fa._rope_rows(k, tbl), v, kl, scale,
+                                      with_lse=True)
+
+        require_equal(f"rope_apply_split x 2 + flash_fwd_bf16_lse {tag} against K1-rope-LSE",
+                      fwd_out_of_kernel(), (out, lse))
+
+        def k4_rope():
+            return fa._flash_bwd_cuda(qr, kr, v, kl, out, lse, do, scale, rope=tbl)
+
+        def bwd_out_of_kernel():
+            # the fused K4 with fp32 dK / dV, then the inverse rotation in PyTorch
+            finalize = fa._rope_finalize_cuda
+            fa._rope_finalize_cuda = lambda *a: fa._rope_finalize_plain(*a, bf16)
+            try:
+                return k4_rope()
+            finally:
+                fa._rope_finalize_cuda = finalize
+
+        grads = k4_rope()
+        want = fa._flash_bwd_plain(qr, kr, v, kl, out, lse, do, scale, rope=tbl)
         errs = [compare_grad(f"flash_bwd rope {name} {tag}", g, w)
                 for name, g, w in zip(("dq", "dk", "dv"), grads, want)]
-        del grads, want, want_out, want_lse
+        del want
+        # dK, dV: fixed summation order; dQ's bulk additions change order
+        composed = bwd_out_of_kernel()
+        require_equal(f"flash_bwd + rope_apply_split_inv (dk, dv) {tag} against K4-rope",
+                      grads[1:], composed[1:])
+        compare_grad(f"flash_bwd + rope_apply_split_inv (dq) {tag} against K4-rope",
+                     grads[0], composed[0])
+        require_equal(f"flash_bwd dv {tag} against K4-rope's", grads[2],
+                      fa._flash_bwd_cuda(qr, kr, v, kl, out, lse, do, scale)[2])
+        del grads, composed
         if (b, l_) != (1, l):
             record("flash_fwd_bf16_rope_lse", err_fwd)
-            record("flash_bwd_dkdv_rope", max(errs[1:]))
-            record("flash_bwd_dq_rope", errs[0])
+            record("flash_bwd_rope", max(errs))
             continue
         prod = 2.0 * b * n_ * l_ * l_ * d_
         qkvo = 2.0 * b * n_ * d_ * 4 * l_
@@ -1507,27 +1575,27 @@ def phase_rope_kernels(results, l=21504, grid=(21, 32, 32)):
         record("flash_fwd_bf16_rope_lse", err_fwd,
                time_ms(lambda: fa._flash_fwd_cuda(q, k, v, kl, scale, with_lse=True, rope=tbl), 5),
                time_ms(lambda: fa._flash_fwd_plain(q, k, v, kl, scale, with_lse=True, rope=tbl), 3),
-               bound_ms(2 * prod, qkvo + stats / 2 + table_bytes), tag)
-        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), None, tbl.data_ptr())
-        dims = (b, l_, l_, n_, d_, float(scale), float(scale * fa.LOG2E))
-
-        def k4a():
-            cuda_lib.launch("sa_flash_bwd_dkdv_rope", *args, dk.data_ptr(), dv.data_ptr(), *dims)
-
-        def k4b():
-            cuda_lib.launch("sa_flash_bwd_dq_rope", *args, dq.data_ptr(), *dims)
-
-        plain = time_ms(lambda: fa._flash_bwd_plain(q, k, v, kl, out, lse, do, scale, rope=tbl), 3)
-        record("flash_bwd_dkdv_rope", max(errs[1:]), time_ms(k4a, 5), plain,
-               bound_ms(4 * prod, qkvo + stats + 2.0 * 2 * b * n_ * l_ * d_ + table_bytes), tag)
-        record("flash_bwd_dq_rope", errs[0], time_ms(k4b, 5), plain,
-               bound_ms(3 * prod, qkvo + stats + 2.0 * b * n_ * l_ * d_ + table_bytes), tag)
-        log("  (K4a-rope and K4b-rope plain_ms is one whole plain backward with rope)")
-        del dq, dk, dv, delta
-    del q, k, v, do, out, lse
+               bound_ms(2 * prod, qkvo + stats / 2 + table_bytes), tag,
+               time_ms(fwd_out_of_kernel, 5))
+        # K4-rope: S, dP, dV, dK, dQ (five products); q, dO in and dq out, k,
+        # v in and dk, dv out (bf16), lse and delta, the table once
+        record("flash_bwd_rope", max(errs), time_ms(k4_rope, 5),
+               time_ms(lambda: fa._flash_bwd_plain(qr, kr, v, kl, out, lse, do, scale,
+                                                   rope=tbl), 3),
+               bound_ms(5 * prod, 2.0 * b * n_ * d_ * 7 * l_ + stats + table_bytes), tag,
+               time_ms(bwd_out_of_kernel, 5))
+        k1_ms = time_ms(lambda: fa._flash_fwd_cuda(qr, kr, v, kl, scale, with_lse=True), 5)
+        k4_ms = time_ms(lambda: fa._flash_bwd_cuda(qr, kr, v, kl, out, lse, do, scale), 5)
+        log(f"  K1-LSE alone {tag}: {k1_ms:.3f} ms, K4 alone {k4_ms:.3f} ms")
+        # rope_finalize_bwd on fp32 sums of the training shape
+        g32 = [torch.randn((b, l_, n_, d_), generator=gen, device="cuda") for _ in range(3)]
+        require_equal(f"rope_finalize_bwd {tag} against rope_apply_split_inv x 2 + casts",
+                      fa._rope_finalize_cuda(*g32, tbl), fa._rope_finalize_plain(*g32, tbl, bf16))
+        record("rope_finalize_bwd", 0.0, time_ms(lambda: fa._rope_finalize_cuda(*g32, tbl), 20),
+               time_ms(lambda: fa._rope_finalize_plain(*g32, tbl, bf16), 5),
+               bound_ms(0.0, (4.0 + 2.0) * 3 * b * l_ * n_ * d_ + table_bytes), tag)
+        del g32
+    del q, k, v, do, out, lse, qr, kr
     torch.cuda.synchronize()
 
 
@@ -1681,7 +1749,8 @@ def phase_remaining_paths(l=21504, grid=(21, 32, 32)):
     """The entry points of the remaining kernels, each driven with every
     launch count set to 0 just before it and checked exactly just after:
     `flash_attention(rope=)` forward at [3, 21504, 12, 128] (its output
-    equal to K1-rope's), `flash_attention_with_stats(rope=)`, the same under
+    equal to K1-rope's: `rope_rotate` + K1), `flash_attention_with_stats(
+    rope=)`, the same under
     autograd at [1, 21504, 12, 128] (finite gradients), and each probe
     script's `main` with its own CH.  Returns the launches per kernel."""
     import contextlib
@@ -1700,7 +1769,10 @@ def phase_remaining_paths(l=21504, grid=(21, 32, 32)):
     tables = (fa.launch_counts, ca.launch_counts, probes.launch_counts)
     launches = {}
 
-    def drive(what, fn, want):
+    def drive(what, fn, want, rows=()):
+        """Run fn with every count at 0 and require the counts `want`; the
+        launches of each kernel named in `rows` ({row: kernel}) also count
+        for that row (K1 / K4 behind a rotation: K1-rope, K4-rope)."""
         for table in tables:
             for key in table:
                 table[key] = 0
@@ -1716,7 +1788,7 @@ def phase_remaining_paths(l=21504, grid=(21, 32, 32)):
         log(f"  {what}: {seconds:.3f} s, launches {got}")
         if got != want:
             raise AssertionError(f"{what}: launch counts {got} != {want}")
-        for key, c in got.items():
+        for key, c in [*got.items(), *((row, got[kernel]) for row, kernel in dict(rows).items())]:
             launches[key] = launches.get(key, 0) + c
         return result
 
@@ -1726,12 +1798,15 @@ def phase_remaining_paths(l=21504, grid=(21, 32, 32)):
     q, k, v = (_rand(gen, (3, l, n, d), torch.bfloat16) for _ in range(3))
     with torch.no_grad():
         out = drive(f"flash_attention(rope=) [3,{l},{n},{d}]",
-                    lambda: fa.flash_attention(q, k, v, rope=rope), {"flash_fwd_bf16_rope": 1})
+                    lambda: fa.flash_attention(q, k, v, rope=rope),
+                    {"rope_rotate": 1, "flash_fwd_bf16": 1},
+                    {"flash_fwd_bf16_rope": "flash_fwd_bf16"})
         if not torch.equal(out, fa._flash_fwd_cuda(q, k, v, None, d ** -0.5, rope=rope)):
-            raise AssertionError("flash_attention(rope=) differs from its K1-rope launch")
+            raise AssertionError("flash_attention(rope=) differs from its K1-rope launches")
         out, lse = drive(f"flash_attention_with_stats(rope=) [3,{l},{n},{d}]",
                          lambda: fa.flash_attention_with_stats(q, k, v, rope=rope),
-                         {"flash_fwd_bf16_rope_lse": 1})
+                         {"rope_rotate": 1, "flash_fwd_bf16_lse": 1},
+                         {"flash_fwd_bf16_rope_lse": "flash_fwd_bf16_lse"})
     if not (torch.isfinite(out).all() and torch.isfinite(lse).all() and lse.shape == (3, l, n)):
         raise AssertionError("flash_attention_with_stats(rope=): non-finite or misshapen output")
     del q, k, v, out, lse
@@ -1742,7 +1817,8 @@ def phase_remaining_paths(l=21504, grid=(21, 32, 32)):
         fa.flash_attention(q, k, v, rope=rope).backward(g)
 
     drive(f"flash_attention(rope=) under autograd [1,{l},{n},{d}]", train_step,
-          {"flash_fwd_bf16_rope_lse": 1, "flash_bwd_dkdv_rope": 1, "flash_bwd_dq_rope": 1})
+          {"rope_rotate": 1, "flash_fwd_bf16_lse": 1, "flash_bwd": 1, "rope_finalize_bwd": 1},
+          {"flash_fwd_bf16_rope_lse": "flash_fwd_bf16_lse", "flash_bwd_rope": "flash_bwd"})
     if not all(x.grad is not None and torch.isfinite(x.grad).all() for x in (q, k, v)):
         raise AssertionError("flash_attention(rope=): non-finite gradients")
     del q, k, v, g
@@ -1877,7 +1953,7 @@ def main() -> int:
             "ms": r.get("ms"), "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"), "library_ms": r.get("library_ms"),
             **{k: r[k] for k in ("library_with_transpose_ms", "shapes", "k1_text_ms",
-                                 "k1_image_ms", "sdpa_two_calls_and_add_ms")
+                                 "k1_image_ms", "sdpa_two_calls_and_add_ms", "out_of_kernel_ms")
                if k in r},
         })
     print(json.dumps({"kernels": kernels}), flush=True)

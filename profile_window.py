@@ -9,6 +9,7 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 profile_window.py probes   # the GEMM probe (S1 / S2) beside cuBLAS
     python3 profile_window.py backward # the flash backward (K4) alone
     python3 profile_window.py forward  # the bf16 flash forward (K1, K1-LSE) alone
+    python3 profile_window.py rope     # K1-rope, K1-rope-LSE and K4-rope
     python3 profile_window.py vae      # the VAE's bf16 decode and fp32 train encode
     python3 profile_window.py qkpv     # generate_long with attn_quant="qkpv" (K2v-qkpv)
 
@@ -66,6 +67,16 @@ inference and training) through `_flash_fwd_cuda`, each beside one SDPA
 call on the same inputs: medians of 20 CUDA-event timings, one JSON line,
 comparable across two checkouts in one call.
 
+`rope` times `flash_attention(rope=)` at [3, 21504, 12, 128] (K1-rope)
+beside the dispatch `ops/attention.py` keeps (`rope_apply_split` and a cast
+for q and k, then K1) and K1 alone, and at [1, 21504, 12, 128]
+`flash_attention_with_stats(rope=)` (K1-rope-LSE) and one autograd step of
+`flash_attention(rope=)` (K1-rope-LSE + K4-rope; K4-rope is the step less
+K1-rope-LSE); where the checkout has the rotation pass
+(`_rope_rotate_cuda`), that too: medians of 20 CUDA-event timings (10 for
+the step), one JSON line.  Only the public entry points are timed, so the
+same file compares two checkouts in one call.
+
 `qkpv` profiles generate_long as the default run does, on the fast path
 with attn_quant="qkpv" (K2v-qkpv for self-attention): the path of
 chip_smoke's int8-variants phase.
@@ -105,6 +116,10 @@ KINDS = (
     ("K2 / K2v / K2-LSE / K3 flash_fwd_int8 (mma.sync)",
      re.compile(r"flash_fwd_int8v?_kernel")),
     ("K4 flash_bwd (fused)", re.compile(r"flash_bwd_fused_kernel")),
+    # K1-rope's and K4-rope's passes (rope.cu)
+    ("rope_rotate (K1-rope, K4-rope)", re.compile(r"rope_rotate_kernel")),
+    ("rope_finalize_bwd (K4-rope)", re.compile(r"rope_finalize_bwd_kernel")),
+    # the mma.sync kernels of older checkouts: K4a / K4b and their rope branch
     ("K4a flash_bwd_dkdv", re.compile(r"flash_bwd_dkdv")),
     ("K4b flash_bwd_dq", re.compile(r"flash_bwd_dq")),
     # k5::dual_context_kernel<D> (wgmma), or the mma.sync kernel of older checkouts
@@ -372,6 +387,52 @@ def time_forward():
     print(json.dumps(res), flush=True)
 
 
+def time_rope():
+    import torch
+
+    import chip_smoke
+    from stableavatar_tpu_torch.ops import flash_attention as fa
+    from stableavatar_tpu_torch.ops.rope import pack_split, rope_apply_split, rope_freqs_3d
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf16 = torch.bfloat16
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    lq, n, d = 21504, 12, 128
+    scale = d ** -0.5
+    rope = pack_split(rope_freqs_3d((21, 32, 32), d, device="cuda"))
+    rotate = getattr(fa, "_rope_rotate_cuda", None)
+    res = {}
+    with torch.no_grad():
+        q, k, v = rand(3, lq, n, d), rand(3, lq, n, d), rand(3, lq, n, d)
+        tag = f"[3, {lq}, {n}, {d}]"
+        res[f"K1-rope {tag}"] = chip_smoke.time_ms(
+            lambda: fa.flash_attention(q, k, v, rope=rope), 20)
+        res[f"rope_apply_split x 2 + K1 {tag}"] = chip_smoke.time_ms(
+            lambda: fa._flash_fwd_cuda(rope_apply_split(q, rope).to(bf16),
+                                       rope_apply_split(k, rope).to(bf16), v, None, scale), 20)
+        res[f"K1 {tag}"] = chip_smoke.time_ms(
+            lambda: fa._flash_fwd_cuda(q, k, v, None, scale), 20)
+        if rotate is not None:
+            res[f"rope_rotate {tag}"] = chip_smoke.time_ms(lambda: rotate(q, k, rope), 20)
+        del q, k, v
+        q, k, v, g = (rand(1, lq, n, d) for _ in range(4))
+        tag = f"[1, {lq}, {n}, {d}]"
+        res[f"K1-rope-LSE {tag}"] = chip_smoke.time_ms(
+            lambda: fa.flash_attention_with_stats(q, k, v, rope=rope), 20)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+
+    def step():
+        torch.autograd.grad(fa.flash_attention(qg, kg, vg, rope=rope), (qg, kg, vg), g)
+
+    res[f"K1-rope-LSE + K4-rope, autograd {tag}"] = chip_smoke.time_ms(step, 10)
+    res[f"K4-rope {tag} (the step less K1-rope-LSE)"] = (
+        res[f"K1-rope-LSE + K4-rope, autograd {tag}"] - res[f"K1-rope-LSE {tag}"])
+    print(json.dumps(res), flush=True)
+
+
 def time_vae():
     import torch
 
@@ -433,6 +494,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["vae"]:
         time_vae()
+        return 0
+    if sys.argv[1:] == ["rope"]:
+        time_rope()
         return 0
     models, dit_bf16 = chip_smoke.build_models("cuda")
     if sys.argv[1:] == ["qkpv"]:

@@ -46,7 +46,6 @@
 // - O is rounded to bf16 once, written into the warpgroup's own Q rows in
 //   shared memory (the 128-byte swizzle, free of bank conflicts) and stored
 //   by TMA, which clips the rows past Lq.
-#include "attention_common.cuh"
 #include "hopper_common.cuh"
 
 namespace sa {

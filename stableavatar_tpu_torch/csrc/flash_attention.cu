@@ -45,11 +45,11 @@
 // TFLOP/s for K1, 6.5 ms for K2 / K3 (Q.K^T at the 1,979 TOP/s int8 peak),
 // 4.3 ms for qkpv (both products int8), with the softmax's exp2 on the SFUs
 // (64 per thread and key tile) as the next limit.  The first designs (4
-// warps of mma.sync over 64-key tiles, one cp.async stage, two block
-// barriers a tile) ran at a fifth of that.  So every instance is one Hopper
-// design (`ffwd::flash_fwd_kernel<D, QK, VM>`, D = 128 and 64; QK = bf16,
-// int8 or int8 under the static bound; VM = the V path: bf16, int8 widened,
-// or int8 P.V):
+// warps of warp-level m16n8k16 products over 64-key tiles, one cp.async
+// stage, two block barriers a tile) ran at a fifth of that.  So every
+// instance is one Hopper design (`ffwd::flash_fwd_kernel<D, QK, VM>`, D =
+// 128 and 64; QK = bf16, int8 or int8 under the static bound; VM = the V
+// path: bf16, int8 widened, or int8 P.V):
 //
 // - a block owns 128 query rows of one (batch, head); one producer thread
 //   (a warpgroup with its registers handed over by setmaxnreg, 24 / 240)
@@ -124,93 +124,14 @@
 // give P = 0 against zero-filled V).  So K1 - S3 bf16 and K2 - S3 int8 are
 // the softmax's share of the template's time.
 //
-// K1-rope (`flash_attention(rope=)`, on no main path) keeps the first
-// mma.sync design: 4 warps own 64 query rows, one cp.async K/V stage of
-// 64-key tiles, with the split-pair rotation of `_fwd_body`'s `rope=`
-// branch (`_rot`, :142-143) inside -- Q is rotated in fp32 on its way into
-// the A fragments, each K tile in place in shared memory after it lands,
-// both rounded to bf16 once as `_rot(...).astype(dt)` does.
-#include "attention_common.cuh"
+// K1-rope (`flash_attention(rope=)`) is no kernel of its own: the
+// split-pair rotation of `_fwd_body`'s `rope=` branch (`_rot`, :142-143)
+// depends only on the position, so rope.cu's `sa_rope_rotate` rotates q and
+// k once (fp32, one bf16 rounding, as `_rot(...).astype(dt)` does) and the
+// K1 instance below runs on the rotated copies.
 #include "hopper_common.cuh"
 
 namespace sa {
-
-// K1-rope (and its LSE), the first mma.sync design: 4 warps own 64 query
-// rows, one cp.async K/V stage of 64 keys.  At most 168 registers, so that
-// 3 blocks of 128 threads share an SM (the rotation's loads would take more)
-template <int D>
-__global__ void __launch_bounds__(kThreads, 3)
-flash_fwd_bf16_rope_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v, const int* __restrict__ k_lens,
-                           const float* __restrict__ rope, __nv_bfloat16* __restrict__ out,
-                           float* __restrict__ lse, int Lq, int Lk, int N, float scale_log2) {
-  constexpr int kPitch = D + 8;
-  __shared__ __align__(16) unsigned short Ks[kBlockK * kPitch];
-  __shared__ __align__(16) unsigned short Vs[kBlockK * kPitch];
-
-  const int bh = blockIdx.y, b = bh / N, h = bh % N;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row_a = blockIdx.x * kBlockQ + warp * 16 + (lane >> 2);
-  const long long rs = (long long)N * D;
-  const int klen = k_lens ? min(k_lens[b], Lk) : Lk;
-
-  uint32_t qa[D / 16][4];
-  load_q_bf16_rope<D>(qa, q + ((long long)b * Lq * N + h) * D, rs, row_a, Lq, rope);
-
-  const char* kb = reinterpret_cast<const char*>(k + ((long long)b * Lk * N + h) * D);
-  const char* vb = reinterpret_cast<const char*>(v + ((long long)b * Lk * N + h) * D);
-
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-
-  const int ntiles = (klen + kBlockK - 1) / kBlockK;
-  for (int it = 0; it < ntiles; ++it) {
-    const int k0 = it * kBlockK;
-    load_tile<D * 2>(reinterpret_cast<char*>(Ks), kb, rs * 2, k0, Lk);
-    cp_async_commit();
-    load_tile<D * 2>(reinterpret_cast<char*>(Vs), vb, rs * 2, k0, Lk);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    rope_tile<D>(Ks, rope, k0, Lk);
-    __syncthreads();
-
-    float s[kNT][4];
-    qk_bf16<D>(s, qa, Ks);
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      s[nt][0] *= scale_log2;
-      s[nt][1] *= scale_log2;
-      s[nt][2] *= scale_log2;
-      s[nt][3] *= scale_log2;
-    }
-    softmax_update<D>(s, m, l, acc, k0, klen);
-
-    cp_async_wait<0>();
-    __syncthreads();
-    pv_bf16<D>(acc, s, Vs);
-    __syncthreads();
-  }
-
-  const float l0 = fmaxf(quad_sum(l[0]), 1e-30f), l1 = fmaxf(quad_sum(l[1]), 1e-30f);
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    acc[nd][0] /= l0;
-    acc[nd][1] /= l0;
-    acc[nd][2] /= l1;
-    acc[nd][3] /= l1;
-  }
-  store_rows<D>(out + ((long long)b * Lq * N + h) * D, rs, row_a, Lq, acc);
-  if (lse != nullptr && (lane & 3) == 0) {
-    // m is the base-2 running max (shared by the quad), l the row sum
-    float* lse_bh = lse + (long long)bh * Lq;
-    if (row_a < Lq) lse_bh[row_a] = m[0] * kLn2 + logf(l0);
-    if (row_a + 8 < Lq) lse_bh[row_a + 8] = m[1] * kLn2 + logf(l1);
-  }
-}
 
 // --------------------------------------------------------------------------
 // K1, K1-LSE, K2, K2v, K2-LSE and K3: one producer warpgroup feeds a TMA
@@ -1056,34 +977,6 @@ extern "C" int sa_flash_fwd_bf16(const void* q, const void* k, const void* v, co
   return launch_fwd_d<sa::ffwd::kQkBf16, sa::ffwd::kVBf16>(
       q, k, v, nullptr, k_lens, nullptr, nullptr, out, lse, B, Lq, Lk, N, D, scale_log2, 0,
       stream);
-}
-
-// K1-rope: q and k in split-pair layout, rotated in the kernel by the packed
-// fp32 table rope [L, D] (L >= Lq and L >= Lk; row i is position i)
-extern "C" int sa_flash_fwd_bf16_rope(const void* q, const void* k, const void* v,
-                                      const void* k_lens, const void* rope, void* out, void* lse,
-                                      int B, int Lq, int Lk, int N, int D, float scale_log2,
-                                      void* stream) {
-  if (rope == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((Lq + sa::kBlockQ - 1) / sa::kBlockQ, B * N);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto q_ = static_cast<const __nv_bfloat16*>(q);
-  auto k_ = static_cast<const __nv_bfloat16*>(k);
-  auto v_ = static_cast<const __nv_bfloat16*>(v);
-  auto kl = static_cast<const int*>(k_lens);
-  auto r_ = static_cast<const float*>(rope);
-  auto o_ = static_cast<__nv_bfloat16*>(out);
-  auto lse_ = static_cast<float*>(lse);
-  if (D == 128) {
-    sa::flash_fwd_bf16_rope_kernel<128><<<grid, sa::kThreads, 0, st>>>(
-        q_, k_, v_, kl, r_, o_, lse_, Lq, Lk, N, scale_log2);
-  } else if (D == 64) {
-    sa::flash_fwd_bf16_rope_kernel<64><<<grid, sa::kThreads, 0, st>>>(
-        q_, k_, v_, kl, r_, o_, lse_, Lq, Lk, N, scale_log2);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // The int8 instances: q8, k8 int8 [B, L, N, D], sqk [B*N], lse [B, N, Lq] or

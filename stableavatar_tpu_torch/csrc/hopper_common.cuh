@@ -3,10 +3,16 @@
 // wgmma descriptors and products (bf16 into fp32, s8 into s32, A from shared
 // memory or registers), named barriers and register hand-over (setmaxnreg),
 // and the host side: TMA tensor maps (bf16 and int8, 3-D over [B, L, N * D]
-// and 2-D over matrices) and the dynamic shared-memory opt-in.  Used by
+// and 2-D over matrices) and the dynamic shared-memory opt-in; also the
+// softmax constants and the packing helpers the kernels share.  Used by
 // flash_attention.cu (K1, K1-LSE, K2, K2v, K2-LSE, K3, the S3 dots),
 // flash_attention_bwd.cu (the fused K4), cross_attention.cu (K5) and
 // probes.cu (mm_probe).
+//
+// Softmax runs in the base-2 domain like the TPU kernels: log2(e) is folded
+// into the logit scale by the caller and exp2 replaces exp.  Masked logits
+// are -1e30 (the TPU kernels' NEG_INF) and the final divide guards the row
+// sum with max(l, 1e-30).
 //
 // Shared-memory operands are stored in the 128-byte swizzle that TMA's
 // CU_TENSOR_MAP_SWIZZLE_128B writes: a tile of R rows x 128 bytes (64 bf16
@@ -24,8 +30,30 @@
 
 namespace sa {
 
+constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kLog2e = 1.4426950408889634f;
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// two floats -> packed bf16x2, low half = first element (fragment order)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const void* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// the sum over the four threads of a quad (a row's partial sums in the
+// accumulator layout)
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x;
 }
 
 // --------------------------------------------------------------------------

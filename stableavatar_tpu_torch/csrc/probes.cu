@@ -14,9 +14,9 @@
 // What bounds it on the H100: at the scripts' [21504, 1536] . [1536, 1536]
 // the 1.0e11 operations take 0.103 ms at the dense bf16 peak (0.051 ms
 // int8) against 0.14 GB of operands (0.041 ms): compute-bound.  The first
-// design (8 warps of mma.sync, two cp.async stages, three block barriers a
-// stage) ran at a fifth of the bf16 peak.  This one is Hopper's own
-// (`mm_probe_kernel`):
+// design (8 warps of warp-level m16n8k16 products, two cp.async stages,
+// three block barriers a stage) ran at a fifth of the bf16 peak.  This one
+// is Hopper's own (`mm_probe_kernel`):
 //
 // - a block owns a 128 x 128 output tile: two consumer warpgroups of 64 rows
 //   run wgmma m64n128 (bf16 k16 steps into fp32, or s8 k32 steps into s32)
@@ -50,7 +50,6 @@
 // head), compute-bound like K1 / K2.
 #include <type_traits>
 
-#include "attention_common.cuh"
 #include "hopper_common.cuh"
 
 namespace sa {

@@ -44,7 +44,7 @@ def attention(
     if rope is not None:
         # one rotation pass per tensor before K1 or the short-query path, as
         # the JAX package's `attention()` does; `flash_attention(rope=)`
-        # rotates inside the kernel instead
+        # rotates both in one kernel pass (`rope_rotate`) instead
         dt = q.dtype
         q = rope_apply_split(q, rope).to(dt)
         k = rope_apply_split(k, rope).to(dt)

@@ -27,8 +27,9 @@ import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
-SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "cross_attention.cu", "probes.cu")
-HEADERS = ("attention_common.cuh", "hopper_common.cuh")
+SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "cross_attention.cu", "probes.cu",
+           "rope.cu")
+HEADERS = ("hopper_common.cuh",)
 BUILD_ROOT = PACKAGE_DIR / "_build"
 LIB_NAME = "libsa_kernels.so"
 NVCC_FLAGS = (
@@ -43,8 +44,6 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # q, k, v, k_lens, out, lse, B, Lq, Lk, N, D, scale_log2, stream
     "sa_flash_fwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    # q, k, v, k_lens, rope, out, lse, B, Lq, Lk, N, D, scale_log2, stream
-    "sa_flash_fwd_bf16_rope": [_P] * 7 + [_I] * 5 + [_F, _P],
     # q8, k8, v, sqk, k_lens, out, lse, B, Lq, Lk, N, D, stream
     "sa_flash_fwd_int8_qk": [_P] * 7 + [_I] * 5 + [_P],
     # q8, k8, v8, sv, sqk, k_lens, out, lse, B, Lq, Lk, N, D, stream
@@ -58,10 +57,10 @@ SIGNATURES = {
     # q, k, v, dout, lse, delta, k_lens, dq_acc, dk, dv, dk_part, dv_part,
     # B, Lq, Lk, N, D, splits, scale, scale_log2, stream
     "sa_flash_bwd": [_P] * 12 + [_I] * 6 + [_F, _F, _P],
-    # q, k, v, dout, lse, delta, k_lens, rope, dk, dv, B, Lq, Lk, N, D, scale, scale_log2, stream
-    "sa_flash_bwd_dkdv_rope": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
-    # q, k, v, dout, lse, delta, k_lens, rope, dq, B, Lq, Lk, N, D, scale, scale_log2, stream
-    "sa_flash_bwd_dq_rope": [_P] * 9 + [_I] * 5 + [_F, _F, _P],
+    # q, k, table, qr, kr, B, Lq, Lk, N, D, stream
+    "sa_rope_rotate": [_P] * 5 + [_I] * 5 + [_P],
+    # dq32, dk32, dv32, table, dq, dk, dv, B, Lq, Lk, N, D, stream
+    "sa_rope_finalize_bwd": [_P] * 7 + [_I] * 5 + [_P],
     # q, k1, v1, k2, v2, out, B, Lq, L1, L2, N, D, scale_log2, stream
     "sa_dual_context": [_P] * 6 + [_I] * 6 + [_F, _P],
     # a, b, out, M, N, K, epilogue, stream

@@ -1,27 +1,31 @@
 """Flash attention: kernels K1 (bf16 forward, optional LSE), K1-rope (K1
-with the split-pair rotation inside), K2 (int8 Q.K^T forward), K2v (K2 with
-int8 V: "qkv", "qkpv"), K2-LSE (K2 / K2v with the LSE output), K3 (K2 /
-K2v-qkv with the static-bound softmax) and K4 (the bf16 backward, with its
-rope branch, K4a-rope / K4b-rope).  K1, K2, K2v, K2-LSE and K3 are
-instances of one wgmma / TMA kernel; K1-rope keeps an mma.sync one.
+on q and k rotated by split-pair rope), K2 (int8 Q.K^T forward), K2v (K2
+with int8 V: "qkv", "qkpv"), K2-LSE (K2 / K2v with the LSE output), K3 (K2
+/ K2v-qkv with the static-bound softmax) and K4 (the bf16 backward, with
+its rope branch K4-rope).  K1, K2, K2v, K2-LSE and K3 are instances of one
+wgmma / TMA kernel; K1-rope is one rotation pass (`rope_rotate`) before K1,
+and K4-rope the fused K4 on the rotated q and k with one pass after it that
+inverse-rotates dQ and dK (`rope_finalize_bwd`).
 
 Port of `stableavatar_tpu/ops/flash_attention.py`.  On a CUDA tensor
-`flash_attention` launches a hand-written Hopper kernel
-(`csrc/flash_attention.cu`, `csrc/flash_attention_bwd.cu`); on a CPU tensor
-it runs the plain PyTorch version beside it (`_flash_fwd_plain`,
-`_flash_int8_plain`, `_flash_int8_static_plain`, `_flash_bwd_plain`).
-There is no other path: a CUDA call that the kernels do not take raises.
+`flash_attention` launches hand-written Hopper kernels
+(`csrc/flash_attention.cu`, `csrc/flash_attention_bwd.cu`, `csrc/rope.cu`);
+on a CPU tensor it runs the plain PyTorch versions beside them
+(`_flash_fwd_plain`, `_flash_int8_plain`, `_flash_int8_static_plain`,
+`_flash_bwd_plain`, `_rope_rows`, `_rope_finalize_plain`).  There is no
+other path: a CUDA call that the kernels do not take raises.
 
 The bf16 path is differentiable like the JAX package's custom-VJP `_flash`:
 with grad enabled and an input that requires grad, the forward launches K1
 with its natural-log LSE and the backward launches K4, one fused pass that
 recomputes P from that LSE and writes dQ, dK and dV.  Otherwise K1 runs
 without the LSE write, as the JAX primal does.  The int8 paths are not
-differentiable.  With `rope=` the bf16 path rotates q and k inside the
-kernels (K1-rope, and K4's rope branch K4a-rope / K4b-rope, which
-inverse-rotates dQ and dK), as the JAX
-package's `flash_attention(rope=)` does; `ops/attention.py` rotates before
-K1 instead, as the JAX package's `attention()` does.
+differentiable.  With `rope=` the bf16 path computes what the JAX
+package's `flash_attention(rope=)` computes with its in-kernel rotation:
+q and k rotated in fp32 and rounded once, and under autograd dQ and dK
+inverse-rotated in fp32 before their one rounding (K1-rope, K4-rope);
+`ops/attention.py` rotates before K1 instead, as the JAX package's
+`attention()` does.
 
 Semantics kept from the JAX package: q/k/v [B, L, N, D]; keys at or past
 `k_lens[b]` are masked with -1e30 (a batch with `k_lens[b] == 0` gets zero
@@ -69,15 +73,15 @@ LN2 = 0.6931471805599453
 STATIC_MAX = os.environ.get("STABLEAVATAR_STATIC_MAX", "0") == "1"
 
 # kernel launches, counted where each wrapper launches its kernel; K1 and
-# the online int8 kernels with and without their LSE output count apart
+# the online int8 kernels with and without their LSE output count apart.
+# K1-rope is one `rope_rotate` and one `flash_fwd_bf16` (or `..._lse`),
+# K4-rope one `flash_bwd` and one `rope_finalize_bwd`
 launch_counts = {"flash_fwd_bf16": 0, "flash_fwd_bf16_lse": 0, "flash_fwd_int8_qk": 0,
                  "flash_fwd_int8_qkv": 0, "flash_fwd_int8_qkpv": 0,
                  "flash_fwd_int8_qk_lse": 0, "flash_fwd_int8_qkv_lse": 0,
                  "flash_fwd_int8_qkpv_lse": 0,
                  "flash_fwd_int8_static_qk": 0, "flash_fwd_int8_static_qkv": 0,
-                 "flash_bwd": 0,
-                 "flash_fwd_bf16_rope": 0, "flash_fwd_bf16_rope_lse": 0,
-                 "flash_bwd_dkdv_rope": 0, "flash_bwd_dq_rope": 0}
+                 "flash_bwd": 0, "rope_rotate": 0, "rope_finalize_bwd": 0}
 
 # the JAX package's default key blocks of the int8 paths: `flash_attention`
 # and `flash_attention_with_stats`, each capped to Lk rounded up to 128
@@ -158,8 +162,17 @@ def _online_softmax_plain(logits_fn, k_lens, lq, lk, block_k, out_shape,
 
 def _rope_rows(x, rope):
     """x [B, L, N, D] rotated by the first L rows of the packed split-pair
-    table in fp32 and rounded to x's dtype once (JAX `_rot(...).astype(dt)`)."""
+    table in fp32 and rounded to x's dtype once (JAX `_rot(...).astype(dt)`):
+    the plain `rope_rotate` of one tensor."""
     return rope_apply_split(x, rope[: x.shape[1]]).to(x.dtype)
+
+
+def _rope_finalize_plain(dq, dk, dv, rope, dtype):
+    """Plain `rope_finalize_bwd`: the fp32 sums dQ [B, Lq, N, D] and dK
+    [B, Lk, N, D] inverse-rotated by the table's rows [0, Lq) / [0, Lk)
+    (JAX `_rot_inv`), then each of dQ, dK and dV rounded to `dtype` once."""
+    return (rope_apply_split_inv(dq, rope[: dq.shape[1]]).to(dtype),
+            rope_apply_split_inv(dk, rope[: dk.shape[1]]).to(dtype), dv.to(dtype))
 
 
 def _flash_fwd_plain(q, k, v, k_lens=None, scale=None, block_k: int = 1024,
@@ -202,14 +215,12 @@ def _flash_bwd_plain(q, k, v, k_lens, out, lse, g, scale=None, rope=None):
     delta = rowsum(dO * O), ds = p * (dp - delta) * scale; P and dS are
     rounded to the input dtype before their products (dV = P^T dO,
     dK = dS^T Q, dQ = dS K).  With `rope` (the rope branch) q and k are the
-    unrotated inputs: both are rotated as the forward rotates them, and dQ
-    and dK are inverse-rotated in fp32 before the final rounding.  Returns
-    dq, dk, dv [B, L, N, D] in q's dtype."""
+    forward's rotated operands (as `_Flash` saves them), and dQ and dK are
+    inverse-rotated in fp32 before the final rounding.  Returns dq, dk, dv
+    [B, L, N, D] in q's dtype."""
     b, lq, n, d = q.shape
     lk = k.shape[1]
     scale = d ** -0.5 if scale is None else scale
-    if rope is not None:
-        q, k = _rope_rows(q, rope), _rope_rows(k, rope)
     dt, acc = q.dtype, _acc_dtype(q)
     qf, kf, vf, gf, of = (x.permute(0, 2, 1, 3).to(acc) for x in (q, k, v, g, out))
     delta = (gf * of).sum(-1, keepdim=True)  # [B, N, Lq, 1]
@@ -236,8 +247,7 @@ def _flash_bwd_plain(q, k, v, k_lens, out, lse, g, scale=None, rope=None):
         dq[:, :, q0:q1] = ds @ kf
     dq, dk, dv = (x.permute(0, 2, 1, 3) for x in (dq, dk, dv))
     if rope is not None:
-        dq = rope_apply_split_inv(dq, rope[:lq])
-        dk = rope_apply_split_inv(dk, rope[:lk])
+        return _rope_finalize_plain(dq, dk, dv, rope, dt)
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
@@ -398,27 +408,74 @@ def _check_rope(rope, q, lk):
         raise ValueError(f"rope: expected [L >= {max(lq, lk)}, {d}], got {tuple(rope.shape)}")
 
 
-def _flash_fwd_cuda(q, k, v, k_lens, scale, with_lse: bool = False, rope=None):
-    """K1, or K1-rope given the packed table `rope`; with `with_lse` returns
-    (out, lse [B, N, Lq] fp32)."""
+def _check_bf16_qk(q, k):
+    b, _, n, d = q.shape
+    _check("q", q, torch.bfloat16)
+    _check("k", k, torch.bfloat16, (b, k.shape[1], n, d))
+
+
+def _rope_rotate_cuda(q, k, rope):
+    """The rotation pass of K1-rope and K4-rope (`sa_rope_rotate`, one
+    launch): new bf16 q and k rotated by the table's rows [0, Lq) / [0, Lk),
+    equal to `_rope_rows` bit for bit."""
     b, lq, n, d = q.shape
     lk = k.shape[1]
-    _check("q", q, torch.bfloat16)
-    _check("k", k, torch.bfloat16, (b, lk, n, d))
+    _check_bf16_qk(q, k)
+    _check_rope(rope, q, lk)
+    if d not in (64, 128):
+        raise ValueError(f"head dim {d}: the kernels take 64 or 128")
+    if k.device != q.device:
+        raise ValueError(f"k is on {k.device}, q on {q.device}")
+    qr, kr = torch.empty_like(q), torch.empty_like(k)
+    cuda_lib.launch("sa_rope_rotate", q.data_ptr(), k.data_ptr(), rope.data_ptr(),
+                    qr.data_ptr(), kr.data_ptr(), b, lq, lk, n, d)
+    launch_counts["rope_rotate"] += 1
+    return qr, kr
+
+
+def rope_rotate(q, k, rope):
+    """q and k rotated by the packed split-pair table `rope` (q by its rows
+    [0, Lq), k by [0, Lk)) in fp32 and rounded to their dtype once: the
+    kernel on CUDA tensors, `_rope_rows` on CPU ones."""
+    if q.is_cuda:
+        return _rope_rotate_cuda(q, k, rope)
+    return _rope_rows(q, rope), _rope_rows(k, rope)
+
+
+def _rope_finalize_cuda(dq, dk, dv, rope):
+    """`sa_rope_finalize_bwd` (one launch): the fp32 sums dQ [B, Lq, N, D]
+    and dK, dV [B, Lk, N, D] to bf16, dQ and dK inverse-rotated first; equal
+    to `_rope_finalize_plain` bit for bit."""
+    b, lq, n, d = dq.shape
+    lk = dk.shape[1]
+    _check("dq", dq, torch.float32)
+    _check("dk", dk, torch.float32, (b, lk, n, d))
+    _check("dv", dv, torch.float32, (b, lk, n, d))
+    _check_rope(rope, dq, lk)
+    out = [torch.empty(x.shape, dtype=torch.bfloat16, device=x.device) for x in (dq, dk, dv)]
+    cuda_lib.launch("sa_rope_finalize_bwd", dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                    rope.data_ptr(), *(x.data_ptr() for x in out), b, lq, lk, n, d)
+    launch_counts["rope_finalize_bwd"] += 1
+    return tuple(out)
+
+
+def _flash_fwd_cuda(q, k, v, k_lens, scale, with_lse: bool = False, rope=None):
+    """K1, or K1-rope given the packed table `rope` (`rope_rotate`, then K1
+    on the rotated copies); with `with_lse` returns (out, lse [B, N, Lq]
+    fp32)."""
+    if rope is not None:
+        q, k = _rope_rotate_cuda(q, k, rope)
+    b, lq, n, d = q.shape
+    lk = k.shape[1]
+    _check_bf16_qk(q, k)
     _check_cuda_common(q, k, v, k_lens)
     out = torch.empty_like(q)
     lse = torch.empty((b, n, lq), dtype=torch.float32, device=q.device) if with_lse else None
-    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if k_lens is None else k_lens.data_ptr()]
-    name = "flash_fwd_bf16"
-    if rope is not None:
-        _check_rope(rope, q, lk)
-        ptrs.append(rope.data_ptr())
-        name += "_rope"
-    cuda_lib.launch(f"sa_{name}", *ptrs, out.data_ptr(),
+    cuda_lib.launch("sa_flash_fwd_bf16", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    None if k_lens is None else k_lens.data_ptr(), out.data_ptr(),
                     None if lse is None else lse.data_ptr(), b, lq, lk, n, d,
                     float(scale * LOG2E))
-    launch_counts[name + ("_lse" if with_lse else "")] += 1
+    launch_counts["flash_fwd_bf16_lse" if with_lse else "flash_fwd_bf16"] += 1
     return (out, lse) if with_lse else out
 
 
@@ -443,15 +500,16 @@ def bwd_splits(bn: int, lq: int, lk: int, sms: int) -> int:
 
 
 def _flash_bwd_cuda(q, k, v, k_lens, out, lse, g, scale, rope=None):
-    """K4: (dq, dk, dv) in bf16 from the forward's LSE, in one fused pass;
-    given the packed table `rope`, K4a-rope then K4b-rope on the unrotated
-    q and k.  The fused pass adds dQ into a zeroed fp32 buffer (rounded to
-    bf16 here) and, where it splits the queries (`bwd_splits`), writes fp32
-    dK / dV partials that are summed here in a fixed order."""
+    """K4: (dq, dk, dv) in bf16 from the forward's LSE, in one fused pass.
+    The fused pass adds dQ into a zeroed fp32 buffer (rounded to bf16 here)
+    and, where it splits the queries (`bwd_splits`), writes fp32 dK / dV
+    partials that are summed here in a fixed order.  Given the packed table
+    `rope` (K4-rope), q and k are the forward's rotated operands: dK and dV
+    always go through the fp32 partials, and `rope_finalize_bwd`
+    inverse-rotates the fp32 dQ and dK before their one rounding."""
     b, lq, n, d = q.shape
     lk = k.shape[1]
-    _check("q", q, torch.bfloat16)
-    _check("k", k, torch.bfloat16, (b, lk, n, d))
+    _check_bf16_qk(q, k)
     _check_cuda_common(q, k, v, k_lens)
     _check("dout", g, torch.bfloat16, (b, lq, n, d))
     _check("out", out, torch.bfloat16, (b, lq, n, d))
@@ -464,18 +522,10 @@ def _flash_bwd_cuda(q, k, v, k_lens, out, lse, g, scale, rope=None):
     scales = (float(scale), float(scale * LOG2E))
     if rope is not None:
         _check_rope(rope, q, lk)
-        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        dims = (b, lq, lk, n, d, *scales)
-        cuda_lib.launch("sa_flash_bwd_dkdv_rope", *args, rope.data_ptr(), dk.data_ptr(),
-                        dv.data_ptr(), *dims)
-        launch_counts["flash_bwd_dkdv_rope"] += 1
-        cuda_lib.launch("sa_flash_bwd_dq_rope", *args, rope.data_ptr(), dq.data_ptr(), *dims)
-        launch_counts["flash_bwd_dq_rope"] += 1
-        return dq, dk, dv
     splits = bwd_splits(b * n, lq, lk,
                         torch.cuda.get_device_properties(q.device).multi_processor_count)
     dq_acc = torch.zeros((b, lq, n, d), dtype=torch.float32, device=q.device)
-    if splits > 1:
+    if splits > 1 or rope is not None:
         dk = dv = None
         dk_part, dv_part = (torch.empty((splits, b, lk, n, d), dtype=torch.float32,
                                         device=q.device) for _ in range(2))
@@ -487,6 +537,9 @@ def _flash_bwd_cuda(q, k, v, k_lens, out, lse, g, scale, rope=None):
                     None if dk is None else dk.data_ptr(), None if dv is None else dv.data_ptr(),
                     *outs, b, lq, lk, n, d, splits, *scales)
     launch_counts["flash_bwd"] += 1
+    if rope is not None:
+        dk, dv = (x.sum(0) if splits > 1 else x[0] for x in (dk_part, dv_part))
+        return _rope_finalize_cuda(dq_acc, dk, dv, rope)
     if splits > 1:
         dk, dv = dk_part.sum(0).to(torch.bfloat16), dv_part.sum(0).to(torch.bfloat16)
     return dq_acc.to(torch.bfloat16), dk, dv
@@ -500,13 +553,16 @@ def _flash_fwd_with_lse(q, k, v, k_lens, scale, rope=None):
 
 class _Flash(torch.autograd.Function):
     """The custom VJP of the JAX package's `_flash` (flash_attention.py:967):
-    forward K1 (K1-rope given `rope`) with LSE, backward K4 (its rope branch
-    given `rope`, from the saved unrotated q and k); plain versions on CPU
+    forward K1 with LSE, backward K4; given `rope`, q and k are rotated once
+    (`rope_rotate`) and the rotated copies are what K1 reads and what is
+    saved, so K4-rope does not rotate again.  Plain versions on CPU
     tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, k_lens, scale, rope=None):
-        out, lse = _flash_fwd_with_lse(q, k, v, k_lens, scale, rope)
+        if rope is not None:
+            q, k = rope_rotate(q, k, rope)
+        out, lse = _flash_fwd_with_lse(q, k, v, k_lens, scale)
         ctx.save_for_backward(q, k, v, k_lens, out, lse, rope)
         ctx.scale = scale
         return out
@@ -609,9 +665,10 @@ def flash_attention(
     quant: "none" (K1) | "qk" (K2) | "qkv" | "qkpv" (K2v).  static_max
     (None: `STATIC_MAX`) takes K3 for "qk" / "qkv"; "qkpv" ignores it.
     rope: packed split-pair [L, D] fp32 table (row i: position i, L >= Lq,
-    Lk); on the bf16 path the kernels rotate q and k (K1-rope, K4's rope
-    branch), on the int8 paths the quantisation prep does.  Only "none" is
-    differentiable (K1 with LSE forward, K4 backward).
+    Lk); on the bf16 path one rotation pass feeds K1 (K1-rope; under
+    autograd K4-rope inverse-rotates dQ and dK), on the int8 paths the
+    quantisation prep rotates.  Only "none" is differentiable (K1 with LSE
+    forward, K4 backward).
     """
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no flash attention path for device {q.device}")

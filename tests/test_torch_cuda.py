@@ -13,10 +13,12 @@ rounded to bf16 at other places.  K1's and K3's LSE (fp32, from fp32 row
 statistics) are held to max-abs 1e-3, and so is K2-LSE's (the int8 kernels'
 LSE output).  K2v-qkpv is held against its plain version on the same key
 block (its result depends on the block): the JAX package's, or the one
-given.  K1-rope and K4's rope branch are held to the same bounds, their
-gradients to rel-L2 1e-2; the probes' int8 GEMM outputs (`ops/probes.py`)
-must equal their plain version exactly, and the bf16 GEMM and the dots
-probes stay within rel-L2 1e-2.
+given.  K1-rope and K4-rope are held to the same bounds, their gradients to
+rel-L2 1e-2; the rotation and finalize passes (`csrc/rope.cu`) must equal
+their plain versions exactly, and so must K1-rope the rotation in PyTorch
+followed by K1, and K4-rope's dV the fused K4's on the rotated inputs; the
+probes' int8 GEMM outputs (`ops/probes.py`) must equal their plain version
+exactly, and the bf16 GEMM and the dots probes stay within rel-L2 1e-2.
 """
 
 import pytest
@@ -426,53 +428,96 @@ def test_k2v_qkpv_kernel_on_any_block(gen, pv_block):
 
 
 def _rope(l, d):
-    """A packed split-pair table of at least l positions (a 3 x 32 x 32
-    grid: 3072)."""
-    table = pack_split(rope_freqs_3d((3, 32, 32), d, device="cuda"))
+    """A packed split-pair table of at least l positions (an F x 32 x 32
+    grid, F >= 3: at least 3072)."""
+    table = pack_split(rope_freqs_3d((max(3, -(-l // 1024)), 32, 32), d, device="cuda"))
     assert table.shape[0] >= l
     return table
 
 
+# D 64 and 128; L odd, q and k of other lengths, both shorter than the table
+ROPE_PASS_CASES = [(2, 2049, 777, 3, 64), (1, 1001, 3001, 2, 128)]
+
+
+@pytest.mark.parametrize("b,lq,lk,n,d", ROPE_PASS_CASES)
+def test_rope_rotate_kernel_matches_plain_exactly(gen, b, lq, lk, n, d):
+    """`sa_rope_rotate` equals `rope_apply_split(x, table[:L]).to(bf16)`
+    bit for bit (no fused multiply-add, one rounding to nearest even), q by
+    the table's rows [0, Lq) and k by [0, Lk), in one launch."""
+    q, k = _randn(gen, b, lq, n, d) * 8, _randn(gen, b, lk, n, d) * 8
+    rope = _rope(max(lq, lk), d)
+    before = fa.launch_counts["rope_rotate"]
+    qr, kr = fa.rope_rotate(q, k, rope)
+    assert fa.launch_counts["rope_rotate"] == before + 1
+    assert torch.equal(qr, fa._rope_rows(q, rope)) and torch.equal(kr, fa._rope_rows(k, rope))
+
+
+@pytest.mark.parametrize("b,lq,lk,n,d", ROPE_PASS_CASES)
+def test_rope_finalize_kernel_matches_plain_exactly(gen, b, lq, lk, n, d):
+    """`sa_rope_finalize_bwd` equals the plain finalize bit for bit: fp32
+    dQ and dK inverse-rotated (`rope_apply_split_inv`) and rounded once, dV
+    rounded as it is."""
+    dq = torch.randn((b, lq, n, d), generator=gen, device="cuda") * 3
+    dk, dv = (torch.randn((b, lk, n, d), generator=gen, device="cuda") * 3 for _ in range(2))
+    rope = _rope(max(lq, lk), d)
+    before = fa.launch_counts["rope_finalize_bwd"]
+    got = fa._rope_finalize_cuda(dq, dk, dv, rope)
+    assert fa.launch_counts["rope_finalize_bwd"] == before + 1
+    for a, w in zip(got, fa._rope_finalize_plain(dq, dk, dv, rope, torch.bfloat16)):
+        assert torch.equal(a, w)
+
+
+# K4-rope's partials: split queries (the first two) and one split with
+# ragged keys (512 key blocks: batch 0's blocks past 5000 write zero partials)
 @pytest.mark.parametrize("b,l,n,d,k_lens", [(2, 3000, 2, 128, [2500, 3000]),
-                                            (1, 2100, 3, 64, None)])
+                                            (1, 2100, 3, 64, None),
+                                            (2, 8192, 4, 64, [5000, 8192])])
 def test_k1_rope_and_k4_rope_match_plain(gen, b, l, n, d, k_lens):
     """`flash_attention(rope=)` forward, with stats and under autograd:
-    K1-rope (with and without its LSE), K4a-rope and K4b-rope against the
-    plain versions (rotate, plain K1 / K4, inverse-rotate dQ and dK)."""
+    K1-rope (with and without its LSE) equals the rotation in PyTorch
+    followed by K1 exactly and its plain version within the bounds;
+    K4-rope's dV equals the fused K4's on the rotated inputs exactly, and
+    its dQ / dK stay within the bounds of the plain backward (on the same
+    rotated q and k, dQ and dK inverse-rotated in fp32)."""
     q, k, v, g = (_randn(gen, b, l, n, d) for _ in range(4))
     kl = None if k_lens is None else torch.tensor(k_lens, dtype=torch.int32, device="cuda")
     rope = _rope(l, d)
     scale = d ** -0.5
     before = dict(fa.launch_counts)
-    want_out, want_lse = fa._flash_fwd_plain(q, k, v, kl, scale, with_lse=True, rope=rope)
     out = fa.flash_attention(q, k, v, k_lens=kl, rope=rope)
-    assert _rel(out, want_out) < REL_TOL
-    out, lse = fa.flash_attention_with_stats(q, k, v, k_lens=kl, rope=rope)
-    assert _rel(out, want_out) < REL_TOL
-    assert float((lse - want_lse.transpose(1, 2)).abs().max()) < 1e-3
+    out_stats, lse = fa.flash_attention_with_stats(q, k, v, k_lens=kl, rope=rope)
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
-    out = fa.flash_attention(qg, kg, vg, k_lens=kl, rope=rope)
-    out.backward(g)
-    assert _rel(out.detach(), want_out) < REL_TOL
-    want = fa._flash_bwd_plain(q, k, v, kl, want_out, want_lse, g, scale, rope=rope)
-    for a, w in zip((qg.grad, kg.grad, vg.grad), want):
-        assert _rel(a, w) < REL_TOL, _rel(a, w)
+    out_grad = fa.flash_attention(qg, kg, vg, k_lens=kl, rope=rope)
+    out_grad.backward(g)
     counts = {name: fa.launch_counts[name] - before[name] for name in before}
     assert {name: c for name, c in counts.items() if c} == {
-        "flash_fwd_bf16_rope": 1, "flash_fwd_bf16_rope_lse": 2, "flash_bwd_dkdv_rope": 1,
-        "flash_bwd_dq_rope": 1}
+        "rope_rotate": 3, "flash_fwd_bf16": 1, "flash_fwd_bf16_lse": 2, "flash_bwd": 1,
+        "rope_finalize_bwd": 1}
+
+    qr, kr = fa._rope_rows(q, rope), fa._rope_rows(k, rope)
+    assert torch.equal(out, fa._flash_fwd_cuda(qr, kr, v, kl, scale))
+    k1_out, k1_lse = fa._flash_fwd_cuda(qr, kr, v, kl, scale, with_lse=True)
+    assert torch.equal(out_stats, k1_out) and torch.equal(lse, k1_lse.transpose(1, 2))
+    assert torch.equal(out_grad.detach(), k1_out)
+    want_out, want_lse = fa._flash_fwd_plain(q, k, v, kl, scale, with_lse=True, rope=rope)
+    assert _rel(out, want_out) < REL_TOL and _rel(out_stats, want_out) < REL_TOL
+    assert float((lse - want_lse.transpose(1, 2)).abs().max()) < 1e-3
+    assert torch.equal(vg.grad, fa._flash_bwd_cuda(qr, kr, v, kl, k1_out, k1_lse, g, scale)[2])
+    want = fa._flash_bwd_plain(qr, kr, v, kl, want_out, want_lse, g, scale, rope=rope)
+    for a, w in zip((qg.grad, kg.grad, vg.grad), want):
+        assert _rel(a, w) < REL_TOL, _rel(a, w)
 
 
 def test_attention_rotates_before_k1(gen):
     """`attention(rope=)` on the bf16 path keeps the JAX package's
-    dispatch: one rotation pass, then K1 (no K1-rope launch)."""
+    dispatch: the rotation in PyTorch, then K1 (no `rope_rotate` launch)."""
     b, l, n, d = 1, 2048, 2, 128
     q, k, v = (_randn(gen, b, l, n, d) for _ in range(3))
     rope = _rope(l, d)[:l]
     before = dict(fa.launch_counts)
     out = attention(q, k, v, rope=rope)
     assert fa.launch_counts["flash_fwd_bf16"] == before["flash_fwd_bf16"] + 1
-    assert fa.launch_counts["flash_fwd_bf16_rope"] == before["flash_fwd_bf16_rope"]
+    assert fa.launch_counts["rope_rotate"] == before["rope_rotate"]
     assert _rel(out, fa._flash_fwd_plain(q, k, v, rope=rope)) < REL_TOL
 
 

@@ -133,8 +133,7 @@ def test_flash_wrapper_routes_cpu_to_plain():
         "flash_fwd_bf16", "flash_fwd_bf16_lse", "flash_fwd_int8_qk", "flash_fwd_int8_qkv",
         "flash_fwd_int8_qkpv", "flash_fwd_int8_qk_lse", "flash_fwd_int8_qkv_lse",
         "flash_fwd_int8_qkpv_lse", "flash_fwd_int8_static_qk", "flash_fwd_int8_static_qkv",
-        "flash_bwd", "flash_fwd_bf16_rope", "flash_fwd_bf16_rope_lse",
-        "flash_bwd_dkdv_rope", "flash_bwd_dq_rope"}
+        "flash_bwd", "rope_rotate", "rope_finalize_bwd"}
     assert not any(tfa.launch_counts.values())
 
 
@@ -250,6 +249,107 @@ def test_rope_inverse_matches_jax_and_is_the_transpose():
     xt = t(x).requires_grad_()
     rope_apply_split(xt, trope).backward(t(g))
     np.testing.assert_allclose(xt.grad.numpy(), got.numpy(), rtol=1e-6, atol=1e-6)
+
+
+# (D, Lq, Lk): q and k as long as the 256-position table, and shorter than
+# it (each tensor takes the table's first L rows)
+ROPE_ROWS = [(64, 256, 256), (128, 256, 256), (64, 200, 131), (128, 131, 200)]
+
+
+def _bf16_values(x):
+    """numpy fp32 -> the same values rounded to bf16, still fp32 (exact on
+    both sides)."""
+    return t(x).bfloat16().float().numpy()
+
+
+@pytest.mark.parametrize("d,lq,lk", ROPE_ROWS)
+def test_rope_rotate_plain_matches_jax_bits(d, lq, lk):
+    """The plain `rope_rotate` (K1-rope's and K4-rope's rotation pass, the
+    reference of `sa_rope_rotate`) equals the JAX package's
+    `rope_apply_split(x, table[:L]).astype(bf16)` bit for bit: one fp32
+    rotation, one rounding, q by rows [0, Lq) and k by [0, Lk)."""
+    from stableavatar_tpu.ops.rope import rope_apply_split as jrs
+
+    rng = np.random.default_rng(21)
+    q = _bf16_values(rng.standard_normal((2, lq, 3, d)).astype(np.float32) * 4)
+    k = _bf16_values(rng.standard_normal((2, lk, 3, d)).astype(np.float32) * 4)
+    jrope, trope = jpack(jfreqs(ROPE_GRID, d)), pack_split(rope_freqs_3d(ROPE_GRID, d))
+    qr, kr = tfa.rope_rotate(t(q, torch.bfloat16), t(k, torch.bfloat16), trope)
+    assert qr.dtype == kr.dtype == torch.bfloat16
+    for got, x, l in ((qr, q, lq), (kr, k, lk)):
+        want = jrs(jnp.asarray(x, jnp.bfloat16), jrope[:l]).astype(jnp.bfloat16)
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+
+
+@pytest.mark.parametrize("d,lq,lk", ROPE_ROWS[1:3])
+def test_rope_finalize_plain_matches_jax_rot_inv(d, lq, lk):
+    """The plain `rope_finalize_bwd` (the reference of
+    `sa_rope_finalize_bwd`) equals the TPU bodies' last step bit for bit:
+    `_rot_inv(dq_or_dk, table rows).astype(bf16)` on the fp32 sums, and dV
+    rounded as it is."""
+    rng = np.random.default_rng(22)
+    dq = rng.standard_normal((1, lq, 2, d)).astype(np.float32)
+    dk, dv = (rng.standard_normal((1, lk, 2, d)).astype(np.float32) for _ in range(2))
+    jrope, trope = jpack(jfreqs(ROPE_GRID, d)), pack_split(rope_freqs_3d(ROPE_GRID, d))
+    got = tfa._rope_finalize_plain(t(dq), t(dk), t(dv), trope, torch.bfloat16)
+    for g, x in zip(got[:2], (dq, dk)):
+        l = x.shape[1]
+        want = np.stack([np.asarray(jfa._rot_inv(jnp.asarray(x[0, :, h]), jrope[:l])
+                                    .astype(jnp.bfloat16), np.float32) for h in range(2)],
+                        axis=1)[None]
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_array_equal(g.float().numpy(), want)
+    np.testing.assert_array_equal(got[2].float().numpy(),
+                                  np.asarray(jnp.asarray(dv).astype(jnp.bfloat16), np.float32))
+
+
+@pytest.mark.parametrize("sms,splits", [(1, 1), (132, 4)])
+def test_rope_kernel_entry_points_route(monkeypatch, sms, splits):
+    """The CUDA wrappers' route with `rope=` (launches recorded here, not
+    run): K1-rope is `sa_rope_rotate` then `sa_flash_fwd_bf16` on the
+    rotated copies; K4-rope is `sa_flash_bwd` writing fp32 dK / dV partials
+    (also with one split, where dK / dV are never rounded in the kernel),
+    then `sa_rope_finalize_bwd` on dQ's fp32 buffer and the partials (their
+    sum in a fixed order where the queries are split)."""
+    import types
+
+    from stableavatar_tpu_torch.ops import cuda_lib
+
+    calls = []
+    monkeypatch.setattr(cuda_lib, "launch", lambda name, *args: calls.append((name, args)))
+    monkeypatch.setattr(tfa, "launch_counts", dict.fromkeys(tfa.launch_counts, 0))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(multi_processor_count=sms))
+    b, l, n, d = 1, 256, 2, 64
+    q, k, v, g = (t(x, torch.bfloat16) for x in (*_qkv(23, b=b, lq=l, lk=l, n=n, d=d),
+                                                 _qkv(24, b=b, lq=l, lk=l, n=n, d=d)[0]))
+    trope = pack_split(rope_freqs_3d(ROPE_GRID, d))
+    for with_lse in (False, True):
+        tfa._flash_fwd_cuda(q, k, v, None, d ** -0.5, with_lse=with_lse, rope=trope)
+        (rot, rot_args), (fwd, fwd_args) = calls[-2:]
+        assert (rot, fwd) == ("sa_rope_rotate", "sa_flash_fwd_bf16")
+        assert rot_args[:3] == (q.data_ptr(), k.data_ptr(), trope.data_ptr())
+        assert rot_args[5:] == (b, l, l, n, d)
+        assert fwd_args[:2] == rot_args[3:5]  # K1 reads the rotated copies
+        assert (fwd_args[5] is not None) == with_lse
+    assert tfa.launch_counts == {**dict.fromkeys(tfa.launch_counts, 0), "rope_rotate": 2,
+                                 "flash_fwd_bf16": 1, "flash_fwd_bf16_lse": 1}
+    assert tfa.bwd_splits(b * n, l, l, sms) == splits
+    out, lse = v.clone(), torch.zeros((b, n, l))
+    dq, dk, dv = tfa._flash_bwd_cuda(q, k, v, None, out, lse, g, d ** -0.5, rope=trope)
+    (bwd, bwd_args), (fin, fin_args) = calls[-2:]
+    assert (bwd, fin) == ("sa_flash_bwd", "sa_rope_finalize_bwd")
+    # dq_acc, dk, dv (bf16: none), dk_part, dv_part, ..., splits
+    assert bwd_args[8:10] == (None, None) and None not in bwd_args[7:8] + bwd_args[10:12]
+    assert bwd_args[12:18] == (b, l, l, n, d, splits)
+    assert fin_args[0] == bwd_args[7] and fin_args[3] == trope.data_ptr()
+    assert (fin_args[1:3] == bwd_args[10:12]) == (splits == 1)
+    assert fin_args[4:7] == tuple(x.data_ptr() for x in (dq, dk, dv))
+    assert all(x.dtype == torch.bfloat16 and x.shape == q.shape for x in (dq, dk, dv))
+    assert tfa.launch_counts["flash_bwd"] == tfa.launch_counts["rope_finalize_bwd"] == 1
+    src = (cuda_lib.CSRC / "rope.cu").read_text()
+    assert "rope_rotate_kernel<" in _entry_body(src, "sa_rope_rotate")
+    assert "rope_finalize_bwd_kernel<" in _entry_body(src, "sa_rope_finalize_bwd")
 
 
 def test_flash_function_gradcheck():
