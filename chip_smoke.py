@@ -85,8 +85,36 @@ exits non-zero):
                (`stableavatar_tpu_torch/scripts/`), each with exact launch
                counts.
 
-Phases 5-6, 7, 8, 9, 10's one-rank ring and 11's entry points drive the
-paths: the launch counts are set to 0 just before each and read just
+12. single_clip -- generate_single_clip at WAN_1_3B, 512x512, 81 frames,
+               random seeded weights: the fast path with 2 Euler steps (K2
+               and K5 30 launches a step), one bf16 step (90 K1), and the
+               training loop's log_validation (one bf16 step, the clip
+               written to a temp dir); the videos (1, 3, 81, 512, 512),
+               finite, in [0, 1];
+13. checkpoints -- the random 1.3B DiT written in Wan's layout as an fp32
+               `diffusion_pytorch_model.safetensors`, a StableAvatar `.pt`
+               override and an HF wav2vec2 directory (the port's exporters,
+               a temp dir deleted afterwards), read back with their GB/s,
+               then `load_models` with --pretrained_model_name_or_path,
+               --transformer_path and --pretrained_wav2vec_path: the loaded
+               trees equal the written ones bit for bit, and one Euler
+               window-step of generate_long on them equals the same step on
+               the in-memory trees bit for bit;
+14. 14B     -- K1, K2 and K5 against their plain versions at WAN_14B's
+               [3, 21504, 40, 128] (time, bound, SDPA for K1); `load_models`
+               with --model_family 14B (umT5-xxl encoded on the card and
+               released before the DiT loads), one window-step with
+               --fast_path linears (40 K2, 40 K5) and one bf16 (120 K1), with
+               their peak device memory;
+15. sequential -- the same 14B bf16 window-step with --GPU_memory_mode
+               sequential_cpu_offload (the 40 blocks in pinned host memory,
+               streamed two at a time): its latents equal phase 14's bit for
+               bit, its peak device memory beside the resident run's and far
+               below it, the blocks' H2D GB/s, and whether the copies hide
+               behind compute.
+
+Phases 5-6, 7, 8, 9, 10's one-rank ring, 11's entry points and 12-15 drive
+the paths: the launch counts are set to 0 just before each and read just
 after.  The line before the last is a JSON object with one entry per
 kernel; the last line is {"ok": true, "device": {...}}.
 """
@@ -1836,6 +1864,434 @@ def phase_remaining_paths(l=21504, grid=(21, 32, 32)):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 12-15: the single clip, checkpoints, 14B, sequential offload
+# ---------------------------------------------------------------------------
+
+
+def one_window_inputs(cfg, seed=0):
+    """Seeded inputs of one 81-frame clip at 512x512: a reference image, 81
+    video frames of 16 kHz audio and a pre-encoded text context."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return dict(
+        ref_image=rng.standard_normal((1, 3, 512, 512)).astype(np.float32) * 0.2,
+        vocal_waveform=rng.standard_normal(81 * (16000 // 25)).astype(np.float32) * 0.05,
+        text_ctx=torch.as_tensor(rng.standard_normal((3, cfg.text_len, cfg.text_dim)),
+                                 dtype=torch.bfloat16, device="cuda"))
+
+
+def check_video(name, video, shape):
+    import numpy as np
+
+    if video.shape != shape or not (np.isfinite(video).all() and video.min() >= 0.0
+                                    and video.max() <= 1.0):
+        raise AssertionError(f"{name}: video {video.shape} is not finite [0, 1] of {shape}")
+    log(f"  {name}: video {video.shape} mean {video.mean():.4f} std {video.std():.4f}")
+
+
+def check_launches(name, launches, want):
+    got = {k: launches[k] for k in want}
+    log(f"  {name} launches: {got}")
+    if got != want:
+        raise AssertionError(f"{name}: launch counts {got} != {want}")
+
+
+def phase_single_clip(models, dit_bf16, reset_counts, counts):
+    """generate_single_clip at 1.3B / 512x512 / 81 frames: 2 Euler steps on
+    the fast path (30 K2 and 30 K5 a step), one on the bf16 path (90 K1),
+    and the training loop's log_validation (one bf16 step, a written clip).
+    Returns the runs' launch counts."""
+    import dataclasses
+
+    import torch
+
+    from stableavatar_tpu_torch.pipelines.single_clip import generate_single_clip
+    from stableavatar_tpu_torch.train.loop import log_validation
+
+    cfg, layers = models.dit_cfg, models.dit_cfg.num_layers
+    inputs = one_window_inputs(cfg, seed=12)
+    bf16 = dataclasses.replace(models, dit_params=dit_bf16, rope_split=False, attn_quant="none")
+    runs = {}
+    for name, m, steps, want in (
+            ("fast path, Euler, 2 steps", models, 2,
+             {"flash_fwd_int8_qk": 2 * layers, "dual_context": 2 * layers, "flash_fwd_bf16": 0}),
+            ("bf16, Euler, 1 step", bf16, 1,
+             {"flash_fwd_bf16": 3 * layers, "flash_fwd_int8_qk": 0, "dual_context": 0})):
+        marks = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = generate_single_clip(
+            m, num_inference_steps=steps, seed=42, step_callback=lambda i, x: (
+                torch.cuda.synchronize(), marks.append(time.perf_counter())), **inputs)
+        torch.cuda.synchronize()
+        launches = counts()
+        wall = time.perf_counter() - t0
+        step_s = [round(b - a, 3) for a, b in zip([t0] + marks, marks)]
+        log(f"  single clip, {name}: {wall:.2f} s (steps {step_s} s, the first with the "
+            f"conditioning), peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check_launches(f"single clip, {name}", launches, want)
+        check_video(f"single clip, {name}", out.videos, (1, 3, 81, 512, 512))
+        if not torch.isfinite(out.latents).all():
+            raise AssertionError("single-clip latents are not finite")
+        runs[name] = launches
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_validation_")
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        path = log_validation(bf16, dict(inputs, num_inference_steps=1, clip_length=81), out_dir, 1)
+        torch.cuda.synchronize()
+        launches = counts()
+        written = os.listdir(path) if os.path.isdir(path) else [path]
+        log(f"  log_validation: {time.perf_counter() - t0:.2f} s, wrote {path} "
+            f"({len(written)} files)")
+        check_launches("log_validation", launches, {"flash_fwd_bf16": 3 * layers})
+        if not written or (os.path.isdir(path) and len(written) != 81):
+            raise AssertionError(f"log_validation wrote {written[:3]}...")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return runs
+
+
+def wav2vec2_state_dict(params, cfg):
+    """The port's wav2vec2 tree -> an HF `Wav2Vec2ForCTC` state dict ("wav2vec2."
+    prefix, the position conv as a plain weight): what
+    `--pretrained_wav2vec_path` reads."""
+    sd = {}
+
+    def put(name, p):
+        sd[f"wav2vec2.{name}.weight"] = p["w"]
+        if "b" in p:
+            sd[f"wav2vec2.{name}.bias"] = p["b"]
+
+    for i, c in enumerate(params["conv_layers"]):
+        put(f"feature_extractor.conv_layers.{i}.conv", {"w": c["w"]})
+        if "gn" in c:
+            put(f"feature_extractor.conv_layers.{i}.layer_norm", c["gn"])
+    put("feature_projection.layer_norm", params["feature_projection"]["norm"])
+    put("feature_projection.projection", params["feature_projection"]["proj"])
+    put("encoder.pos_conv_embed.conv", params["pos_conv"])
+    put("encoder.layer_norm", params["encoder_norm"])
+    for i, bp in enumerate(params["blocks"]):
+        b = f"encoder.layers.{i}"
+        for ours, theirs in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("o", "out_proj")):
+            put(f"{b}.attention.{theirs}", bp["attn"][ours])
+        put(f"{b}.layer_norm", bp["norm1"])
+        put(f"{b}.feed_forward.intermediate_dense", bp["ffn"]["fc1"])
+        put(f"{b}.feed_forward.output_dense", bp["ffn"]["fc2"])
+        put(f"{b}.final_layer_norm", bp["norm2"])
+    return {k: v.detach().cpu().contiguous() for k, v in sd.items()}
+
+
+def trees_equal(a, b) -> bool:
+    import torch
+
+    from stableavatar_tpu_torch.utils.tree import tree_paths
+
+    pa, pb = dict(tree_paths(a)), dict(tree_paths(b))
+    return sorted(pa) == sorted(pb) and all(
+        torch.equal(x, pb[k]) if torch.is_tensor(x) else x == pb[k] for k, x in pa.items())
+
+
+def phase_checkpoints(models, dit_bf16, reset_counts, counts):
+    """The CLI's checkpoint path at 1.3B: the random bf16 DiT written in
+    Wan's layout as fp32 `diffusion_pytorch_model.safetensors` (as the
+    published Wan2.1-1.3B file), a StableAvatar `.pt` override (vocal
+    projector and vocal k / v redrawn, one tensor of another size) and an
+    HF wav2vec2 directory, all through the port's exporters into a temp
+    directory; then `load_models` with --pretrained_model_name_or_path,
+    --transformer_path and --pretrained_wav2vec_path on the card.  The
+    loaded DiT and wav2vec2 equal the written trees bit for bit, and one
+    Euler window-step of generate_long on them equals the same step on the
+    in-memory trees bit for bit.  Returns the window-steps' launch counts."""
+    import dataclasses
+    import json as json_mod
+
+    import torch
+
+    from stableavatar_tpu_torch.cli.inference import DIT_FILE, build_parser, load_models
+    from stableavatar_tpu_torch.pipelines.long import generate_long
+    from stableavatar_tpu_torch.utils import checkpoint as ckpt
+    from stableavatar_tpu_torch.utils.tree import tree_map
+
+    cfg = models.dit_cfg
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        log(f"  {d}: {shutil.disk_usage(d).free / 1e9:.1f} GB free")
+        t0 = time.perf_counter()
+        sd = ckpt.export_dit_to_torch_state_dict(dit_bf16, cfg)
+        base_path = os.path.join(d, DIT_FILE)
+        ckpt.save_safetensors(sd, base_path)
+        nbytes = os.path.getsize(base_path)
+        log(f"  wrote {DIT_FILE}: {nbytes / 1e9:.2f} GB fp32 in {time.perf_counter() - t0:.2f} s")
+        del sd
+        # the fine-tuned override: the vocal parts redrawn; the head's
+        # weight of another size, which the merge skips
+        redraw = lambda x: (torch.randn(x.shape, generator=gen, device="cuda") * 0.02).to(x.dtype)
+        tuned = dict(dit_bf16, vocal_projector=tree_map(redraw, dit_bf16["vocal_projector"]),
+                     blocks=[dict(bp, cross_attn=dict(
+                         bp["cross_attn"], k_vocal=tree_map(redraw, bp["cross_attn"]["k_vocal"]),
+                         v_vocal=tree_map(redraw, bp["cross_attn"]["v_vocal"])))
+                             for bp in dit_bf16["blocks"]])
+        ov = {k: v.bfloat16() for k, v in ckpt.export_dit_to_torch_state_dict(tuned, cfg).items()}
+        ov["head.head.weight"] = torch.zeros((3, 3), dtype=torch.bfloat16)
+        ov_path = os.path.join(d, "transformer3d-square.pt")
+        t0 = time.perf_counter()
+        torch.save(ov, ov_path)
+        log(f"  wrote {os.path.basename(ov_path)}: {os.path.getsize(ov_path) / 1e9:.2f} GB bf16 in "
+            f"{time.perf_counter() - t0:.2f} s")
+        del ov
+        w2v_dir = os.path.join(d, "wav2vec2-base-960h")
+        os.makedirs(w2v_dir)
+        ckpt.save_safetensors(wav2vec2_state_dict(models.wav2vec_params, models.wav2vec_cfg),
+                              os.path.join(w2v_dir, "model.safetensors"))
+        with open(os.path.join(w2v_dir, "preprocessor_config.json"), "w") as f:
+            json_mod.dump({"do_normalize": True, "sampling_rate": 16000}, f)
+
+        for path in (base_path, ov_path):
+            t0 = time.perf_counter()
+            n = sum(v.numel() * v.element_size()
+                    for v in ckpt.load_torch_state_dict(path).values())
+            s = time.perf_counter() - t0
+            log(f"  read {os.path.basename(path)}: {n / 1e9:.2f} GB in {s:.2f} s, "
+                f"{n / 1e9 / s:.2f} GB/s")
+
+        args = build_parser().parse_args([
+            "--pretrained_model_name_or_path", d, "--transformer_path", ov_path,
+            "--pretrained_wav2vec_path", w2v_dir, "--validation_prompts", "A person is talking"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = load_models(args, "cuda")
+        torch.cuda.synchronize()
+        log(f"  load_models from the checkpoints: {time.perf_counter() - t0:.2f} s (umT5-xxl "
+            f"random, encoded, released; DiT {nbytes / 1e9:.2f} GB + override read, converted, "
+            f"cast and copied)")
+        want = dict(tuned, head=dit_bf16["head"])
+        same_dit = trees_equal(loaded.dit_params, want)
+        same_w2v = trees_equal(loaded.wav2vec_params, models.wav2vec_params)
+        log(f"  loaded DiT equals the written tree with the override merged: {same_dit}; "
+            f"wav2vec2 equals the written one: {same_w2v}")
+        if not (same_dit and same_w2v):
+            raise AssertionError("the loaded checkpoints differ from the written trees")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+    inputs = one_window_inputs(cfg, seed=13)
+    memory = dataclasses.replace(loaded, dit_params=want)
+    outs, runs = [], {}
+    for name, m in (("loaded", loaded), ("in memory", memory)):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = generate_long(m, num_inference_steps=1, overlap_window_length=OVERLAP, seed=42,
+                            output_type="latent", **inputs)
+        torch.cuda.synchronize()
+        runs[name] = counts()
+        log(f"  one Euler window-step of generate_long on the {name} trees: "
+            f"{time.perf_counter() - t0:.2f} s with the conditioning")
+        check_launches(f"window-step, {name}", runs[name], {"flash_fwd_bf16": 3 * cfg.num_layers})
+        outs.append(out.latents)
+    if not (torch.isfinite(outs[0]).all() and torch.equal(outs[0], outs[1])):
+        raise AssertionError("the window-step on the loaded checkpoint differs from the "
+                             "in-memory one")
+    log(f"  window-step latents {tuple(outs[0].shape)}: loaded == in memory, bit for bit")
+    return runs
+
+
+K14B = (3, 21504, 40, 128)  # q / k / v of WAN_14B's self-attention at 512x512
+
+
+def phase_kernels_14b(results):
+    """K1, K2 and K5 at WAN_14B's shape [3, 21504, 40, 128] (TMA rows of
+    10,240 B) against their plain versions, with time, bound and, for K1,
+    SDPA's time: an entry of each kernel's "shapes"."""
+    import torch
+
+    from stableavatar_tpu_torch.ops import cross_attention as ca
+    from stableavatar_tpu_torch.ops import flash_attention as fa
+    from stableavatar_tpu_torch.ops.rope import pack_split, rope_freqs_3d
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    b, l, n, d = K14B
+    scale = d ** -0.5
+    fwd_ops = 4.0 * b * n * l * l * d
+    q, k, v = (_rand(gen, K14B, torch.bfloat16) for _ in range(3))
+    tag = "[3,21504,40,128]"
+
+    def entry(name, err, ms, plain, bound, library, **extra):
+        r = results.setdefault(name, {"max_abs_err": 0.0})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        lib = "—" if library is None else f"{library:.3f} ms"
+        log(f"  {name} {tag}: kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bound[0]:.3f} ms "
+            f"({bound[1]}), library {lib}")
+        r.setdefault("shapes", []).append(dict(shape=list(K14B), model="WAN_14B", ms=ms,
+                                               plain_ms=plain, bound_ms=bound[0],
+                                               bound_by=bound[1], library_ms=library, **extra))
+
+    err = compare(f"flash_fwd_bf16 {tag}", fa._flash_fwd_cuda(q, k, v, None, scale),
+                  fa._flash_fwd_plain(q, k, v, None, scale))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    entry("flash_fwd_bf16", err, time_ms(lambda: fa._flash_fwd_cuda(q, k, v, None, scale), 5),
+          time_ms(lambda: fa._flash_fwd_plain(q, k, v, None, scale), 2),
+          bound_ms(fwd_ops, 2.0 * 4 * b * l * n * d),
+          time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), 5))
+    rope = pack_split(rope_freqs_3d((21, 32, 32), d, device="cuda"))
+    q8, k8, sqk = fa.prepare_int8(q, k, rope, scale)
+    err = compare(f"flash_fwd_int8_qk {tag} rope", fa._flash_int8_cuda(q8, k8, v, sqk, None),
+                  fa._flash_int8_plain(q8, k8, v, sqk))
+    entry("flash_fwd_int8_qk", err, time_ms(lambda: fa._flash_int8_cuda(q8, k8, v, sqk, None), 5),
+          time_ms(lambda: fa._flash_int8_plain(q8, k8, v, sqk), 2),
+          bound_ms(fwd_ops / 2, b * l * n * d * (1 + 1 + 2 + 2.0), ops_int8=fwd_ops / 2), None)
+    del q8, k8, sqk
+    k1, v1 = (_rand(gen, (b, 512, n, d), torch.bfloat16) for _ in range(2))
+    k2, v2 = (_rand(gen, (b, 257, n, d), torch.bfloat16) for _ in range(2))
+    err = compare(f"dual_context {tag} x (512, 257)", ca._dual_cuda(q, k1, v1, k2, v2, scale),
+                  ca._dual_plain(q, k1, v1, k2, v2, scale))
+    entry("dual_context", err, time_ms(lambda: ca._dual_cuda(q, k1, v1, k2, v2, scale), 5),
+          time_ms(lambda: ca._dual_plain(q, k1, v1, k2, v2, scale), 2),
+          bound_ms(4.0 * b * n * l * (512 + 257) * d, 2.0 * b * n * d * (2 * l + 2 * (512 + 257))),
+          None)
+    del q, k, v, k1, v1, k2, v2
+    torch.cuda.empty_cache()
+
+
+ARGV_14B = ["--model_family", "14B", "--validation_prompts", "A person is talking to the camera",
+            "--negative_prompts", "blurry, distorted"]
+
+
+def run_14b_step(args_extra, reset_counts, counts, want):
+    """load_models with --model_family 14B (and `args_extra`), then one
+    Euler window-step of generate_long (81 frames, latent output), the
+    launch counts set to 0 just before it.  Returns a dict: latents (on the
+    host), launches, the step's seconds, the run's peak and the models'
+    resident GiB, and the models."""
+    import torch
+
+    from stableavatar_tpu_torch.cli.inference import build_parser, load_models
+    from stableavatar_tpu_torch.pipelines.long import generate_long
+    from stableavatar_tpu_torch.utils.profiling import StepTimer
+
+    tag = " ".join(args_extra) or "bf16"
+    args = build_parser().parse_args(ARGV_14B + args_extra)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    models = load_models(args, "cuda")
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2**30
+    log(f"  load_models 14B {tag}: {time.perf_counter() - t0:.2f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (umT5-xxl encoded and released "
+        f"before the DiT loads), {resident:.2f} GiB on the card after")
+    inputs = one_window_inputs(models.dit_cfg, seed=14)
+    inputs["text_ctx"] = models.text_ctx
+    marks = []
+
+    def mark(i, x):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    timer = StepTimer("cuda")
+    out = generate_long(models, num_inference_steps=1, overlap_window_length=OVERLAP, seed=42,
+                        output_type="latent", step_callback=mark, timer=timer, **inputs)
+    torch.cuda.synchronize()
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step = timer.history["denoise_step"][0]
+    log(f"  14B window-step {tag}: {step:.3f} s ({marks[0] - t0:.2f} s with the conditioning); "
+        f"peak device memory of the run {peak:.2f} GiB")
+    check_launches(f"14B {tag}", launches, want)
+    if not torch.isfinite(out.latents).all():
+        raise AssertionError("14B latents are not finite")
+    return dict(latents=out.latents.cpu(), launches=launches, step_s=step, peak=peak,
+                resident=resident, models=models)
+
+
+def phase_14b(reset_counts, counts):
+    """--model_family 14B through the CLI's load_models (umT5-xxl on the
+    card, encoded, released; the DiT initialised leaf by leaf in bf16 on the
+    card): one window-step with --fast_path linears (40 K2, 40 K5) and one
+    on the bf16 path (120 K1).  Returns both runs' dicts (models dropped)."""
+    import torch
+
+    from stableavatar_tpu_torch.utils.tree import tree_leaves
+
+    layers = 40
+    runs = {}
+    for name, extra, want in (
+            ("fast", ["--fast_path", "linears"],
+             {"flash_fwd_int8_qk": layers, "dual_context": layers, "flash_fwd_bf16": 0}),
+            ("bf16", [], {"flash_fwd_bf16": 3 * layers, "flash_fwd_int8_qk": 0,
+                          "dual_context": 0})):
+        runs[name] = run_14b_step(extra, reset_counts, counts, want)
+        dit = runs[name].pop("models").dit_params
+        n = sum(x.numel() * x.element_size() for x in tree_leaves(dit))
+        log(f"  WAN_14B DiT {name}: {n / 2**30:.2f} GiB on the card")
+        del dit
+        torch.cuda.empty_cache()
+    return runs
+
+
+def phase_sequential(resident, reset_counts, counts):
+    """The 14B bf16 window-step under --GPU_memory_mode
+    sequential_cpu_offload: the DiT's 40 blocks in pinned host memory,
+    streamed two at a time.  Its latents equal the resident run's (phase
+    14) bit for bit; its peak device memory is logged beside the resident
+    run's and must stay below it less half the blocks' bytes; the blocks'
+    H2D rate is timed alone, and the step beside the resident one says
+    whether the copies hide behind compute.  Returns the launch counts."""
+    import torch
+
+    run = run_14b_step(["--GPU_memory_mode", "sequential_cpu_offload"], reset_counts, counts,
+                       {"flash_fwd_bf16": 120, "flash_fwd_int8_qk": 0, "dual_context": 0})
+    sd = run["models"].streamed_dit
+    block_gib = sum(hb.nbytes for hb in sd.host_blocks) / 2**30
+    log(f"  streamed DiT: {sd.num_layers} blocks, {block_gib:.2f} GiB in pinned host memory "
+        f"(pinned: {sd.host_blocks[0].flat.is_pinned()}); on the card "
+        f"{sd.resident_bytes / 2**30:.2f} GiB of non-block parameters and 2 slots of "
+        f"{sd.slots[0].numel() / 2**30:.3f} GiB")
+    log(f"  peak device memory of the 14B window-step: resident {resident['peak']:.2f} GiB, "
+        f"streamed {run['peak']:.2f} GiB; on the card after loading: resident "
+        f"{resident['resident']:.2f} GiB, streamed {run['resident']:.2f} GiB")
+    if not sd.host_blocks[0].flat.is_pinned():
+        raise AssertionError("the streamed blocks are not in pinned host memory")
+    if not run["peak"] < resident["peak"] - block_gib / 2:
+        raise AssertionError(f"streamed peak {run['peak']:.2f} GiB is not far below the "
+                             f"resident {resident['peak']:.2f} GiB")
+    same = torch.equal(run["latents"], resident["latents"])
+    log(f"  streamed latents equal the resident run's bit for bit: {same}")
+    if not same:
+        raise AssertionError("the streamed 14B window-step differs from the resident one")
+    # the blocks' host-to-device rate, the copies alone on a side stream
+    stream = torch.cuda.Stream()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(stream):
+        start.record(stream)
+        for i, hb in enumerate(sd.host_blocks):
+            sd.slots[i % 2][:hb.nbytes].copy_(hb.flat, non_blocking=True)
+        end.record(stream)
+    torch.cuda.synchronize()
+    s = start.elapsed_time(end) / 1e3
+    exposed = run["step_s"] - resident["step_s"]
+    log(f"  H2D of the {sd.num_layers} blocks alone: {block_gib * 2**30 / 1e9 / s:.2f} GB/s, "
+        f"{s * 1e3 / sd.num_layers:.2f} ms a block, {s:.3f} s in all; streamed step "
+        f"{run['step_s']:.3f} s - resident step {resident['step_s']:.3f} s = {exposed:.3f} s "
+        f"({'the copies hide behind compute' if exposed < s / 2 else 'the copies show'})")
+    launches = run["launches"]
+    del run, sd
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1915,8 +2371,33 @@ def main() -> int:
     log(f"== main path: train(), 1.3B, 512x512, 81 frames, batch 1, remat, AdamW, "
         f"{TRAIN_STEPS} steps")
     training, _ = phase_train(models, dit_bf16, reset_counts, counts)
+
+    # path 7, the single clip and log_validation: counts set to 0 inside,
+    # just before each run
+    log("== single clip: generate_single_clip, 1.3B, 512x512, 81 frames, fast path 2 Euler "
+        "steps, bf16 1 step, log_validation")
+    phase_single_clip(models, dit_bf16, reset_counts, counts)
+
+    # path 8, checkpoints: counts set to 0 inside, just before each window-step
+    log("== checkpoints: the 1.3B DiT written as Wan's fp32 safetensors, a .pt override and a "
+        "wav2vec2 directory, loaded by load_models; one window-step loaded vs in memory")
+    phase_checkpoints(models, dit_bf16, reset_counts, counts)
     del models, dit_bf16
     torch.cuda.empty_cache()
+
+    # paths 9 and 10, 14B resident and streamed: counts set to 0 inside,
+    # just before each window-step
+    log("== 14B: K1, K2, K5 at [3, 21504, 40, 128]; load_models --model_family 14B, one "
+        "window-step with --fast_path linears and one bf16")
+    phase_kernels_14b(results)
+    runs_14b = phase_14b(reset_counts, counts)
+    for name, run in (("flash_fwd_bf16", "bf16"), ("flash_fwd_int8_qk", "fast"),
+                      ("dual_context", "fast")):
+        for entry in results[name]["shapes"]:
+            if entry.get("model") == "WAN_14B":
+                entry["launches"] = runs_14b[run]["launches"][name]
+    log("== sequential: the 14B bf16 window-step with --GPU_memory_mode sequential_cpu_offload")
+    phase_sequential(runs_14b["bf16"], reset_counts, counts)
 
     # path 5, multi-GPU inference's kernels and its one-rank path: counts set
     # to 0 inside, just before ring_attention

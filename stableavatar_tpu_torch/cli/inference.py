@@ -22,11 +22,15 @@ PyTorch, one process per card:
       torchrun --nproc_per_node 4 -m stableavatar_tpu_torch.cli.inference \
           --ulysses_degree 4 ...
 
-Unported options raise NotImplementedError naming their ROADMAP item:
-checkpoint files (there is no converter yet), `sequential_cpu_offload`, and
-the 14B model.  Without checkpoints every model is random, drawn from fixed
-seeds, and the tokenizer is a byte-level fallback unless an umT5 tokenizer
-is on disk.
+Checkpoints load as in the JAX CLI, from the same files under
+--pretrained_model_name_or_path (umT5-xxl, the DiT, the VAE, CLIP), with
+--transformer_path merged over the DiT and the HF wav2vec2 directory of
+--pretrained_wav2vec_path (`utils/checkpoint.py`); each model without a
+file is random, drawn from a fixed seed, and the tokenizer is a byte-level
+fallback unless `google/umt5-xxl` is under the root.  `--model_family 14B`
+selects WAN_14B; `--GPU_memory_mode sequential_cpu_offload` keeps the DiT's
+blocks in pinned host memory and streams them through the card
+(`models/streaming.py`).
 
 Run on the card:  python -m stableavatar_tpu_torch.cli.inference --help
 `STABLEAVATAR_TINY=1` selects miniature configs (plumbing runs).
@@ -38,6 +42,7 @@ import argparse
 import contextlib
 import dataclasses
 import glob
+import json
 import os
 import sys
 import time
@@ -49,6 +54,7 @@ import torch.distributed as dist
 from stableavatar_tpu_torch import config
 from stableavatar_tpu_torch.models.clip import init_clip_visual
 from stableavatar_tpu_torch.models.dit import init_dit
+from stableavatar_tpu_torch.models.streaming import StreamedDiT
 from stableavatar_tpu_torch.models.t5 import init_t5
 from stableavatar_tpu_torch.models.teacache import TeaCache, get_teacache_coefficients
 from stableavatar_tpu_torch.models.vae import init_vae
@@ -58,16 +64,14 @@ from stableavatar_tpu_torch.parallel.mesh import mesh_context
 from stableavatar_tpu_torch.parallel.sharding import shard_params
 from stableavatar_tpu_torch.pipelines.common import WanModels, encode_prompts, resolve_device
 from stableavatar_tpu_torch.pipelines.long import generate_long
+from stableavatar_tpu_torch.utils import checkpoint as ckpt
 from stableavatar_tpu_torch.utils.fastpath import prepare_fast_params
 
-# checkpoint files the JAX package's loader converts (under
-# --pretrained_model_name_or_path)
-CHECKPOINT_FILES = (
-    "models_t5_umt5-xxl-enc-bf16.pth",
-    "diffusion_pytorch_model.safetensors",
-    "Wan2.1_VAE.pth",
-    "models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth",
-)
+# the checkpoint files of the JAX CLI, under --pretrained_model_name_or_path
+T5_FILE = "models_t5_umt5-xxl-enc-bf16.pth"
+DIT_FILE = "diffusion_pytorch_model.safetensors"
+VAE_FILE = "Wan2.1_VAE.pth"
+CLIP_FILE = "models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -205,32 +209,6 @@ def build_tokenizer(args, root, t5_cfg):
     return tokenizer
 
 
-def check_ported(args) -> None:
-    """Raise NotImplementedError for the options the port does not have yet,
-    naming their ROADMAP item: never a silent random init or downgrade."""
-    if args.GPU_memory_mode == "sequential_cpu_offload":
-        raise NotImplementedError(
-            "--GPU_memory_mode sequential_cpu_offload needs the host-streamed DiT "
-            "(ROADMAP queue 1, open item 3: streamed offload, models/streaming.py)")
-    if args.model_family == "14B":
-        raise NotImplementedError(
-            "the 14B model (two-stage vocal projection) is not ported yet "
-            "(ROADMAP queue 1, open item 4: 14B)")
-    root = args.pretrained_model_name_or_path
-    found = [os.path.join(root, f) for f in CHECKPOINT_FILES
-             if root and os.path.exists(os.path.join(root, f))]
-    if args.transformer_path and os.path.exists(args.transformer_path):
-        found.append(args.transformer_path)
-    w2v = args.pretrained_wav2vec_path
-    if w2v and os.path.isdir(w2v):
-        found += [f for ext in ("*.bin", "*.safetensors")
-                  for f in glob.glob(os.path.join(w2v, ext))]
-    if found:
-        raise NotImplementedError(
-            f"loading checkpoints ({', '.join(found)}) is not ported yet (ROADMAP queue 1, "
-            "open item 2: checkpoint loading, utils/checkpoint.py key maps)")
-
-
 def _gen(device, seed):
     return torch.Generator(device=device).manual_seed(seed)
 
@@ -241,31 +219,64 @@ def _gib(device) -> str:
     return f"{torch.cuda.memory_allocated(device) / 2 ** 30:.2f} GiB allocated"
 
 
+def _wav2vec(args, cfg, device, gen):
+    """wav2vec2 from --pretrained_wav2vec_path (its preprocessor's
+    normalisation, the first *.bin / *.safetensors with the "wav2vec2."
+    prefix stripped), else random; fp32."""
+    w2v = args.pretrained_wav2vec_path
+    if not (w2v and os.path.isdir(w2v)):
+        return init_wav2vec2(gen, cfg, device, torch.float32), cfg
+    pc = os.path.join(w2v, "preprocessor_config.json")
+    if os.path.exists(pc):
+        with open(pc) as f:
+            cfg = dataclasses.replace(cfg, do_normalize=bool(json.load(f).get("do_normalize", True)))
+    files = glob.glob(os.path.join(w2v, "*.bin")) + glob.glob(os.path.join(w2v, "*.safetensors"))
+    if not files:
+        return init_wav2vec2(gen, cfg, device, torch.float32), cfg
+    sd = {k.removeprefix("wav2vec2."): v for k, v in ckpt.load_torch_state_dict(files[0]).items()}
+    return ckpt.to_device(ckpt.convert_wav2vec2(sd, cfg), device, torch.float32), cfg
+
+
 def load_models(args, device="cuda", timer=None) -> WanModels:
     """The model bundle on `device` (the card unless the caller asks for the
-    CPU), random weights drawn from fixed seeds.  T5 loads first: unless
-    --GPU_memory_mode is model_full_load or --t5_cpu is set, the prompts are
-    encoded right away (inside `timer`'s "text_encode" phase) and T5 is
-    released before the DiT loads."""
-    check_ported(args)
+    CPU): each model from its checkpoint file when there is one (converted
+    on the host, each leaf copied to the device once in its dtype), else
+    random from a fixed seed.  T5 loads first: unless --GPU_memory_mode is
+    model_full_load or --t5_cpu is set, the prompts are encoded right away
+    (inside `timer`'s "text_encode" phase) and T5 is released before the
+    DiT loads.  Under sequential_cpu_offload the DiT's blocks go to pinned
+    host memory (`models/streaming.py:StreamedDiT`) and `dit_params` is None."""
     device = resolve_device(device)
     tiny = None
     if os.environ.get("STABLEAVATAR_TINY") == "1":
         tiny = config.tiny_debug_configs()
         print("[stableavatar] STABLEAVATAR_TINY=1 - tiny debug models (plumbing only)")
     dit_cfg, vae_cfg, t5_cfg, clip_cfg, w2v_cfg = tiny or (
-        config.WAN_1_3B, config.VAEConfig(), config.T5Config(), config.CLIPConfig(),
-        config.Wav2Vec2Config())
+        config.WAN_14B if args.model_family == "14B" else config.WAN_1_3B, config.VAEConfig(),
+        config.T5Config(), config.CLIPConfig(), config.Wav2Vec2Config())
+    if tiny and args.model_family == "14B":
+        # a tiny DiT of 14B's structure: the two-stage audio projection
+        dit_cfg = dataclasses.replace(dit_cfg, audio_proj_hidden=2 * dit_cfg.audio_proj_dim)
     if args.enable_riflex:
         dit_cfg = dataclasses.replace(dit_cfg, riflex_k=args.riflex_k,
                                       riflex_L_test=args.riflex_L_test,
                                       riflex_scale=args.riflex_scale)
     bf16 = torch.bfloat16
+    root = args.pretrained_model_name_or_path
+
+    def found(name):
+        path = root and os.path.join(root, name)
+        return path if path and os.path.exists(path) else None
 
     # umT5-xxl: bf16 on the card, or fp32 on the host when the caller asks
     t5_dev = torch.device("cpu") if args.t5_cpu else device
-    t5_params = init_t5(_gen(t5_dev, 2), t5_cfg, t5_dev, torch.float32 if args.t5_cpu else bf16)
-    tokenizer = build_tokenizer(args, args.pretrained_model_name_or_path, t5_cfg)
+    t5_dtype = torch.float32 if args.t5_cpu else bf16
+    if found(T5_FILE):
+        t5_params = ckpt.to_device(ckpt.convert_t5(ckpt.load_torch_state_dict(found(T5_FILE)),
+                                                   t5_cfg), t5_dev, t5_dtype)
+    else:
+        t5_params = init_t5(_gen(t5_dev, 2), t5_cfg, t5_dev, t5_dtype)
+    tokenizer = build_tokenizer(args, root, t5_cfg)
     text_ctx = None
     if not args.t5_cpu and (args.offload_model or args.GPU_memory_mode != "model_full_load"):
         phase = (timer.follow(device).phase if timer is not None
@@ -282,10 +293,35 @@ def load_models(args, device="cuda", timer=None) -> WanModels:
             torch.cuda.empty_cache()
         print(f"[stableavatar] prompts encoded; T5 released ({before} -> {_gib(device)})")
 
-    dit = init_dit(_gen(device, 0), dit_cfg, device, bf16)
-    prep, quant, rope_split, attn_quant = resolve_fast_path(args)
-    if prep:
-        dit = prepare_fast_params(dit, dit_cfg, quant=quant)
+    override = None
+    if args.transformer_path and os.path.exists(args.transformer_path):
+        override = ckpt.load_torch_state_dict(args.transformer_path)
+    if found(DIT_FILE):
+        sd = ckpt.load_torch_state_dict(found(DIT_FILE))
+        if override is not None:
+            # keys the base file lacks (the Wan2.1 base has no vocal
+            # projector or vocal k / v) come from the fine-tuned file, which
+            # the merge below lays over the base anyway
+            sd.update({k: v for k, v in override.items() if k not in sd})
+        dit = ckpt.convert_dit(sd, dit_cfg)
+        del sd
+    else:
+        dit = init_dit(_gen(device, 0), dit_cfg, device, bf16)
+    if override is not None:
+        # a fine-tuned .pt: non-strict, size-filtered merge
+        dit = ckpt.merge_pt_override(dit, override, dit_cfg)
+        del override
+    sequential = args.GPU_memory_mode == "sequential_cpu_offload"
+    if not sequential:
+        dit = ckpt.to_device(dit, device, bf16)
+
+    vae = (ckpt.to_device(ckpt.convert_vae(ckpt.load_torch_state_dict(found(VAE_FILE)), vae_cfg),
+                          device, bf16)
+           if found(VAE_FILE) else init_vae(_gen(device, 1), vae_cfg, device, bf16))
+    clip = (ckpt.to_device(ckpt.convert_clip_visual(ckpt.load_torch_state_dict(found(CLIP_FILE)),
+                                                    clip_cfg), device, bf16)
+            if found(CLIP_FILE) else init_clip_visual(_gen(device, 3), clip_cfg, device, bf16))
+    w2v, w2v_cfg = _wav2vec(args, w2v_cfg, device, _gen(device, 4))
 
     teacache = None
     if args.enable_teacache:
@@ -293,17 +329,36 @@ def load_models(args, device="cuda", timer=None) -> WanModels:
                             args.sample_steps, rel_l1_thresh=args.teacache_threshold,
                             num_skip_start_steps=args.num_skip_start_steps)
 
+    prep, quant, rope_split, attn_quant = resolve_fast_path(args)
+    if sequential and prep:
+        # the memory modes exclude one another: the prepared tree is what
+        # sequential offload exists not to hold on the device
+        print("[stableavatar] sequential_cpu_offload: skipping the fast-path preparation "
+              "(bf16 host-streamed blocks)")
+        prep, quant, rope_split, attn_quant = False, False, False, "none"
+    if prep:
+        dit = prepare_fast_params(dit, dit_cfg, quant=quant)
+    # ring_degree > 1 makes the whole sp axis one ring (JAX CLI, :427-429)
+    attn_impl = "ring" if args.ring_degree > 1 else "ulysses"
+    streamed = None
+    if sequential:
+        streamed = StreamedDiT(dit, dit_cfg, rope_split=rope_split, attn_quant=attn_quant,
+                               attn_impl=attn_impl,
+                               honor_vocal_k_lens=not args.reference_attn_numerics,
+                               device=device, dtype=bf16)
+        dit = None  # the blocks live in pinned host memory now
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        print(f"[stableavatar] sequential_cpu_offload: {streamed.num_layers} DiT blocks in host "
+              f"memory, streamed two at a time ({_gib(device)})")
+
     return WanModels(
-        dit_params=dit, dit_cfg=dit_cfg,
-        vae_params=init_vae(_gen(device, 1), vae_cfg, device, bf16), vae_cfg=vae_cfg,
-        t5_params=t5_params, t5_cfg=t5_cfg,
-        clip_params=init_clip_visual(_gen(device, 3), clip_cfg, device, bf16), clip_cfg=clip_cfg,
-        wav2vec_params=init_wav2vec2(_gen(device, 4), w2v_cfg, device, torch.float32),
-        wav2vec_cfg=w2v_cfg, tokenizer=tokenizer, teacache=teacache, rope_split=rope_split,
-        attn_quant=attn_quant, honor_vocal_k_lens=not args.reference_attn_numerics,
-        # ring_degree > 1 makes the whole sp axis one ring (JAX CLI, :427-429)
-        attn_impl="ring" if args.ring_degree > 1 else "ulysses",
-        device=device, text_ctx=text_ctx)
+        dit_params=dit, dit_cfg=dit_cfg, vae_params=vae, vae_cfg=vae_cfg,
+        t5_params=t5_params, t5_cfg=t5_cfg, clip_params=clip, clip_cfg=clip_cfg,
+        wav2vec_params=w2v, wav2vec_cfg=w2v_cfg, tokenizer=tokenizer, teacache=teacache,
+        rope_split=rope_split, attn_quant=attn_quant,
+        honor_vocal_k_lens=not args.reference_attn_numerics, attn_impl=attn_impl,
+        device=device, text_ctx=text_ctx, streamed_dit=streamed)
 
 
 def run_generation(args, models: WanModels, ref_image, waveform, text_ctx=None,
@@ -354,7 +409,6 @@ def build_mesh(args, device):
 
 def main(argv=None, device="cuda") -> int:
     args = build_parser().parse_args(argv)
-    check_ported(args)
     for path, what in [(args.validation_reference_path, "reference image"),
                        (args.validation_driven_audio_path, "driving audio")]:
         if not path or not os.path.exists(path):

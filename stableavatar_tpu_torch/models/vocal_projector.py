@@ -163,13 +163,20 @@ def gelu_exact(x):
 
 
 def init_vocal_projector(gen, cfg, device="cuda", dtype=torch.float32):
-    """Parameter tree of the 1B vocal projector (one 768 -> vd projection)."""
-    if cfg.audio_proj_hidden is not None:
-        raise NotImplementedError("the 14B two-stage audio projection is not ported yet")
+    """Parameter tree of the vocal projector: 1B projects 768 -> vd in one
+    linear (no bias) + LayerNorm; 14B in two, 768 -> audio_proj_hidden -> vd,
+    each without bias and followed by a LayerNorm, no activation between."""
     vd = cfg.audio_proj_dim
     kw = dict(device=device, dtype=dtype)
-    p = {"proj": {"fc": _linear(gen, cfg.audio_in_dim, vd, bias=False, **kw),
-                  "norm": _affine(vd, device, dtype)}}
+    if cfg.audio_proj_hidden is None:
+        p = {"proj": {"fc": _linear(gen, cfg.audio_in_dim, vd, bias=False, **kw),
+                      "norm": _affine(vd, device, dtype)}}
+    else:
+        h = cfg.audio_proj_hidden
+        p = {"proj": {"fc1": _linear(gen, cfg.audio_in_dim, h, bias=False, **kw),
+                      "norm1": _affine(h, device, dtype),
+                      "fc2": _linear(gen, h, vd, bias=False, **kw),
+                      "norm": _affine(vd, device, dtype)}}
 
     def block():
         return {
@@ -233,9 +240,12 @@ def apply_vocal_projector(params, cfg, vocal_embeddings, latents, e0, e,
                           video_sample_n_frames: int = 81):
     """Returns (vocal_context [B, F, Lw, vd], k_lens [F] int32)."""
     pp = params["proj"]
-    if "fc" not in pp:
-        raise NotImplementedError("the 14B two-stage audio projection is not ported yet")
-    x = apply_linear(pp["fc"], vocal_embeddings)
+    if "fc" in pp:
+        x = apply_linear(pp["fc"], vocal_embeddings)
+    else:  # 14B: two stages
+        x = apply_linear(pp["fc1"], vocal_embeddings)
+        x = layer_norm(x, pp["norm1"]["w"], pp["norm1"]["b"], eps=1e-5)
+        x = apply_linear(pp["fc2"], x)
     x = layer_norm(x, pp["norm"]["w"], pp["norm"]["b"], eps=1e-5)
 
     win, k_lens = split_windows(x, video_sample_n_frames, expand=4)

@@ -52,7 +52,8 @@ class WanModels:
     # pre-encoded CFG text context [3, text_len, text_dim], set when the
     # loader encoded the prompts and released T5 (t5_params is then None)
     text_ctx: Any = None
-    # not ported yet; generate_long raises when it is set
+    # sequential offload: a models/streaming.py:StreamedDiT whose blocks
+    # stream from host memory; generate_long's DiT calls go through it
     streamed_dit: Any = None
 
 
@@ -145,3 +146,10 @@ def guidance_combine_long(noise_pred: torch.Tensor, text_scale: float, audio_sca
     """Long-pipeline dual CFG over the [uncond, drop-audio, cond] batch."""
     uncond, drop_audio, cond = noise_pred.chunk(3, dim=0)
     return uncond + audio_scale * (drop_audio - uncond) + text_scale * (cond - drop_audio)
+
+
+def guidance_combine_single(noise_pred: torch.Tensor, text_scale: float, audio_scale: float):
+    """Single-clip dual CFG over the [neg, pos, pos] batch: the long
+    combine with the roles of the two scales swapped."""
+    uncond, drop_audio, cond = noise_pred.chunk(3, dim=0)
+    return uncond + text_scale * (drop_audio - uncond) + audio_scale * (cond - drop_audio)

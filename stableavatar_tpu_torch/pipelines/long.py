@@ -136,7 +136,8 @@ def _sweep_step(models: WanModels, latents_all, y_full, text_ctx, clip_ctx, voca
                 t, sigma, sigma_next, ramp, windows, overlap, text_scale, audio_scale,
                 blend: bool, solver: str = "euler", ms_state=None, coeffs=None,
                 compute_flags=None, residual=None):
-    """One denoise step across all windows.
+    """One denoise step across all windows (the DiT through
+    `models.streamed_dit` when it is set).
 
     solver "euler" steps x + (sigma_next - sigma) v; "dpm" / "unipc" apply
     the multistep update with this step's `coeffs` and the per-window
@@ -156,6 +157,10 @@ def _sweep_step(models: WanModels, latents_all, y_full, text_ctx, clip_ctx, voca
         if compute_flags is not None and not compute_flags[wi]:
             noise_pred = dit_forward_skip(models.dit_params, cfg, lat3, tb, y_full[:, :, :f],
                                           residual)
+        elif models.streamed_dit is not None:
+            noise_pred = models.streamed_dit(
+                lat3, tb, text_ctx, clip_ctx, y_full[:, :, :f], vocal_embs[wi],
+                video_sample_n_frames=(f - 1) * temporal_ratio + 1, vocal_cfg_tile=True)
         else:
             out = dit_forward(
                 models.dit_params, cfg, lat3, tb, text_ctx, clip_ctx, y_full[:, :, :f],
@@ -247,10 +252,12 @@ def generate_long(
     with `models.teacache`)."""
     if scheduler not in SCHEDULERS:
         raise ValueError(f"unknown scheduler {scheduler!r}")
-    if models.streamed_dit is not None:
-        raise NotImplementedError(
-            "the host-streamed DiT is not ported yet (ROADMAP queue 1, open item 3: "
-            "streamed offload, models/streaming.py)")
+    if models.streamed_dit is not None and (scheduler not in ("euler", "flow")
+                                            or models.teacache is not None):
+        # as the JAX package: the streamed forward serves the Euler sweep
+        # without TeaCache (the reference's sequential offload runs Euler)
+        raise ValueError("sequential_cpu_offload (streamed DiT) currently supports the euler "
+                         "scheduler without TeaCache")
     device = resolve_device(models.device)
     phase = (timer.follow(device).phase if timer is not None
              else (lambda name: contextlib.nullcontext()))

@@ -235,11 +235,38 @@ class CheckpointManager:
 
 
 def log_validation(models: WanModels, validation_cfg: dict, output_dir: str, step: int):
-    """In-training validation needs the single-clip pipeline, which the port
-    does not have yet."""
-    raise NotImplementedError(
-        "log_validation needs the single-clip pipeline (ROADMAP queue 1, open item 1: "
-        "pipelines/single_clip.py), which the port does not have yet")
+    """In-training validation: one clip of the single-clip pipeline, saved as
+    `validation_step{step}.mp4` (a PNG frame directory without ffmpeg);
+    returns the path written."""
+    from stableavatar_tpu_torch.pipelines.single_clip import generate_single_clip
+    from stableavatar_tpu_torch.utils.video_io import save_videos_grid, to_uint8
+
+    out = generate_single_clip(
+        models,
+        ref_image=validation_cfg["ref_image"],
+        vocal_waveform=validation_cfg["vocal_waveform"],
+        prompt_ids=validation_cfg.get("prompt_ids"),
+        negative_prompt_ids=validation_cfg.get("negative_prompt_ids"),
+        text_ctx=validation_cfg.get("text_ctx"),
+        num_inference_steps=validation_cfg.get("num_inference_steps", 20),
+        clip_length=validation_cfg.get("clip_length", 81),
+        seed=validation_cfg.get("seed", 42),
+    )
+    path = os.path.join(output_dir, f"validation_step{step}.mp4")
+    try:
+        import imageio  # noqa: F401  (save_videos_grid's writer)
+    except ImportError:
+        # a host without imageio: the PNG frames save_videos_grid writes
+        # without an ffmpeg backend, through PIL
+        from PIL import Image
+
+        stem = os.path.splitext(path)[0]
+        os.makedirs(stem, exist_ok=True)
+        for i, frame in enumerate(to_uint8(out.videos)):
+            Image.fromarray(frame).save(os.path.join(stem, f"frame_{i:06d}.png"))
+        print(f"[stableavatar] no imageio - wrote the validation frames to {stem}/")
+        return stem
+    return save_videos_grid(out.videos, path, fps=validation_cfg.get("fps", 25)) or path
 
 
 def train(models: WanModels, batches: Iterable[dict], train_cfg: TrainConfig, *,

@@ -593,3 +593,33 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(gen):
         probes.dots_probe(odd, odd, odd)
     with pytest.raises(ValueError, match="device"):
         probes.dots_probe(odd, odd, odd.cpu())
+
+
+@pytest.mark.parametrize("attn_quant", ["none", "qk"])
+def test_streamed_dit_equals_in_memory_on_cuda(gen, attn_quant):
+    """The host-streamed DiT on the card: pinned host blocks, the side-stream
+    copies into two slots; three calls in a row equal `dit_forward` bit for
+    bit (2,304 tokens, so the blocks take K1, or K2 and K5)."""
+    from stableavatar_tpu_torch.config import DiTConfig
+    from stableavatar_tpu_torch.models.dit import dit_forward, init_dit
+    from stableavatar_tpu_torch.models.streaming import StreamedDiT
+    from stableavatar_tpu_torch.utils.fastpath import prepare_fast_params
+
+    cfg = DiTConfig(dim=256, ffn_dim=512, num_heads=2, num_layers=5, audio_proj_dim=256,
+                    vocal_num_heads=2)
+    params = init_dit(gen, cfg, "cuda", torch.bfloat16)
+    fast = attn_quant != "none"
+    if fast:
+        params = prepare_fast_params(params, cfg, quant=True)
+    x = _randn(gen, 3, 16, 9, 32, 32).bfloat16()
+    y = _randn(gen, 3, 20, 9, 32, 32).bfloat16()
+    args = (x, torch.full((3,), 500.0, device="cuda"), _randn(gen, 3, cfg.text_len, cfg.text_dim),
+            _randn(gen, 3, cfg.clip_tokens, cfg.clip_dim), y, _randn(gen, 1, 66, cfg.audio_in_dim))
+    kw = dict(video_sample_n_frames=33, vocal_cfg_tile=True)
+    with torch.no_grad():
+        want = dit_forward(params, cfg, *args, rope_split=fast, attn_quant=attn_quant, **kw)
+        sdit = StreamedDiT(params, cfg, rope_split=fast, attn_quant=attn_quant, device="cuda")
+        got = [sdit(*args, **kw) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert sdit.host_blocks[0].flat.is_pinned()
+    assert all(torch.equal(g, want) for g in got)

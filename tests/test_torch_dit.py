@@ -165,3 +165,75 @@ def test_remat_gradients_equal_plain(jax_params, route):
             grads.append(torch.autograd.grad(out.square().mean(), leaves))
     assert all(torch.equal(a, b) for a, b in zip(*grads))
     assert any(float(g.abs().max()) > 0 for g in grads[0])
+
+
+# tests/test_vocal_projector.py:88's config with 14B's structure: the
+# two-stage audio projection 768 -> audio_proj_hidden -> audio_proj_dim
+CFG_14B = DiTConfig(dim=64, ffn_dim=128, num_heads=4, num_layers=2, audio_proj_dim=64,
+                    audio_proj_hidden=32, vocal_num_heads=4)
+
+
+@pytest.mark.parametrize("cfg", [CFG, CFG_14B], ids=["1B", "14B"])
+def test_init_vocal_projector_structure_matches_jax(cfg):
+    from stableavatar_tpu.models.vocal_projector import init_vocal_projector as jinit
+    from stableavatar_tpu_torch.models.vocal_projector import init_vocal_projector as tinit
+    from stableavatar_tpu_torch.utils.tree import tree_paths
+
+    want = dict(tree_paths(dit_from_jax({"blocks": {"modulation": np.zeros((1,))},
+                                         "vp": to_numpy_tree(jinit(jax.random.PRNGKey(0), cfg))})
+                           ["vp"]))
+    got = dict(tree_paths(tinit(torch.Generator().manual_seed(0), cfg, "cpu")))
+    assert {k: tuple(v.shape) for k, v in got.items()} == \
+        {k: tuple(v.shape) for k, v in want.items()}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vocal_projector_14b_matches_jax(dtype):
+    """The 14B two-stage projection (fc1, LayerNorm, fc2, LayerNorm, no
+    activation) and the projector blocks on it, against the JAX package's
+    (eager, excess precision on): fp32 at the DiT forward's 2e-4, bf16 at
+    the bf16 pipeline's relative L2 of 2e-3 (tests/test_torch_pipeline.py
+    LATENT_TOL)."""
+    from stableavatar_tpu.models import vocal_projector as jvp
+    from stableavatar_tpu_torch.models import vocal_projector as tvp
+    from stableavatar_tpu_torch.utils.weights import from_jax_tree
+
+    jparams = jax.tree.map(lambda x: x + 0.1 * jax.random.normal(jax.random.PRNGKey(3), x.shape),
+                           jvp.init_vocal_projector(jax.random.PRNGKey(1), CFG_14B))
+    assert "fc1" in jparams["proj"] and "norm1" in jparams["proj"]
+    rng = np.random.default_rng(4)
+    audio = rng.standard_normal((1, 134, CFG_14B.audio_in_dim)).astype(np.float32)
+    latents = rng.standard_normal((1, 21 * 16, CFG_14B.dim)).astype(np.float32)
+    e0 = rng.standard_normal((1, 6, CFG_14B.audio_proj_dim)).astype(np.float32)
+    e = rng.standard_normal((1, CFG_14B.audio_proj_dim)).astype(np.float32)
+    jdt = getattr(jax.numpy, dtype)
+    want, want_lens = jvp.apply_vocal_projector(
+        jax.tree.map(lambda x: x.astype(jdt), jparams), CFG_14B,
+        *(jax.numpy.asarray(x, jdt) for x in (audio, latents, e0, e)), 81)
+    tdt = getattr(torch, dtype)
+    with torch.no_grad():
+        got, got_lens = tvp.apply_vocal_projector(
+            from_jax_tree(to_numpy_tree(jparams), dtype=tdt), CFG_14B,
+            *(t(x, tdt) for x in (audio, latents, e0, e)), 81)
+    np.testing.assert_array_equal(got_lens.numpy(), np.asarray(want_lens))
+    want = np.asarray(want.astype(jax.numpy.float32))
+    assert got.shape == want.shape == (1, 21, got.shape[2], CFG_14B.audio_proj_dim)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    else:
+        err = rel_l2(got.float().numpy(), want)
+        print(f"bf16 rel_l2 {err:.3e}, max-abs {np.abs(got.float().numpy() - want).max()}")
+        assert err < 2e-3
+
+
+def test_dit_forward_14b_structure_matches_jax():
+    """The whole DiT with the two-stage projection, fp32, at the 1B
+    forward's tolerance."""
+    jparams = densify_dit(jdit.init_dit(jax.random.PRNGKey(5), CFG_14B))
+    inputs = _inputs(8)
+    want = np.asarray(jdit.dit_forward(jparams, CFG_14B, *map(jax.numpy.asarray, inputs),
+                                       video_sample_n_frames=17))
+    with torch.no_grad():
+        got = tdit.dit_forward(dit_from_jax(to_numpy_tree(jparams)), CFG_14B, *map(t, inputs),
+                               video_sample_n_frames=17).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)

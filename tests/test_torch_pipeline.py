@@ -75,13 +75,17 @@ def run_jax_exact(fn, **kwargs):
             return pickle.load(f)
 
 
-# Every JAX generate_long that the parity modules compare with (this one,
-# tests/test_torch_solvers.py and tests/test_torch_teacache.py), by name;
-# `jax_reference` computes them all in one subprocess.  "latent" output
-# skips the decode, most of a run's compiles.  The TeaCache runs take 5
-# steps over 2 windows: the counter wraps every 5 calls, so steps 1 and 3
-# pair two skippable calls (counts 2, 3 and 1, 2); with 3 or 4 steps every
-# step pairs a skippable call with a forced one and nothing is skipped.
+# Every JAX run that the parity modules compare with (this one,
+# tests/test_torch_solvers.py, tests/test_torch_teacache.py and
+# tests/test_torch_single_clip.py), by name; `jax_reference` computes them
+# all in one subprocess.  "kind" is "long" (generate_long, the default),
+# "single" (generate_single_clip) or "validation" (the training loop's
+# log_validation).  "latent" output skips the decode, most of a run's
+# compiles.  The long TeaCache runs take 5 steps over 2 windows: the
+# counter wraps every 5 calls, so steps 1 and 3 pair two skippable calls
+# (counts 2, 3 and 1, 2); with 3 or 4 steps every step pairs a skippable
+# call with a forced one and nothing is skipped.  A single clip is one
+# window: its counter wraps every 5 steps.
 JAX_RUNS = {
     "euler": dict(fast=False),
     "euler-fast": dict(fast=True),
@@ -90,6 +94,16 @@ JAX_RUNS = {
     **{f"teacache-{name}": dict(fast=False, scheduler=name, num_inference_steps=5,
                                 teacache=(5, 0.3, 1), output_type="latent")
        for name in ("euler", "unipc")},
+    "single-euler": dict(kind="single", fast=False),
+    "single-euler-fast": dict(kind="single", fast=True),
+    **{f"single-{name}{suffix}": dict(kind="single", fast=fast, scheduler=name,
+                                      num_inference_steps=3, output_type="latent")
+       for name in ("dpm++", "unipc") for fast, suffix in ((False, ""), (True, "-fast"))},
+    **{f"single-teacache-{name}": dict(kind="single", fast=False, scheduler=name,
+                                       num_inference_steps=5, teacache=(5, 0.3, 1),
+                                       output_type="latent")
+       for name in ("euler", "unipc")},
+    "validation": dict(kind="validation", fast=True, num_inference_steps=2),
 }
 
 _JAX_REFERENCE = {}
@@ -163,6 +177,16 @@ def _teacache(tc, cls=TeaCache):
                num_skip_start_steps=tc[2])
 
 
+def single_inputs():
+    """The single clip's inputs: clip_length 9 (3 latent frames) and 9 video
+    frames of audio, cut from `_inputs`."""
+    ref, wav, text_ctx, latents = _inputs()
+    return ref, wav[: 9 * 640], text_ctx, latents[:, :, :3]
+
+
+VALIDATION_SEED = 5
+
+
 def _solver_kw(run):
     return dict(num_inference_steps=run.get("num_inference_steps", 2),
                 scheduler=run.get("scheduler", "euler"), solver_order=run.get("solver_order", 2),
@@ -179,12 +203,15 @@ def jax_generate_long(runs):
 
     from stableavatar_tpu.models.teacache import TeaCache as JTeaCache
 
+    from stableavatar_tpu.pipelines import single_clip as jsingle
+
     jax_models = make_jax_models()
     ref, wav, text_ctx, latents = _inputs()
+    s_ref, s_wav, s_ctx, s_latents = single_inputs()
     out = {}
     for name, run in runs.items():
         t0 = time.perf_counter()
-        fast = run["fast"]
+        fast, kind = run["fast"], run.get("kind", "long")
         teacache = _teacache(run.get("teacache"), JTeaCache)
         jdit = jprepare(jax_models["dit"], DIT_E2E, quant=True) if fast else jax_models["dit"]
         jm = jcommon.WanModels(
@@ -193,17 +220,56 @@ def jax_generate_long(runs):
             wav2vec_params=jax_models["w2v"], wav2vec_cfg=W2V_E2E, rope_split=fast,
             attn_quant="qk" if fast else "none", teacache=teacache)
         steps = []
+        callback = lambda i, x: steps.append(np.asarray(x, np.float32))  # noqa: E731
         with pallas_k5() if fast else contextlib.nullcontext():
-            want = jlong.generate_long(
-                jm, text_ctx=jnp.asarray(text_ctx), ref_image=ref, vocal_waveform=wav,
-                clip_length=9, overlap_window_length=1, initial_latents=latents,
-                step_callback=lambda i, x: steps.append(np.asarray(x, np.float32)),
-                output_type=run.get("output_type", "numpy"), **_solver_kw(run))
+            if kind == "validation":
+                out[name] = jax_log_validation(jm, run)
+                continue
+            if kind == "single":
+                want = jsingle.generate_single_clip(
+                    jm, text_ctx=jnp.asarray(s_ctx), ref_image=s_ref, vocal_waveform=s_wav,
+                    clip_length=9, initial_latents=s_latents, step_callback=callback,
+                    output_type=run.get("output_type", "numpy"), **_solver_kw(run))
+            else:
+                want = jlong.generate_long(
+                    jm, text_ctx=jnp.asarray(text_ctx), ref_image=ref, vocal_waveform=wav,
+                    clip_length=9, overlap_window_length=1, initial_latents=latents,
+                    step_callback=callback, output_type=run.get("output_type", "numpy"),
+                    **_solver_kw(run))
         out[name] = dict(steps=steps, latents=np.asarray(want.latents),
                          videos=None if want.videos is None else np.asarray(want.videos),
                          skipped=None if teacache is None else teacache.skipped_calls,
                          seconds=time.perf_counter() - t0)
     return dict(models=to_numpy_tree(jax_models), runs=out)
+
+
+def validation_cfg(run, text_ctx, ref, wav):
+    return dict(ref_image=ref, vocal_waveform=wav, text_ctx=text_ctx,
+                num_inference_steps=run["num_inference_steps"], clip_length=9,
+                seed=VALIDATION_SEED, fps=25)
+
+
+def jax_log_validation(jm, run):
+    """The JAX training loop's log_validation: the video it hands to
+    save_videos_grid, what that wrote (an mp4, or a PNG frame directory
+    without an ffmpeg backend) and the run's initial noise."""
+    from stableavatar_tpu.train import loop as jloop
+    from stableavatar_tpu.utils import video_io as jvideo
+
+    ref, wav, text_ctx, latents = single_inputs()
+    videos, written, save = [], [], jvideo.save_videos_grid
+
+    def record(v, path, fps=25):
+        videos.append(np.asarray(v))
+        written.append(save(v, path, fps))
+        return written[-1]
+
+    with tempfile.TemporaryDirectory() as d, mock.patch.object(jvideo, "save_videos_grid",
+                                                               record):
+        jloop.log_validation(jm, validation_cfg(run, jnp.asarray(text_ctx), ref, wav), d, 7)
+        written = os.path.relpath(written[0], d)
+    noise = jax.random.normal(jax.random.PRNGKey(VALIDATION_SEED), latents.shape, jnp.float32)
+    return dict(video=videos[0], written=written, noise=np.asarray(noise))
 
 
 def port_models(jax_models, fast: bool, teacache=None):
@@ -287,22 +353,6 @@ def test_generate_long_unported_options_raise():
                             text_ctx=np.zeros((3, 4, 8), np.float32), scheduler="heun")
     with pytest.raises(ValueError, match="text_ctx"):
         tcommon.encode_prompts(tm, "a person talking")
-
-
-@pytest.mark.parametrize("option, match", [
-    ({"scheduler": "dpm++"}, "streaming"),
-    ({"scheduler": "unipc", "teacache": object()}, "streaming"),
-    ({"scheduler": "euler"}, "streaming"),
-])
-def test_generate_long_names_the_roadmap_item_it_lacks(option, match):
-    """Every solver, with or without TeaCache, is ported; the host-streamed
-    DiT is not, under any of them."""
-    kw = {k: v for k, v in option.items() if k != "scheduler"}
-    tm = tcommon.WanModels(dit_params=None, dit_cfg=DIT_E2E, vae_params=None, vae_cfg=VAE_E2E,
-                           device="cpu", streamed_dit=object(), **kw)
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP queue 1, open item 3: .*{match}"):
-        tlong.generate_long(tm, ref_image=np.zeros((1, 3, 32, 32)), vocal_waveform=np.zeros(9000),
-                            scheduler=option.get("scheduler", "euler"))
 
 
 @pytest.mark.parametrize("args", [(21, 21, 15), (40, 21, 15), (75, 21, 10), (5, 3, 1), (27, 21, 15)])

@@ -446,7 +446,7 @@ def test_checkpoint_manager_rotation_tmp_and_resume(tmp_path):
 def test_train_loop_end_to_end_and_resume(jax_models, tmp_path):
     """train() on the tiny stack: 3 steps with rotation and metrics; then a
     SIGTERM during step 2 of a new run saves checkpoint-2, and a resumed run
-    continues at step 3."""
+    continues at step 3; log_validation writes a validation clip."""
     from stableavatar_tpu_torch.train.loop import log_validation, train
 
     tc = ttrainer.TrainConfig(video_sample_n_frames=9, learning_rate=1e-4)
@@ -480,5 +480,13 @@ def test_train_loop_end_to_end_and_resume(jax_models, tmp_path):
                           max_train_steps=4, checkpointing_steps=100, log_every=1,
                           resume_from_checkpoint="latest")
     assert [h["step"] for h in history] == [3, 4]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, open item 1"):
-        log_validation(models, {}, out_dir, 1)
+    # in-training validation on the trained parameters: one single clip,
+    # written (tests/test_torch_single_clip.py holds it against JAX)
+    rng = np.random.default_rng(0)
+    path = log_validation(models, dict(
+        ref_image=rng.uniform(-1, 1, (1, 3, 32, 32)).astype(np.float32),
+        vocal_waveform=rng.standard_normal(9 * 640).astype(np.float32) * 0.1,
+        text_ctx=torch.from_numpy(rng.standard_normal(
+            (3, DIT_E2E.text_len, DIT_E2E.text_dim)).astype(np.float32)),
+        num_inference_steps=1, clip_length=9), out_dir, 3)
+    assert os.path.basename(path).startswith("validation_step3") and os.path.exists(path)
