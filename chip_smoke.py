@@ -112,8 +112,17 @@ exits non-zero):
                bit, its peak device memory beside the resident run's and far
                below it, the blocks' H2D GB/s, and whether the copies hide
                behind compute.
+16. train CLI -- `cli/train.py:main` at WAN_1_3B, 512x512, 81 frames,
+               batch 1, AdamW and remat, random seeded weights, umT5-xxl
+               resident on the card: 3 steps from a clip directory that the
+               phase writes (81 PNGs, face and lip masks, a 16 kHz wav) read
+               by 2 decode threads, a checkpoint at step 3, a validation clip
+               (20 bf16 steps, PNG frames); finite losses and gradient norms,
+               moved parameters, the files, exact K1-LSE / K4 / K1 launch
+               counts, and the load, step, loader-wait, memory, checkpoint and
+               validation times.  Runs after phase 13, before 14.
 
-Phases 5-6, 7, 8, 9, 10's one-rank ring, 11's entry points and 12-15 drive
+Phases 5-6, 7, 8, 9, 10's one-rank ring, 11's entry points and 12-16 drive
 the paths: the launch counts are set to 0 just before each and read just
 after.  The line before the last is a JSON object with one entry per
 kernel; the last line is {"ok": true, "device": {...}}.
@@ -266,6 +275,9 @@ def compare(name: str, got, want, rel_tol: float = REL_TOL) -> float:
     return mx
 
 
+CARD = ["unknown"]  # the card's name and power limit, as nvidia-smi reports them
+
+
 def phase_device():
     import torch
 
@@ -276,6 +288,7 @@ def phase_device():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(smi)  # name, power limit: exactly as nvidia-smi prints them
+    CARD[0] = smi
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
@@ -1957,6 +1970,221 @@ def phase_single_clip(models, dit_bf16, reset_counts, counts):
     return runs
 
 
+TRAIN_CLI_STEPS = 3
+# log_validation's default step count (train/loop.py), which the CLI keeps
+VALIDATION_STEPS = 20
+
+
+def write_clip_dir(root, frames=81, size=512, seconds=4.0):
+    """A clip directory as the train CLI reads it, under a path holding
+    "speech" (the prompt comes from the path): `frames` PNGs in images/, face
+    and lip masks of the same names, a 16 kHz audio.wav, the index txt; and a
+    reference PNG and a driving wav for the validation.  Seeded; returns the
+    index path."""
+    import cv2
+    import numpy as np
+
+    from stableavatar_tpu_torch.utils.media import save_wav
+
+    rng = np.random.default_rng(21)
+    clip = os.path.join(root, "speech_clip_000")
+    for sub in ("images", "face_masks", "lip_masks"):
+        os.makedirs(os.path.join(clip, sub))
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    base = np.stack([yy, xx, 1 - yy], -1) * 200
+    for i in range(frames):
+        frame = base + rng.uniform(0, 55, (size, size, 3))
+        cv2.imwrite(os.path.join(clip, "images", f"{i:05d}.png"), frame.astype(np.uint8))
+        face = (((yy - 0.5) ** 2 + (xx - 0.5 - 0.002 * i) ** 2) < 0.09).astype(np.uint8) * 255
+        lip = (((yy - 0.65) ** 2 + (xx - 0.5) ** 2 * 0.25) < 0.004).astype(np.uint8) * 255
+        cv2.imwrite(os.path.join(clip, "face_masks", f"{i:05d}.png"), face)
+        cv2.imwrite(os.path.join(clip, "lip_masks", f"{i:05d}.png"), lip)
+    t = np.arange(int(16000 * seconds)) / 16000.0
+    voice = (0.3 * np.sin(2 * np.pi * 180 * t) * (1 + np.sin(2 * np.pi * 3 * t))).astype(np.float32)
+    save_wav(os.path.join(clip, "audio.wav"), voice, 16000)
+    save_wav(os.path.join(root, "voice.wav"), voice, 16000)
+    cv2.imwrite(os.path.join(root, "ref.png"), (base + 27).astype(np.uint8))
+    index = os.path.join(root, "index.txt")
+    with open(index, "w") as f:
+        f.write(clip + "\n")
+    return index
+
+
+def phase_train_cli(reset_counts, counts):
+    """The train CLI's main at 1.3B / 512x512 / 81 frames, batch 1, AdamW and
+    remat (its defaults), umT5-xxl resident on the card encoding each
+    batch's prompt, for TRAIN_CLI_STEPS steps from a clip directory on disk
+    (2 decode threads), a checkpoint at the last step and one validation
+    clip (log_validation, VALIDATION_STEPS bf16 steps, PNG frames without
+    imageio).  Checks finite losses and gradient norms, moved parameters,
+    the checkpoint, the metrics JSONL, the validation frames and the exact
+    launch counts; logs load, step, loader-wait, memory, checkpoint and
+    validation numbers.  Returns the run's launch counts."""
+    import json as json_mod
+
+    import numpy as np
+    import torch
+
+    from stableavatar_tpu_torch.cli import train as cli_train
+    from stableavatar_tpu_torch.config import WAN_1_3B
+    from stableavatar_tpu_torch.train import loop
+    from stableavatar_tpu_torch.utils.tree import tree_leaves
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_cli_")
+    out_dir = os.path.join(root, "run")
+    marks = {"load_s": None, "steps": [], "ckpt": [], "validation_s": []}
+    waits = [0.0]
+    originals = (cli_train.load_models, cli_train.build_batches, cli_train.train,
+                 loop.CheckpointManager._write, loop.log_validation)
+    load_models, build_batches, train, write, log_validation = originals
+
+    def timed_load(args, device):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        models = load_models(args, device)
+        torch.cuda.synchronize()
+        marks["load_s"] = time.perf_counter() - t0
+        marks["models"] = models
+        return models
+
+    def timed_batches(args):
+        it = build_batches(args)
+
+        def gen():
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                waits[0] += time.perf_counter() - t0
+                yield batch
+
+        return gen()
+
+    def timed_write(self, path, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        write(self, path, state)
+        marks["ckpt"].append((os.path.getsize(os.path.join(path, "state.pt")),
+                              time.perf_counter() - t0))
+
+    def timed_validation(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = log_validation(*a, **k)
+        torch.cuda.synchronize()
+        marks["validation_s"].append(time.perf_counter() - t0)
+        marks["validation_path"] = path
+        return path
+
+    def traced_train(models, batches, tc, **kw):
+        leaves = tree_leaves(models.dit_params)
+        before = [p.clone() for p in leaves]
+        last = {"t": time.perf_counter(), "wait": 0.0}
+
+        def on_step(step, params, m):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            moved = sum(int(not torch.equal(p, b)) for p, b in zip(leaves, before))
+            for p, b in zip(leaves, before):
+                b.copy_(p)
+            marks["steps"].append(dict(
+                step=step, wall_s=now - last["t"], loader_wait_s=waits[0] - last["wait"],
+                loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), moved_leaves=moved,
+                clip_level=bool(m["is_clip_level_modeling"]),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30))
+            log(f"  step {step}: {now - last['t']:.3f} s wall (loader wait "
+                f"{waits[0] - last['wait']:.3f} s, encode incl. umT5-xxl, step), loss "
+                f"{float(m['loss']):.6f}, grad norm {float(m['grad_norm']):.6f}, {moved} of "
+                f"{len(leaves)} leaves moved, clip-level {bool(m['is_clip_level_modeling'])}, "
+                f"peak device memory {marks['steps'][-1]['peak_gib']:.2f} GiB [{CARD[0]}]")
+            last["t"], last["wait"] = time.perf_counter(), waits[0]
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        last["t"] = time.perf_counter()
+        return train(models, batches, tc, step_callback=on_step, **kw)
+
+    argv = ["--train_data_meta", "", "--video_sample_size", "512",
+            "--video_sample_n_frames", "81", "--train_batch_size", "1",
+            "--max_train_steps", str(TRAIN_CLI_STEPS), "--fps", "25",
+            "--dataloader_num_workers", "2", "--log_every", "1",
+            "--checkpointing_steps", str(TRAIN_CLI_STEPS), "--checkpoints_total_limit", "1",
+            "--validation_steps", str(TRAIN_CLI_STEPS), "--output_dir", out_dir,
+            "--seed", str(TRAIN_SEED)]
+    try:
+        t0 = time.perf_counter()
+        index = write_clip_dir(root)
+        argv[1] = index
+        argv += ["--validation_reference_path", os.path.join(root, "ref.png"),
+                 "--validation_driven_audio_path", os.path.join(root, "voice.wav")]
+        log(f"  clip directory of 81 PNGs at 512x512 with face / lip masks and a 16 kHz wav "
+            f"written in {time.perf_counter() - t0:.2f} s under {root}")
+        (cli_train.load_models, cli_train.build_batches, cli_train.train,
+         loop.CheckpointManager._write, loop.log_validation) = (
+            timed_load, timed_batches, traced_train, timed_write, timed_validation)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = cli_train.main(argv, device="cuda")
+        torch.cuda.synchronize()
+        launches = counts()
+        wall = time.perf_counter() - t0
+    finally:
+        (cli_train.load_models, cli_train.build_batches, cli_train.train,
+         loop.CheckpointManager._write, loop.log_validation) = originals
+    try:
+        models = marks.pop("models")
+        t5 = tree_leaves(models.t5_params) if models.t5_params is not None else []
+        t5_bytes = sum(p.numel() * p.element_size() for p in t5)
+        resident = bool(t5) and all(p.is_cuda and p.dtype == torch.bfloat16 for p in t5)
+        del models
+        steps = marks["steps"]
+        log(f"  main(): rc {rc}, {wall:.2f} s; load_models {marks['load_s']:.2f} s; umT5-xxl "
+            f"resident on the card in bf16: {resident} ({t5_bytes / 2**30:.2f} GiB)")
+        walls = [s["wall_s"] for s in steps]
+        log(f"  train CLI step wall s {[round(w, 3) for w in walls]}, loader wait s "
+            f"{[round(s['loader_wait_s'], 3) for s in steps]}, peak device memory "
+            f"{max(s['peak_gib'] for s in steps):.2f} GiB with umT5-xxl resident [{CARD[0]}]")
+        for nbytes, secs in marks["ckpt"]:
+            log(f"  checkpoint: {nbytes / 1e9:.2f} GB written in {secs:.2f} s "
+                f"({nbytes / 1e9 / secs:.2f} GB/s) [{CARD[0]}]")
+        log(f"  log_validation: {[round(v, 2) for v in marks['validation_s']]} s "
+            f"({VALIDATION_STEPS} bf16 steps, the decode and the frames) [{CARD[0]}]")
+        if rc != 0 or not resident or len(steps) != TRAIN_CLI_STEPS or not np.isfinite(
+                [[s["loss"], s["grad_norm"]] for s in steps]).all():
+            raise AssertionError(f"train CLI: rc {rc}, T5 resident {resident}, steps {steps}")
+        if not all(s["moved_leaves"] > 0 and s["grad_norm"] > 0 for s in steps):
+            raise AssertionError(f"a train CLI step left the parameters unchanged: {steps}")
+        ckpts = sorted(d for d in os.listdir(out_dir) if d.startswith("checkpoint-"))
+        (metrics,) = [f for f in os.listdir(out_dir) if f.endswith(".metrics.jsonl")]
+        with open(os.path.join(out_dir, metrics)) as f:
+            losses = [json_mod.loads(line)["train_loss"] for line in f if line.strip()]
+        path = marks.get("validation_path")
+        frames = (len(os.listdir(path)) if path and os.path.isdir(path)
+                  else int(bool(path and os.path.isfile(path))))
+        log(f"  wrote {ckpts}, {len(losses)} losses in {metrics}, validation {path} "
+            f"({frames} files)")
+        if ckpts != [f"checkpoint-{TRAIN_CLI_STEPS}"] or len(losses) != TRAIN_CLI_STEPS \
+                or not np.allclose(losses, [s["loss"] for s in steps]):
+            raise AssertionError(f"train CLI output: {ckpts}, losses {losses}")
+        if path is None or (os.path.isdir(path) and frames != 81) or frames == 0:
+            raise AssertionError(f"train CLI validation wrote {path} ({frames} files)")
+        layers = WAN_1_3B.num_layers
+        n_clip = sum(s["clip_level"] for s in steps)
+        calls = layers * (3 * TRAIN_CLI_STEPS + n_clip)
+        check_launches("train CLI", launches, {
+            "flash_fwd_bf16_lse": 2 * calls, "flash_bwd": calls,
+            "flash_fwd_bf16": 3 * layers * VALIDATION_STEPS,
+            "rope_rotate": 0, "rope_finalize_bwd": 0, "flash_fwd_int8_qk": 0,
+            "flash_fwd_int8_static_qk": 0, "dual_context": 0})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return launches, steps
+
+
 def wav2vec2_state_dict(params, cfg):
     """The port's wav2vec2 tree -> an HF `Wav2Vec2ForCTC` state dict ("wav2vec2."
     prefix, the position conv as a plain weight): what
@@ -2384,6 +2612,11 @@ def main() -> int:
     phase_checkpoints(models, dit_bf16, reset_counts, counts)
     del models, dit_bf16
     torch.cuda.empty_cache()
+
+    # path 11, the train CLI: counts set to 0 inside, just before its main
+    log(f"== train CLI: main() at 1.3B, 512x512, 81 frames from a clip directory on disk, "
+        f"umT5-xxl resident, {TRAIN_CLI_STEPS} steps, a checkpoint and a validation clip")
+    phase_train_cli(reset_counts, counts)
 
     # paths 9 and 10, 14B resident and streamed: counts set to 0 inside,
     # just before each window-step

@@ -257,7 +257,7 @@ def load_models(args, device="cuda", timer=None) -> WanModels:
     if tiny and args.model_family == "14B":
         # a tiny DiT of 14B's structure: the two-stage audio projection
         dit_cfg = dataclasses.replace(dit_cfg, audio_proj_hidden=2 * dit_cfg.audio_proj_dim)
-    if args.enable_riflex:
+    if getattr(args, "enable_riflex", False):
         dit_cfg = dataclasses.replace(dit_cfg, riflex_k=args.riflex_k,
                                       riflex_L_test=args.riflex_L_test,
                                       riflex_scale=args.riflex_scale)
@@ -269,8 +269,12 @@ def load_models(args, device="cuda", timer=None) -> WanModels:
         return path if path and os.path.exists(path) else None
 
     # umT5-xxl: bf16 on the card, or fp32 on the host when the caller asks
-    t5_dev = torch.device("cpu") if args.t5_cpu else device
-    t5_dtype = torch.float32 if args.t5_cpu else bf16
+    # (--t5_cpu; the train CLI's --low_vram).  The flags that only the
+    # inference parser has are read with the JAX CLI's defaults, so the
+    # train CLI's namespace loads T5 on the card and keeps it there.
+    t5_cpu = getattr(args, "t5_cpu", False)
+    t5_dev = torch.device("cpu") if t5_cpu else device
+    t5_dtype = torch.float32 if t5_cpu else bf16
     if found(T5_FILE):
         t5_params = ckpt.to_device(ckpt.convert_t5(ckpt.load_torch_state_dict(found(T5_FILE)),
                                                    t5_cfg), t5_dev, t5_dtype)
@@ -278,7 +282,9 @@ def load_models(args, device="cuda", timer=None) -> WanModels:
         t5_params = init_t5(_gen(t5_dev, 2), t5_cfg, t5_dev, t5_dtype)
     tokenizer = build_tokenizer(args, root, t5_cfg)
     text_ctx = None
-    if not args.t5_cpu and (args.offload_model or args.GPU_memory_mode != "model_full_load"):
+    memory_mode = getattr(args, "GPU_memory_mode", "model_full_load")
+    if not t5_cpu and (getattr(args, "offload_model", False)
+                       or memory_mode != "model_full_load"):
         phase = (timer.follow(device).phase if timer is not None
                  else (lambda name: contextlib.nullcontext()))
         with phase("text_encode"):
@@ -286,7 +292,7 @@ def load_models(args, device="cuda", timer=None) -> WanModels:
                 WanModels(dit_params=None, dit_cfg=dit_cfg, vae_params=None,
                           t5_params=t5_params, t5_cfg=t5_cfg, tokenizer=tokenizer,
                           device=device),
-                args.validation_prompts, args.negative_prompts or "")
+                args.validation_prompts, getattr(args, "negative_prompts", "") or "")
         before = _gib(device)
         t5_params = None
         if device.type == "cuda":
@@ -311,7 +317,7 @@ def load_models(args, device="cuda", timer=None) -> WanModels:
         # a fine-tuned .pt: non-strict, size-filtered merge
         dit = ckpt.merge_pt_override(dit, override, dit_cfg)
         del override
-    sequential = args.GPU_memory_mode == "sequential_cpu_offload"
+    sequential = memory_mode == "sequential_cpu_offload"
     if not sequential:
         dit = ckpt.to_device(dit, device, bf16)
 
@@ -324,7 +330,7 @@ def load_models(args, device="cuda", timer=None) -> WanModels:
     w2v, w2v_cfg = _wav2vec(args, w2v_cfg, device, _gen(device, 4))
 
     teacache = None
-    if args.enable_teacache:
+    if getattr(args, "enable_teacache", False):
         teacache = TeaCache(get_teacache_coefficients(f"wan2.1-t2v-{args.model_family.lower()}"),
                             args.sample_steps, rel_l1_thresh=args.teacache_threshold,
                             num_skip_start_steps=args.num_skip_start_steps)
@@ -339,12 +345,12 @@ def load_models(args, device="cuda", timer=None) -> WanModels:
     if prep:
         dit = prepare_fast_params(dit, dit_cfg, quant=quant)
     # ring_degree > 1 makes the whole sp axis one ring (JAX CLI, :427-429)
-    attn_impl = "ring" if args.ring_degree > 1 else "ulysses"
+    attn_impl = "ring" if getattr(args, "ring_degree", 1) > 1 else "ulysses"
     streamed = None
     if sequential:
         streamed = StreamedDiT(dit, dit_cfg, rope_split=rope_split, attn_quant=attn_quant,
                                attn_impl=attn_impl,
-                               honor_vocal_k_lens=not args.reference_attn_numerics,
+                               honor_vocal_k_lens=not getattr(args, "reference_attn_numerics", False),
                                device=device, dtype=bf16)
         dit = None  # the blocks live in pinned host memory now
         if device.type == "cuda":
@@ -357,7 +363,7 @@ def load_models(args, device="cuda", timer=None) -> WanModels:
         t5_params=t5_params, t5_cfg=t5_cfg, clip_params=clip, clip_cfg=clip_cfg,
         wav2vec_params=w2v, wav2vec_cfg=w2v_cfg, tokenizer=tokenizer, teacache=teacache,
         rope_split=rope_split, attn_quant=attn_quant,
-        honor_vocal_k_lens=not args.reference_attn_numerics, attn_impl=attn_impl,
+        honor_vocal_k_lens=not getattr(args, "reference_attn_numerics", False), attn_impl=attn_impl,
         device=device, text_ctx=text_ctx, streamed_dit=streamed)
 
 

@@ -2,7 +2,8 @@
 
 Field-for-field copies of the frozen dataclasses in
 `stableavatar_tpu/config.py` (the DiT, VAE, umT5, CLIP and wav2vec2
-configs, `WAN_1_3B`, `WAN_14B` and `tiny_debug_configs`), kept here so that the port, and a run of it on the card, loads
+configs, the scheduler config, `WAN_1_3B`, `WAN_14B` and
+`tiny_debug_configs`), kept here so that the port, and a run of it on the card, loads
 nothing of the JAX package.  `tests/test_torch_package.py` holds the two
 definitions equal field by field.  The port's functions read configs by
 attribute only, so the JAX package's config objects work there too (the
@@ -149,6 +150,19 @@ class Wav2Vec2Config:
             n = (n - k) // s + 1
         return n
 
+
+
+@dataclasses.dataclass(frozen=True)
+class SchedulerConfig:
+    """FlowMatch Euler scheduler config (the YAML's `scheduler_kwargs`)."""
+
+    num_train_timesteps: int = 1000
+    shift: float = 5.0
+    use_dynamic_shifting: bool = False
+    base_shift: float = 0.5
+    max_shift: float = 1.15
+    base_image_seq_len: int = 256
+    max_image_seq_len: int = 4096
 
 def tiny_debug_configs():
     """Miniature (DiT, VAE, T5, CLIP, wav2vec2) configs for checkpoint-free

@@ -15,7 +15,10 @@ an all-to-all around the attention call and back (attn_impl="ulysses"), or
 keeps the tokens where they are and rotates K/V around the ring
 (attn_impl="ring", `ops/ring_attention.py`, rope applied first); the
 cross-attention runs on the local queries.  Parameters sharded over 'fsdp'
-(`parallel/sharding.py:shard_params`) are gathered block by block.  One
+(`parallel/sharding.py:shard_params`) are gathered block by block (inside
+the remat checkpoint, so the backward gathers again).  The gathers and the
+Ulysses all-to-alls carry gradients (`parallel/mesh.py`), so training runs
+the same paths (`train/trainer.py`); the ring is inference only.  One
 rank, or no mesh, takes none of these paths.
 """
 
@@ -43,7 +46,13 @@ from stableavatar_tpu_torch.ops.rope import (
     rope_apply_split,
     rope_freqs_3d,
 )
-from stableavatar_tpu_torch.parallel.mesh import all_gather_dim0, axis_group, axis_rank, axis_size
+from stableavatar_tpu_torch.parallel.mesh import (
+    all_gather_dim0,
+    all_to_all_dim0,
+    axis_group,
+    axis_rank,
+    axis_size,
+)
 from stableavatar_tpu_torch.parallel.sharding import gather_block
 from stableavatar_tpu_torch.models.vocal_projector import (
     _affine,
@@ -172,23 +181,25 @@ def _seq_to_heads(x, sp: SeqShard):
     """Ulysses all-to-all: [B, L/W, N, D] -> [B, L, N/W, D] (rank j gets head
     group j of every slice, in slice order)."""
     b, lw, n, d = x.shape
-    send = x.reshape(b, lw, sp.size, n // sp.size, d).permute(2, 0, 1, 3, 4).contiguous()
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=sp.group)
+    send = x.reshape(b, lw, sp.size, n // sp.size, d).permute(2, 0, 1, 3, 4)
+    recv = all_to_all_dim0(send, sp.group)
     return recv.permute(1, 0, 2, 3, 4).reshape(b, sp.size * lw, n // sp.size, d)
 
 
 def _heads_to_seq(x, sp: SeqShard):
     """The inverse all-to-all: [B, L, N/W, D] -> [B, L/W, N, D]."""
     b, l, nw, d = x.shape
-    send = x.reshape(b, sp.size, l // sp.size, nw, d).permute(1, 0, 2, 3, 4).contiguous()
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=sp.group)
+    send = x.reshape(b, sp.size, l // sp.size, nw, d).permute(1, 0, 2, 3, 4)
+    recv = all_to_all_dim0(send, sp.group)
     return recv.permute(1, 2, 0, 3, 4).reshape(b, l // sp.size, sp.size * nw, d)
 
 
 def _gather_seq(x, sp: SeqShard):
-    """All-gather the token slices: [B, L/W, C] -> [B, L, C]."""
+    """All-gather the token slices: [B, L/W, C] -> [B, L, C].  Every rank
+    of the group computes the same output from here, so under autograd the
+    summing reduce-scatter of the backward gives each slice W times its
+    gradient: `train/trainer.py:train_step` divides each rank's loss by the
+    ranks that compute it."""
     full = all_gather_dim0(x, sp.group).reshape(sp.size, *x.shape)
     return full.transpose(0, 1).reshape(x.shape[0], sp.size * x.shape[1], *x.shape[2:])
 
@@ -418,6 +429,10 @@ def _sp_check(cfg, n_tokens: int, attn_impl: str) -> Optional[int]:
     return w
 
 
+def _gathered_block(bp, x, **kw):
+    return apply_block(gather_block(bp), x, **kw)
+
+
 def _top_params(params):
     """The parameters outside the block stack, gathered where sharded."""
     return gather_block({k: v for k, v in params.items() if k != "blocks"})
@@ -463,8 +478,11 @@ def dit_forward(params, cfg, x, t, text_embeds, clip_fea, y, vocal_embeddings,
         r = axis_rank("sp")
         tokens = tokens[:, r * lw:(r + 1) * lw]
     for bp in params["blocks"]:
+        # the block's fsdp gather runs inside the checkpointed function, so
+        # remat drops the gathered tensors and the recomputation gathers
+        # them again (every rank in the same order)
         block = functools.partial(
-            apply_block, gather_block(bp), e0=e0, context_text=context_text,
+            _gathered_block, bp, e0=e0, context_text=context_text,
             context_img=context_img, vocal_context=vocal_context, vocal_k_lens=vocal_k_lens,
             freqs=freqs, cfg=cfg, latents_num_frames=latents_num_frames,
             rope_packed=rope_packed, attn_quant=attn_quant, attn_impl=attn_impl,

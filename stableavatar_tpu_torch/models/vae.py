@@ -274,15 +274,18 @@ def encode_video(params, video, cfg, chunks_per_step: Optional[int] = None):
 
 
 def encode_video_sample(params, video, cfg, noise=None, generator=None,
-                        chunks_per_step: Optional[int] = None):
+                        chunks_per_step: Optional[int] = None, rows=None):
     """Like `encode_video` but SAMPLES the posterior, as the reference trainer
     does: mu (normalised) + exp(0.5 * clip(log_var, -30, 20)) * N(0, 1), with
     log_var in raw latent units (the as-built quirk the JAX package keeps).
     `noise` (same shape as mu) is used as given; otherwise it is drawn from
-    `generator`."""
+    `generator` -- with `rows` = (global batch, slice), at the global
+    batch's size, keeping the slice that `video` holds."""
     mu, logvar = _encode_moments(params, video, cfg, chunks_per_step)
     if noise is None:
-        noise = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=mu.dtype)
+        shape = mu.shape if rows is None else (rows[0], *mu.shape[1:])
+        noise = torch.randn(shape, generator=generator, device=mu.device, dtype=mu.dtype)
+        noise = noise if rows is None else noise[rows[1]]
     std = torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0))
     return mu + std * noise.to(device=mu.device, dtype=mu.dtype)
 

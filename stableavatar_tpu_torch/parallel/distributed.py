@@ -19,12 +19,12 @@ the port's device is an argument of its entry points.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-from stableavatar_tpu_torch.parallel.mesh import make_mesh
+from stableavatar_tpu_torch.parallel.mesh import axis_rank, axis_size, make_mesh
 
 
 def initialize_distributed(coordinator_address: Optional[str] = None,
@@ -83,3 +83,19 @@ def local_batch_slice(global_batch: int) -> slice:
     pc, i = dist.get_world_size(), dist.get_rank()
     per = global_batch // pc
     return slice(i * per, (i + 1) * per)
+
+
+def replica_rows(global_batch: int, mesh=None) -> Tuple[slice, float]:
+    """This rank's rows of a global batch split over the 'dp' axis of `mesh`
+    (the active mesh by default), and the share of the batch mean they
+    carry (rows / batch).  A batch that dp does not divide is split as
+    GSPMD splits the JAX package's padded batch: ceil(batch / dp) rows a
+    replica, the last ones shorter.  A replica left without a row takes the
+    last row with share 0, so its ranks run the step's collectives and add
+    nothing."""
+    dp, d = axis_size("dp", mesh), axis_rank("dp", mesh)
+    per = -(-global_batch // dp)
+    start, stop = min(d * per, global_batch), min((d + 1) * per, global_batch)
+    if start == stop:
+        return slice(global_batch - 1, global_batch), 0.0
+    return slice(start, stop), (stop - start) / global_batch

@@ -10,7 +10,12 @@ the JAX package's sharded tree just in time, the port gathers them
 explicitly: `gather_block` runs one all-gather per leaf on the fsdp group
 just before a block runs, and the full tensors are dropped after it
 (`models/dit.py`).  Sharded and unsharded runs compute from the same
-numbers.
+numbers.  Under autograd the gather's backward is the summing
+reduce-scatter (`parallel/mesh.py:all_gather_dim0`), so a shard's gradient
+arrives on the rank that holds it and the optimizer state stays sharded
+(ZeRO), as the JAX package's is under GSPMD.  Checkpoints hold full
+tensors: `unshard` gathers a leaf, `shard_params` / `shard_like` split them
+again.
 """
 
 from __future__ import annotations
@@ -60,6 +65,10 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+def _local(x: torch.Tensor, ax: int, fsdp: int, r: int) -> torch.Tensor:
+    return x.movedim(ax, 0).chunk(fsdp, dim=0)[r].contiguous().clone()
+
+
 def shard_params(params, mesh):
     """Keep this rank's 'fsdp' slice of every leaf that the rule splits;
     the full tensors are not referenced by the result."""
@@ -71,10 +80,28 @@ def shard_params(params, mesh):
         ax = param_sharding_spec(x, fsdp)
         if ax is None:
             return x
-        part = x.movedim(ax, 0).chunk(fsdp, dim=0)[r]
-        return Shard(part.contiguous().clone(), ax, tuple(x.shape))
+        return Shard(_local(x, ax, fsdp, r), ax, tuple(x.shape))
 
     return _tree_map(place, params)
+
+
+def leaf_specs(tree) -> list:
+    """Per leaf of a parameter tree (`utils/tree.py:tree_leaves` order): its
+    Shard where the leaf is split over 'fsdp', else None."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in leaf_specs(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaf_specs(v)]
+    return [tree if isinstance(tree, Shard) else None]
+
+
+def shard_like(x: torch.Tensor, spec: Optional[Shard], mesh=None) -> torch.Tensor:
+    """This rank's slice of a full tensor shaped like the parameter whose
+    Shard is `spec` (an optimizer moment), or x itself where the parameter
+    is replicated (spec None)."""
+    if spec is None:
+        return x
+    return _local(x, spec.axis, axis_size("fsdp", mesh), axis_rank("fsdp", mesh))
 
 
 def gather_block(params, mesh=None):
@@ -96,6 +123,19 @@ def gather_block(params, mesh=None):
         return full if x.axis == 0 else full.movedim(0, x.axis).contiguous()
 
     return _tree_map(gather, params)
+
+
+def unshard(x, mesh=None, spec: Optional[Shard] = None):
+    """The full tensor of a Shard -- or of a local tensor laid out like the
+    Shard `spec` (an optimizer moment) -- gathered over the fsdp group of
+    `mesh` (the active mesh by default); any other leaf as it is.  A
+    collective: every rank of the fsdp group calls it."""
+    if isinstance(x, Shard):
+        x, spec = x.local, x
+    if spec is None or not torch.is_tensor(x):
+        return x
+    full = all_gather_dim0(x.detach(), axis_group("fsdp", mesh))
+    return full if spec.axis == 0 else full.movedim(0, spec.axis).contiguous()
 
 
 def replicate(tree, mesh=None):

@@ -5,6 +5,14 @@ Kept from the JAX package as built: `train` builds `make_optimizer` with no
 mask, so every parameter trains; the VAE posterior is SAMPLED (inference
 uses mu); the t2v and audio dropouts and the clip-level flag are host draws
 from `rng`, in the same order.
+
+Under a ('dp', 'fsdp', 'sp') mesh every rank reads the same seeded batch
+stream and makes the same host draws; each dp replica encodes only its rows
+(`parallel/distributed.py:replica_rows`), the draws that have one entry per
+row made at the global batch's size and sliced.  Checkpoints hold full
+tensors, gathered over 'fsdp' and written by rank 0, and are split again
+on restore, so a checkpoint moves between meshes and one process.  Rank 0
+alone writes metrics and validation output.
 """
 
 from __future__ import annotations
@@ -19,10 +27,14 @@ from typing import Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from stableavatar_tpu_torch.models.clip import clip_visual_forward, preprocess_reference_image
 from stableavatar_tpu_torch.models.vae import encode_video_sample
 from stableavatar_tpu_torch.models.wav2vec import normalize_waveform, wav2vec2_forward
+from stableavatar_tpu_torch.parallel.distributed import replica_rows
+from stableavatar_tpu_torch.parallel.mesh import axis_size, current_mesh
+from stableavatar_tpu_torch.parallel.sharding import leaf_specs, shard_like, shard_params, unshard
 from stableavatar_tpu_torch.pipelines.common import WanModels, encode_prompt_ids, resolve_device
 from stableavatar_tpu_torch.train.trainer import (
     TrainConfig,
@@ -60,10 +72,17 @@ def resize_linear(x: torch.Tensor, shape) -> torch.Tensor:
     return x
 
 
+def _take_rows(batch: dict, rows: slice) -> dict:
+    """Rows of every per-sample entry of a raw batch (arrays, tensors and
+    lists along their first axis)."""
+    return {k: v[rows] if isinstance(v, (np.ndarray, torch.Tensor, list)) else v
+            for k, v in batch.items()}
+
+
 def encode_batch(models: WanModels, batch: dict, rng: np.random.Generator,
                  audio_dropout_prob: float = 0.1, clip_level_prob: float = 0.3,
                  t2v_zero_prob: float = 0.90, train_mode: str = "inpaint",
-                 vae_noise=None) -> dict:
+                 vae_noise=None, rows: Optional[slice] = None) -> dict:
     """Raw pixel / audio batch -> DiT training inputs on `models.device`.
 
     Conditioning dropouts, drawn from `rng` in the JAX package's order: the
@@ -74,18 +93,22 @@ def encode_batch(models: WanModels, batch: dict, rng: np.random.Generator,
     generator seeded by one `rng` draw, or taken from `vae_noise` (a pair:
     video, masked video).  With `models.tokenizer` set, `batch["text_prompt"]`
     is tokenised and umT5-encoded (`encode_prompt_ids`); otherwise
-    `batch["prompt_embeds"]` is taken as it is."""
+    `batch["prompt_embeds"]` is taken as it is.  `rows` encodes only those
+    rows of the batch, with every draw made as for the whole batch."""
     device = resolve_device(models.device)
+    b_global = len(batch["pixel_values"])
+    rows = slice(0, b_global) if rows is None else rows
+    batch = _take_rows(batch, rows)
     pixels = torch.as_tensor(batch["pixel_values"], device=device)  # [B, 3, F, H, W]
     b = pixels.shape[0]
 
     gen = torch.Generator(device=device).manual_seed(int(rng.integers(2 ** 31)))
     noise_lat, noise_msk = vae_noise if vae_noise is not None else (None, None)
     latents = encode_video_sample(models.vae_params, pixels, models.vae_cfg,
-                                  noise=noise_lat, generator=gen)
+                                  noise=noise_lat, generator=gen, rows=(b_global, rows))
     masked = torch.as_tensor(batch["masked_pixel_values"], device=device)
     masked_latents = encode_video_sample(models.vae_params, masked, models.vae_cfg,
-                                         noise=noise_msk, generator=gen)
+                                         noise=noise_msk, generator=gen, rows=(b_global, rows))
 
     # mask -> latent packing: first frame repeated 4x, grouped into 4-channel
     # latent-frame masks, inverted (1 where conditioning pixels are visible)
@@ -101,7 +124,7 @@ def encode_batch(models: WanModels, batch: dict, rng: np.random.Generator,
 
     if train_mode != "normal":
         all_ones = raw_masks.reshape(b, -1).min(axis=1) >= 1.0
-        t2v_flag = np.where(all_ones & (rng.random(b) < t2v_zero_prob), 0.0, 1.0)
+        t2v_flag = np.where(all_ones & (rng.random(b_global)[rows] < t2v_zero_prob), 0.0, 1.0)
         inpaint_latents = inpaint_latents * torch.as_tensor(
             t2v_flag, dtype=inpaint_latents.dtype, device=device)[:, None, None, None, None]
 
@@ -152,6 +175,44 @@ def _to_host(x):
     return x.detach().to("cpu", copy=True) if torch.is_tensor(x) else x
 
 
+def map_leaf_lists(state, leaves, fn, other=lambda x: x):
+    """`fn(x, i)` on every per-leaf entry of an optimizer state -- the lists
+    as long as the parameter list whose tensors have the shapes of `leaves`
+    (Adam's moments, the accumulator) -- and `other` on the rest."""
+    if isinstance(state, dict):
+        return {k: map_leaf_lists(v, leaves, fn, other) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        if len(state) == len(leaves) and all(
+                torch.is_tensor(x) and x.shape == p.shape for x, p in zip(state, leaves)):
+            return [fn(x, i) for i, x in enumerate(state)]
+        return type(state)(map_leaf_lists(v, leaves, fn, other) for v in state)
+    return other(state)
+
+
+def host_state(params, opt_state, mesh=None, keep: bool = True):
+    """Host copies of (params, opt_state) with every fsdp slice gathered to
+    its full tensor: a collective of the fsdp group, which holds one
+    gathered tensor on the device at a time.  With keep=False (a rank that
+    does not write) the gathers run and nothing is copied."""
+    specs = leaf_specs(params)
+    host = _to_host if keep else (lambda x: None)
+    full = tree_map(lambda x: host(unshard(x, mesh)), params)
+    state = map_leaf_lists(opt_state, tree_leaves(params),
+                           lambda x, i: host(unshard(x, mesh, spec=specs[i])), host)
+    return full, state
+
+
+def shard_state(params, opt_state, mesh):
+    """(params, opt_state) of full tensors split for `mesh`: this rank's
+    slices of the parameters that the fsdp rule splits, and of their
+    moments (the inverse of `host_state`'s gathers)."""
+    sharded = shard_params(params, mesh)
+    specs = leaf_specs(sharded)
+    state = map_leaf_lists(opt_state, tree_leaves(params),
+                           lambda x, i: shard_like(x, specs[i], mesh))
+    return sharded, state
+
+
 @dataclasses.dataclass
 class CheckpointManager:
     """Save + rotation + latest-resume of {params, opt_state, step}.
@@ -160,19 +221,25 @@ class CheckpointManager:
     into a `checkpoint-<step>.tmp-<ns>` directory and renamed when complete.
     `save(wait=False)` copies the state to host memory synchronously (the
     step then updates the device parameters in place) and writes it on a
-    thread; the next save or `wait()` joins it."""
+    thread; the next save or `wait()` joins it.  Under a mesh every rank
+    calls `save` (the fsdp slices are gathered to full tensors) and only the
+    `writer` (rank 0) writes and rotates."""
 
     output_dir: str
     total_limit: Optional[int] = None
+    writer: bool = True
     _thread: Optional[threading.Thread] = None
     _error: Optional[BaseException] = None
 
     def save(self, step: int, params, opt_state, wait: bool = True) -> str:
-        self._join()
-        self._rotate(keep_latest=True)
+        if self.writer:
+            self._join()
+            self._rotate(keep_latest=True)
+        params, opt_state = host_state(params, opt_state, keep=self.writer)
         path = os.path.join(self.output_dir, f"checkpoint-{step}")
-        state = {"params": tree_map(_to_host, params),
-                 "opt_state": tree_map(_to_host, opt_state), "step": int(step)}
+        if not self.writer:
+            return path
+        state = {"params": params, "opt_state": opt_state, "step": int(step)}
         if wait:
             self._write(path, state)
             self._rotate()
@@ -209,7 +276,7 @@ class CheckpointManager:
         self._rotate()
 
     def _rotate(self, keep_latest: bool = False) -> None:
-        if self.total_limit is None or not os.path.isdir(self.output_dir):
+        if not self.writer or self.total_limit is None or not os.path.isdir(self.output_dir):
             return
         ckpts = _finished_ckpts(self.output_dir)
         # before an async save the newest finished checkpoint survives until
@@ -225,7 +292,8 @@ class CheckpointManager:
         return os.path.join(self.output_dir, ckpts[-1]) if ckpts else None
 
     def restore(self, device="cuda") -> Optional[dict]:
-        """The latest complete checkpoint, tensors on `device`, or None."""
+        """The latest complete checkpoint, tensors on `device`, or None
+        (full tensors: `shard_state` splits them for a mesh)."""
         path = self.latest()
         if path is None:
             return None
@@ -234,10 +302,15 @@ class CheckpointManager:
         return state
 
 
+def _is_writer() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def log_validation(models: WanModels, validation_cfg: dict, output_dir: str, step: int):
     """In-training validation: one clip of the single-clip pipeline, saved as
     `validation_step{step}.mp4` (a PNG frame directory without ffmpeg);
-    returns the path written."""
+    returns the path written.  In a process group every rank generates (the
+    mesh's collectives) and rank 0 alone writes; the others return None."""
     from stableavatar_tpu_torch.pipelines.single_clip import generate_single_clip
     from stableavatar_tpu_torch.utils.video_io import save_videos_grid, to_uint8
 
@@ -252,6 +325,8 @@ def log_validation(models: WanModels, validation_cfg: dict, output_dir: str, ste
         clip_length=validation_cfg.get("clip_length", 81),
         seed=validation_cfg.get("seed", 42),
     )
+    if not _is_writer():
+        return None
     path = os.path.join(output_dir, f"validation_step{step}.mp4")
     try:
         import imageio  # noqa: F401  (save_videos_grid's writer)
@@ -282,27 +357,37 @@ def train(models: WanModels, batches: Iterable[dict], train_cfg: TrainConfig, *,
     synchronous save and a clean return, so `resume_from_checkpoint="latest"`
     continues from the exact step.  `step_callback(step, params, metrics)`
     runs after every step (metrics: loss, grad_norm, is_clip_level_modeling).
-    Returns (params, opt_state, history); the parameters are updated in
-    place on `models.device` and left in `models.dit_params`."""
+    Under a mesh (`parallel/mesh.py:mesh_context`; the parameters split with
+    `shard_params`) every rank runs the loop on the same batch stream (the
+    module docstring).  Returns (params, opt_state, history); the parameters
+    are updated in place on `models.device` and left in `models.dit_params`."""
     device = resolve_device(models.device)
+    mesh = current_mesh()
+    writer = _is_writer()
+    if axis_size("fsdp") > 1 and (train_cfg.use_8bit_adam or train_cfg.use_came):
+        # both reduce over a parameter's rows or columns, which fsdp splits
+        raise NotImplementedError("8-bit Adam and CAME under fsdp > 1: the port shards "
+                                  "AdamW's state only; use dp / sp, or AdamW")
     os.makedirs(output_dir, exist_ok=True)
     tx = make_optimizer(train_cfg)
     params = models.dit_params
     opt_state = tx.init(tree_leaves(params))
     step = 0
 
-    cm = CheckpointManager(output_dir, checkpoints_total_limit)
+    cm = CheckpointManager(output_dir, checkpoints_total_limit, writer=writer)
     if resume_from_checkpoint == "latest":
         restored = cm.restore(device)
         if restored is not None:
             params, opt_state = restored["params"], restored["opt_state"]
+            if mesh is not None:
+                params, opt_state = shard_state(params, opt_state, mesh)
             step = int(restored["step"])
 
     sigmas = train_sigmas(train_cfg.num_train_timesteps, train_cfg.shift, device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
     rng = np.random.default_rng(seed)
     history = []
-    logger = MetricsLogger(output_dir)
+    logger = MetricsLogger(output_dir) if writer else None
 
     # preemption-safe exit: a handled signal sets the flag; the loop saves a
     # synchronous checkpoint and returns (handlers attach on the main thread)
@@ -318,16 +403,26 @@ def train(models: WanModels, batches: Iterable[dict], train_cfg: TrainConfig, *,
         for sig in preemption_signals:
             old_handlers[sig] = signal.signal(sig, _on_preempt)
 
+    def stop_now() -> bool:
+        if mesh is None:
+            return preempted["flag"]
+        # every rank saves at the same step, or the gathers would not meet
+        flag = torch.tensor(int(preempted["flag"]), device=device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag)
+
     t0 = time.time()
     try:
         for batch in batches:
             if step >= max_train_steps:
                 break
-            enc = encode_batch(models, batch, rng, train_mode=train_mode)
+            b_global = len(batch["pixel_values"])
+            rows = replica_rows(b_global, mesh)[0] if mesh is not None else None
+            enc = encode_batch(models, batch, rng, train_mode=train_mode, rows=rows)
             is_clip_level = enc.pop("is_clip_level_modeling", False)
             params, opt_state, metrics = train_step(
                 params, opt_state, enc, gen, is_clip_level, dit_cfg=models.dit_cfg,
-                train_cfg=train_cfg, tx=tx, sigmas_table=sigmas)
+                train_cfg=train_cfg, tx=tx, sigmas_table=sigmas, global_batch=b_global)
             step += 1
             if step_callback is not None:
                 step_callback(step, params, dict(metrics, is_clip_level_modeling=is_clip_level))
@@ -338,14 +433,16 @@ def train(models: WanModels, batches: Iterable[dict], train_cfg: TrainConfig, *,
                     lr_now *= float(lr_multiplier_schedule(train_cfg)(
                         step // max(train_cfg.gradient_accumulation_steps, 1)))
                 history.append({"step": step, "loss": loss, "time": time.time() - t0})
-                logger.log(step, {"train_loss": loss, "grad_norm": float(metrics["grad_norm"]),
-                                  "lr": lr_now})
-                print(f"step {step} loss {loss:.5f} "
-                      f"gnorm {float(metrics['grad_norm']):.4f} lr {lr_now:.2e}")
-            if preempted["flag"]:
+                if writer:
+                    logger.log(step, {"train_loss": loss,
+                                      "grad_norm": float(metrics["grad_norm"]), "lr": lr_now})
+                    print(f"step {step} loss {loss:.5f} "
+                          f"gnorm {float(metrics['grad_norm']):.4f} lr {lr_now:.2e}")
+            if stop_now():
                 cm.save(step, params, opt_state, wait=True)
-                print(f"[train] preemption signal {preempted['signum']} - saved "
-                      f"checkpoint-{step} and exiting for clean resume")
+                if writer:
+                    print(f"[train] preemption signal {preempted['signum']} - saved "
+                          f"checkpoint-{step} and exiting for clean resume")
                 break
             if step % checkpointing_steps == 0:
                 cm.save(step, params, opt_state, wait=not async_checkpointing)
@@ -356,7 +453,8 @@ def train(models: WanModels, batches: Iterable[dict], train_cfg: TrainConfig, *,
         cm.wait()  # join any in-flight async save
         for sig, h in old_handlers.items():
             signal.signal(sig, h)
-        logger.close()
+        if logger is not None:
+            logger.close()
 
     models.dit_params = params
     return params, opt_state, history

@@ -11,15 +11,40 @@ fp32 factor).  Unlike optax, `scale_by_adam` writes its moments into the
 state's tensors in place, leaf by leaf, where the dtype allows: at 1.7 B
 parameters each fp32 moment list is 7 GB, and a functional update would
 hold the old and new moments and both bias-corrected copies at once.
+
+Under fsdp the lists hold this rank's slices of the split parameters
+(`parallel/sharding.py`); every transform but the global norm works
+element by element, and `global_norm` sums the squares of the slices over
+the fsdp group inside `sharded_leaves`.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Sequence
+import contextlib
+import contextvars
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from stableavatar_tpu_torch.utils.tree import tree_map
+
+# (flags, group) of the leaf lists in flight: which leaves are this rank's
+# slices of a parameter split over 'fsdp', and that axis's group
+_SHARDED: contextvars.ContextVar = contextvars.ContextVar("stableavatar_torch_sharded_leaves",
+                                                          default=None)
+
+
+@contextlib.contextmanager
+def sharded_leaves(flags: Sequence[bool], group: Optional[dist.ProcessGroup]):
+    """Inside, `global_norm` of a leaf list takes the leaves flagged as
+    slices of a parameter split over `group` (the fsdp group)."""
+    token = _SHARDED.set((tuple(flags), group) if group is not None and any(flags) else None)
+    try:
+        yield
+    finally:
+        _SHARDED.reset(token)
+
 
 class GradientTransformation(NamedTuple):
     init: Callable  # params -> state
@@ -33,10 +58,24 @@ def _counter(params: Sequence[torch.Tensor]) -> torch.Tensor:
 
 def global_norm(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
     """optax.global_norm: sqrt of the sum over leaves of sum(x^2), each
-    leaf's sum in its own dtype."""
+    leaf's sum in its own dtype.  Inside `sharded_leaves` the sums of the
+    flagged leaves (slices) are summed over the fsdp group first, so every
+    rank gets the norm of the whole gradient, each replicated leaf counted
+    once."""
+    sums = [x.float().square().sum() for x in leaves]
+    sharded = _SHARDED.get()
+    if sharded is not None and sums and sums[0].device.type != "meta":
+        flags, group = sharded
+        if len(flags) != len(sums):
+            raise ValueError(f"{len(sums)} leaves, {len(flags)} sharding flags")
+        idx = [i for i, f in enumerate(flags) if f]
+        part = torch.stack([sums[i] for i in idx])
+        dist.all_reduce(part, op=dist.ReduceOp.SUM, group=group)
+        for j, i in enumerate(idx):
+            sums[i] = part[j]
     total = 0
-    for x in leaves:
-        total = total + x.float().square().sum().to(x.dtype)
+    for x, s in zip(leaves, sums):
+        total = total + s.to(x.dtype)
     return torch.sqrt(torch.as_tensor(total))
 
 
@@ -136,7 +175,9 @@ def masked(inner: GradientTransformation, mask: Sequence[bool]) -> GradientTrans
         return {"inner": inner.init(pick(params))}
 
     def update(updates, state, params=None):
-        sub, inner_state = inner.update(pick(updates), state["inner"], pick(params))
+        flags, group = _SHARDED.get() or (None, None)
+        with sharded_leaves(pick(flags) or (), group):
+            sub, inner_state = inner.update(pick(updates), state["inner"], pick(params))
         out = list(updates)
         for j, i in enumerate(idx):
             out[i] = sub[j]

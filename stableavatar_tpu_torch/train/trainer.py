@@ -8,6 +8,16 @@ optimizer chain of `make_optimizer` to the parameters in place.  The chain
 is functional (`train/optim.py`): anomaly-aware clipping, then AdamW /
 8-bit Adam / CAME, then the LR-schedule multiplier, then the trainable mask,
 then gradient accumulation, as the JAX package chains optax.
+
+Under a ('dp', 'fsdp', 'sp') mesh (`parallel/mesh.py:mesh_context`) the
+step computes the one-process step on the global batch, as the JAX step
+does under GSPMD: the draws are made at the global batch's size on every
+rank and sliced after; each dp replica runs its rows
+(`parallel/distributed.py:replica_rows`); fsdp gathers and sp exchanges
+carry their gradients (`parallel/mesh.py`), every rank's loss is divided by
+the ranks that compute it (fsdp x sp) and weighted by its rows' share of
+the batch, and the gradients are summed over the ranks that hold the same
+tensor (`sync_gradients`).  The optimizer then updates each rank's slices.
 """
 
 from __future__ import annotations
@@ -20,6 +30,14 @@ import numpy as np
 import torch
 
 from stableavatar_tpu_torch.models.dit import dit_forward
+from stableavatar_tpu_torch.parallel.distributed import replica_rows
+from stableavatar_tpu_torch.parallel.mesh import (
+    all_reduce_coalesced,
+    axis_group,
+    axis_size,
+    current_mesh,
+)
+from stableavatar_tpu_torch.parallel.sharding import leaf_specs
 from stableavatar_tpu_torch.train import optim
 from stableavatar_tpu_torch.train.losses import (
     anomaly_aware_max_norm,
@@ -184,24 +202,47 @@ def sample_draws(generator: Optional[torch.Generator], latents_shape, train_cfg:
     return {"noise": noise, "idx": idx, "mask_flag": mask_flag}
 
 
+def sync_gradients(grads, flags, mesh=None) -> None:
+    """Sum each gradient in place over the ranks that hold the same tensor:
+    a replicated leaf's over every axis, a slice of a split leaf (flag True;
+    the gather's reduce-scatter already summed it over 'fsdp') over 'dp' and
+    'sp'."""
+    for axis in ("dp", "fsdp", "sp"):
+        if axis_size(axis, mesh) > 1:
+            picked = [g for g, f in zip(grads, flags) if not (f and axis == "fsdp")]
+            all_reduce_coalesced(picked, axis_group(axis, mesh))
+
+
 def train_step(params, opt_state, batch: dict, generator: Optional[torch.Generator],
                is_clip_level_modeling: bool = False, *, dit_cfg, train_cfg: TrainConfig,
                tx: optim.GradientTransformation, sigmas_table: torch.Tensor,
-               draws: Optional[dict] = None):
+               draws: Optional[dict] = None, global_batch: Optional[int] = None):
     """One flow-matching training step; updates `params` in place.
 
     batch: latents [B, 16, F, H, W], inpaint_latents [B, 20, F, H, W],
     prompt_embeds [B, text_len, text_dim], clip_fea [B, 257, clip_dim],
     vocal_embeddings [B, La, 768], face_masks / lip_masks [B, 1, F, H, W].
     `draws` ({"noise", "idx", "mask_flag"}) replaces the draws from
-    `generator` (the parity tests pass the JAX step's).  Returns (params,
-    opt_state, {"loss", "grad_norm"}) with the raw, pre-clip gradient norm."""
+    `generator` (the parity tests pass the JAX step's).  Under a mesh the
+    batch holds this replica's rows of `global_batch` rows and `draws`, if
+    given, are the global batch's.  Returns (params, opt_state, {"loss",
+    "grad_norm"}) with the raw, pre-clip gradient norm; under a mesh both
+    are the global batch's, equal on every rank."""
     latents = batch["latents"]
     b = latents.shape[0]
+    mesh = current_mesh()
+    rows, share = slice(0, b), 1.0
+    if mesh is not None:
+        global_batch = b if global_batch is None else global_batch
+        rows, share = replica_rows(global_batch, mesh)
+        if rows.stop - rows.start != b:
+            raise ValueError(f"this replica's rows of {global_batch} are {rows}, the batch "
+                             f"holds {b}")
     if draws is None:
-        draws = sample_draws(generator, latents.shape, train_cfg, latents.device)
-    noise, mask_flag = draws["noise"], draws["mask_flag"]
-    sigma = sigmas_table[draws["idx"]].reshape(b, 1, 1, 1, 1)
+        draws = sample_draws(generator, (global_batch or b, *latents.shape[1:]), train_cfg,
+                             latents.device)
+    noise, mask_flag = draws["noise"][rows], draws["mask_flag"]
+    sigma = sigmas_table[draws["idx"][rows]].reshape(b, 1, 1, 1, 1)
     timesteps = sigma[:, 0, 0, 0, 0] * train_cfg.num_train_timesteps
     noisy = (1.0 - sigma) * latents.float() + sigma * noise
     target = noise - latents.float()
@@ -221,13 +262,27 @@ def train_step(params, opt_state, batch: dict, generator: Optional[torch.Generat
                 weighting=loss_weighting(train_cfg.weighting_scheme, sigma),
                 motion_sub_ratio=(train_cfg.motion_sub_loss_ratio
                                   if train_cfg.motion_sub_loss else 0.0))
-            grads = list(torch.autograd.grad(loss, leaves))
+            if mesh is not None:
+                # the fsdp x sp ranks of a replica compute the same loss
+                copies = axis_size("fsdp", mesh) * axis_size("sp", mesh)
+                grads = list(torch.autograd.grad(loss * (share / copies), leaves))
+            else:
+                grads = list(torch.autograd.grad(loss, leaves))
     finally:
         for p in leaves:
             p.requires_grad_(False)
     del pred
-    gnorm = optim.global_norm(grads)
-    updates, opt_state = tx.update(grads, opt_state, leaves)
+    loss = loss.detach()
+    flags = [spec is not None for spec in leaf_specs(params)] if mesh is not None else []
+    if mesh is not None:
+        sync_gradients(grads, flags, mesh)
+        loss = loss * share
+        if axis_size("dp", mesh) > 1:
+            torch.distributed.all_reduce(loss, group=axis_group("dp", mesh))
+    with optim.sharded_leaves(flags, axis_group("fsdp", mesh) if axis_size("fsdp", mesh) > 1
+                              else None):
+        gnorm = optim.global_norm(grads)
+        updates, opt_state = tx.update(grads, opt_state, leaves)
     del grads
     optim.apply_updates(leaves, updates)
-    return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
+    return params, opt_state, {"loss": loss, "grad_norm": gnorm}

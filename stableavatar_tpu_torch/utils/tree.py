@@ -1,9 +1,14 @@
 """Parameter trees of the port: nested dicts and lists with tensor leaves
-(the JAX package's pytrees).  Leaves are visited in insertion order."""
+(the JAX package's pytrees).  Leaves are visited in insertion order.  A
+`parallel/sharding.py:Shard` (this rank's slice of a parameter split over
+'fsdp') is one leaf, its local tensor: the optimizer and the gradients see
+the slice this rank holds."""
 
 from __future__ import annotations
 
 from typing import Any, Callable, List, Tuple
+
+from stableavatar_tpu_torch.parallel.sharding import Shard
 
 
 def tree_leaves(tree) -> List[Any]:
@@ -11,6 +16,8 @@ def tree_leaves(tree) -> List[Any]:
         return [x for v in tree.values() for x in tree_leaves(v)]
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
+    if isinstance(tree, Shard):
+        return [tree.local]
     return [tree]
 
 
@@ -20,7 +27,7 @@ def tree_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
         return [x for k, v in tree.items() for x in tree_paths(v, f"{prefix}/{k}")]
     if isinstance(tree, (list, tuple)):
         return [x for i, v in enumerate(tree) for x in tree_paths(v, f"{prefix}/{i}")]
-    return [(prefix.lstrip("/"), tree)]
+    return [(prefix.lstrip("/"), tree.local if isinstance(tree, Shard) else tree)]
 
 
 def tree_map(fn: Callable, tree, *rest):

@@ -59,6 +59,14 @@ def test_import_check_covers_the_probes_and_their_scripts():
             "stableavatar_tpu_torch.scripts.bench_attn_blocks"} <= set(_modules())
 
 
+def test_import_check_covers_the_training_entry_point():
+    """... and the train CLI's modules: the clip dataset, the masks, the
+    YAML loader and the LoRA adapters."""
+    assert {"stableavatar_tpu_torch.cli.train", "stableavatar_tpu_torch.data.dataset",
+            "stableavatar_tpu_torch.data.masks", "stableavatar_tpu_torch.utils.yaml_config",
+            "stableavatar_tpu_torch.utils.lora"} <= set(_modules())
+
+
 def test_no_source_line_imports_jax():
     pattern = re.compile(r"^\s*(import jax|from jax|import stableavatar_tpu\b(?!_torch)"
                          r"|from stableavatar_tpu\b(?!_torch))")
@@ -69,7 +77,8 @@ def test_no_source_line_imports_jax():
 
 
 @pytest.mark.parametrize("name", ["DiTConfig", "VAEConfig", "CLIPConfig", "Wav2Vec2Config",
-                                  "WAN_1_3B", "TrainConfig", "T5Config", "WAN_14B"])
+                                  "WAN_1_3B", "TrainConfig", "T5Config", "WAN_14B",
+                                  "SchedulerConfig"])
 def test_configs_equal_jax_package(name):
     """Each config the port copies equals the JAX package's, field by field."""
     from stableavatar_tpu import config as jconfig

@@ -1,5 +1,6 @@
-"""The port's multi-process inference (`stableavatar_tpu_torch/parallel/`,
-`ops/ring_attention.py`, the sequence-parallel DiT and the CLI) on the CPU:
+"""The port's multi-process inference and training
+(`stableavatar_tpu_torch/parallel/`, `ops/ring_attention.py`, the
+sequence-parallel DiT, the sharded train step and both CLIs) on the CPU:
 gloo process groups of spawned ranks, no GPU.
 
 One spawn of 4 ranks computes every world-4 case (meshes of dp x fsdp x sp
@@ -11,7 +12,9 @@ JAX ring under shard_map, DiT forwards rtol / atol 2e-3 and generate_long
 latents rtol 2e-3 / atol 2e-4 against the port's one-process run; the
 int8 ring, whose slab scales are per chunk, at rel-L2 2e-2.  The token
 count of every DiT case (3 latent frames of 16 tokens) splits a latent frame
-between ranks.
+between ranks.  One fp32 train step on each dp x fsdp x sp mesh equals the
+one-process step on the same global batch and draws at rel-L2 1e-5 (a
+reordered fp32 sum): loss, gradient norm and updated parameters.
 """
 
 import dataclasses
@@ -32,7 +35,7 @@ from stableavatar_tpu_torch.models import dit as tdit
 from stableavatar_tpu_torch.ops.ring_attention import ring_attention
 from stableavatar_tpu_torch.parallel import sharding
 from stableavatar_tpu_torch.parallel.mesh import make_mesh, mesh_context
-from stableavatar_tpu_torch.parallel.sharding import Shard, shard_params
+from stableavatar_tpu_torch.parallel.sharding import Shard, leaf_specs, shard_params
 from stableavatar_tpu_torch.pipelines.common import WanModels
 from stableavatar_tpu_torch.pipelines.long import generate_long
 from stableavatar_tpu_torch.utils.fastpath import prepare_fast_params
@@ -164,7 +167,8 @@ def _pipeline_kwargs(cfg):
 
 
 def world4_cases(rank):
-    res = {}
+    sharding._MIN_SHARD_SIZE = 16  # split the tiny matrices too
+    res = train_cases(rank)
     # ring attention over 4 ranks, fp32, quant="none"
     mesh = make_mesh(1, 1, 4, device_type="cpu")
     w = RING_SHAPE[1] // 4
@@ -209,6 +213,109 @@ def world4_cases(rank):
     return res
 
 
+# name: (dp, fsdp, sp, global batch, clip-level); batch 3 splits 2 + 1 over
+# dp 2, batch 1 leaves one dp replica without a row
+TRAIN_CASES = {
+    "dp2-fsdp2": (2, 2, 1, 3, False),
+    "fsdp2-sp2": (1, 2, 2, 3, False),
+    "dp2-sp2": (2, 1, 2, 3, True),
+    "dp2-fsdp2-batch1": (2, 2, 1, 1, False),
+}
+
+
+def _train_inputs(cfg, b):
+    """A global batch of `b` encoded rows (3 latent frames at 8 x 8, 48
+    tokens) and the step's draws at its size."""
+    rng = np.random.default_rng(7)
+    f, h, w = 3, 8, 8
+    arrays = {
+        "latents": (b, cfg.out_dim, f, h, w), "inpaint_latents": (b, cfg.in_dim - cfg.out_dim,
+                                                                  f, h, w),
+        "prompt_embeds": (b, cfg.text_len, cfg.text_dim), "clip_fea": (b, cfg.clip_tokens,
+                                                                       cfg.clip_dim),
+        "vocal_embeddings": (b, 24, cfg.audio_in_dim)}
+    batch = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+             for k, s in arrays.items()}
+    for k in ("face_masks", "lip_masks"):
+        batch[k] = torch.from_numpy(rng.uniform(0, 1, (b, 1, f, h, w)).astype(np.float32))
+    draws = {"noise": torch.from_numpy(rng.standard_normal((b, cfg.out_dim, f, h, w)).astype(
+        np.float32)), "idx": torch.from_numpy(rng.integers(0, 1000, b)),
+        "mask_flag": torch.tensor(0.3)}
+    return batch, draws
+
+
+def _train_step(params, cfg, batch, draws, clip_level, global_batch=None):
+    """One fp32 AdamW step (remat on, the anomaly clip live): (loss,
+    gradient norm, params, opt_state)."""
+    from stableavatar_tpu_torch.train import trainer
+    from stableavatar_tpu_torch.utils.tree import tree_leaves
+
+    # AdamW's first step is g / (|g| + eps): at the default eps (1e-10) a
+    # gradient entry of rounding size (1e-9, summed in another order) makes
+    # a step of up to lr either way, so eps sits above that noise
+    tc = trainer.TrainConfig(learning_rate=1e-3, adam_eps=1e-6, video_sample_n_frames=9)
+    tx = trainer.make_optimizer(tc)
+    state = tx.init(tree_leaves(params))
+    trainer.DIT_DTYPE = torch.float32
+    _, state, m = trainer.train_step(params, state, batch, None, clip_level, dit_cfg=cfg,
+                                     train_cfg=tc, tx=tx,
+                                     sigmas_table=trainer.train_sigmas(device="cpu"),
+                                     draws=draws, global_batch=global_batch)
+    return float(m["loss"]), float(m["grad_norm"]), params, state
+
+
+def _flat(tree):
+    from stableavatar_tpu_torch.utils.tree import tree_leaves
+
+    return torch.cat([x.reshape(-1) for x in tree_leaves(tree)]).numpy()
+
+
+def train_cases(rank):
+    """Each TRAIN_CASES mesh against the one-process step, and a
+    checkpoint written under fsdp 2 x sp 2 restored in one process and
+    split again under the mesh."""
+    import copy
+
+    from stableavatar_tpu_torch.parallel.distributed import replica_rows
+    from stableavatar_tpu_torch.train.loop import CheckpointManager, host_state, shard_state
+
+    cfg, params, _, _ = _tiny_dit()
+    res = {"train_init": _flat(params)}
+    for name, (dp, fsdp, sp, b, clip_level) in TRAIN_CASES.items():
+        batch, draws = _train_inputs(cfg, b)
+        want = _train_step(copy.deepcopy(params), cfg, batch, draws, clip_level)
+        mesh = make_mesh(dp, fsdp, sp, device_type="cpu")
+        with mesh_context(mesh):
+            rows = replica_rows(b)[0]
+            local = {k: v[rows] for k, v in batch.items()}
+            sharded = shard_params(copy.deepcopy(params), mesh)
+            loss, gnorm, got, state = _train_step(sharded, cfg, local, draws, clip_level, b)
+            full, full_state = host_state(got, state)
+            if name == "fsdp2-sp2":
+                ckpt = os.path.join(os.environ["SA_TEST_DIR"], "ckpt")
+                CheckpointManager(ckpt, writer=rank == 0).save(1, got, state)
+                dist.barrier()
+                restored = CheckpointManager(ckpt).restore("cpu")
+                again, again_state = shard_state(restored["params"], restored["opt_state"],
+                                                 mesh)
+                same_local = all(torch.equal(a, c) for a, c in zip(
+                    _flat_list(again) + _flat_list(again_state),
+                    _flat_list(got) + _flat_list(state)))
+                res["checkpoint"] = (restored["step"], _flat(restored["params"]),
+                                     _flat(restored["opt_state"]), _flat(full),
+                                     _flat(full_state), same_local)
+        res["train", name] = dict(want=(want[0], want[1], _flat(want[2]), _flat(want[3])),
+                         got=(loss, gnorm, _flat(full), _flat(full_state)),
+                         n_shards=sum(s is not None for s in leaf_specs(got)))
+    return res
+
+
+def _flat_list(tree):
+    from stableavatar_tpu_torch.utils.tree import tree_leaves
+
+    return [x for x in tree_leaves(tree) if torch.is_tensor(x)]
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -218,7 +325,8 @@ def _leaves(tree):
 
 
 @pytest.fixture(scope="module")
-def world4():
+def world4(tmp_path_factory):
+    os.environ["SA_TEST_DIR"] = str(tmp_path_factory.mktemp("world4"))
     return spawn("world4_cases", 4)
 
 
@@ -298,6 +406,40 @@ def test_generate_long_int8_ring_matches_one_process(world4):
     assert rel <= 2e-2, rel
 
 
+def _rel(got, want) -> float:
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+@pytest.mark.parametrize("case", list(TRAIN_CASES))
+def test_sharded_train_step_matches_one_process(world4, case):
+    """The train step on 4 ranks (dp x fsdp x sp) against the one-process
+    step on the same global batch and draws: the loss, the gradient norm
+    (the anomaly clip's input), the updated parameters and AdamW's moments,
+    gathered from the fsdp slices, at rel-L2 1e-5."""
+    r = world4["train", case]
+    (want_loss, want_norm, want_p, want_s), (loss, norm, got_p, got_s) = r["want"], r["got"]
+    assert np.isfinite([want_loss, want_norm]).all() and want_norm > 0
+    assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
+    assert abs(norm - want_norm) <= 1e-5 * want_norm
+    init = world4["train_init"]
+    assert got_p.shape == want_p.shape == init.shape
+    assert _rel(got_p - init, want_p - init) <= 1e-5  # the update itself
+    assert _rel(got_p, want_p) <= 1e-5
+    assert got_s.shape == want_s.shape and _rel(got_s, want_s) <= 1e-5
+    assert (r["n_shards"] > 0) == (TRAIN_CASES[case][1] > 1)
+
+
+def test_mesh_checkpoint_restores_in_one_process(world4):
+    """A checkpoint written under fsdp 2 x sp 2 holds full tensors (rank 0
+    writes): restored in one process it equals the gathered parameters and
+    moments, and split again under the mesh it equals every rank's slices."""
+    step, params, state, want_params, want_state, same_local = world4["checkpoint"]
+    assert step == 1
+    np.testing.assert_array_equal(params, want_params)
+    np.testing.assert_array_equal(state, want_state)
+    assert same_local
+
+
 def test_sequence_parallel_degrees_must_divide():
     """Tokens that W does not divide (ring and Ulysses) and heads that it
     does not divide (Ulysses) raise, naming the constraint."""
@@ -327,10 +469,13 @@ def test_sequence_parallel_degrees_must_divide():
 
 
 def cli_runs(rank):
-    """The CLI's main on each rank (its own process group from torchrun's
-    variables), once with --ulysses_degree 2 and once with --ring_degree 2;
-    each rank gets its own output directory."""
+    """The inference CLI's main on each rank (its own process group from
+    torchrun's variables), once with --ulysses_degree 2 and once with
+    --ring_degree 2, each rank with its own output directory; then the train
+    CLI's main with --fsdp 2 (the tiny matrices split, a validation clip)
+    and with --dp 2 on a batch of 1, both ranks on one output directory."""
     from stableavatar_tpu_torch.cli import inference as tcli
+    from stableavatar_tpu_torch.cli import train as ttrain
 
     base = os.environ["SA_TEST_DIR"]
     os.environ["STABLEAVATAR_TINY"] = "1"
@@ -345,28 +490,121 @@ def cli_runs(rank):
                        device="cpu")
         out[flag] = (rc, dist.is_initialized())
         os.environ["MASTER_PORT"] = str(int(os.environ["MASTER_PORT"]) + 1)
+    sharding._MIN_SHARD_SIZE = 16
+    # the validation clip cut to 2 steps of 9 frames, as in
+    # tests/test_torch_train_cli.py
+    build = ttrain.validation_config
+    ttrain.validation_config = lambda args, models: dict(
+        build(args, models), num_inference_steps=2, clip_length=9)
+    for flag in ("--fsdp", "--dp"):
+        rc = ttrain.main(TRAIN_ARGV(base) + [flag, "2", "--output_dir",
+                                              os.path.join(base, "train" + flag.strip("-"))],
+                         device="cpu")
+        out[flag] = (rc, dist.is_initialized())
+        os.environ["MASTER_PORT"] = str(int(os.environ["MASTER_PORT"]) + 1)
     return out
 
 
-def test_cli_main_on_two_ranks(tmp_path, monkeypatch):
+def TRAIN_ARGV(base):
+    """The train CLI's flags of the two-rank runs: 2 steps on the clip of
+    tests/test_torch_train_cli.py, a checkpoint and a validation clip at
+    step 2."""
+    return ["--train_data_meta", os.path.join(base, "data", "index.txt"),
+            "--video_sample_size", "32", "--video_sample_n_frames", "5",
+            "--max_train_steps", "2", "--checkpointing_steps", "2", "--log_every", "1",
+            "--validation_steps", "2",
+            "--validation_reference_path", os.path.join(base, "ref.png"),
+            "--validation_driven_audio_path", os.path.join(base, "voice.wav")]
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """The inputs of `cli_runs` and its result (one spawn of 2 ranks)."""
+    import cv2
     from PIL import Image
 
     from stableavatar_tpu_torch.utils.media import save_wav
 
+    base = tmp_path_factory.mktemp("two_ranks")
     img = np.random.default_rng(0).uniform(0, 255, (64, 64, 3)).astype(np.uint8)
-    Image.fromarray(img).save(tmp_path / "ref.png")
+    Image.fromarray(img).save(base / "ref.png")
     t = np.arange(16000) / 16000.0
-    save_wav(str(tmp_path / "voice.wav"), (0.3 * np.sin(2 * np.pi * 220 * t)).astype(np.float32),
+    save_wav(str(base / "voice.wav"), (0.3 * np.sin(2 * np.pi * 220 * t)).astype(np.float32),
              16000)
-    monkeypatch.setenv("SA_TEST_DIR", str(tmp_path))
-    result = spawn("cli_runs", 2, init_group=False)
+    clip = base / "data" / "speech_clip_000"
+    for sub in ("images", "face_masks", "lip_masks"):
+        (clip / sub).mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    for i in range(12):
+        cv2.imwrite(str(clip / "images" / f"{i:05d}.png"),
+                    rng.integers(0, 255, (64, 64, 3), dtype=np.uint8))
+        mask = (rng.random((64, 64)) > 0.5).astype(np.uint8) * 255
+        cv2.imwrite(str(clip / "face_masks" / f"{i:05d}.png"), mask)
+        cv2.imwrite(str(clip / "lip_masks" / f"{i:05d}.png"), mask)
+    save_wav(str(clip / "audio.wav"), (rng.standard_normal(16000) * 0.1).astype(np.float32),
+             16000)
+    (base / "data" / "index.txt").write_text(str(clip) + "\n")
+    saved = os.environ.get("SA_TEST_DIR")
+    os.environ["SA_TEST_DIR"] = str(base)
+    try:
+        return base, spawn("cli_runs", 2, init_group=False)
+    finally:
+        if saved is None:
+            del os.environ["SA_TEST_DIR"]
+        else:
+            os.environ["SA_TEST_DIR"] = saved
+
+
+def test_cli_main_on_two_ranks(two_ranks):
+    base, result = two_ranks
     for flag in ("ulysses_degree", "ring_degree"):
         rc, still_running = result[f"--{flag}"]
         assert rc == 0 and not still_running  # main ended the group it started
-        produced = os.listdir(tmp_path / flag / "rank0")
-        assert any(p.endswith(".mp4") or len(os.listdir(tmp_path / flag / "rank0" / p)) == 25
+        produced = os.listdir(base / flag / "rank0")
+        assert any(p.endswith(".mp4") or len(os.listdir(base / flag / "rank0" / p)) == 25
                    for p in produced), produced
-        assert not (tmp_path / flag / "rank1").exists()  # rank 0 alone writes
+        assert not (base / flag / "rank1").exists()  # rank 0 alone writes
+
+
+@pytest.mark.parametrize("flag", ["fsdp", "dp"])
+def test_train_cli_on_two_ranks(two_ranks, tmp_path, monkeypatch, flag):
+    """The train CLI on 2 ranks: rank 0 alone writes the metrics (one line a
+    step), the checkpoint and the validation clip; the first step's loss
+    equals the one-process CLI's (the same batch and draws, the parameters
+    not yet updated); the checkpoint holds full tensors that restore in one
+    process."""
+    import json
+
+    from stableavatar_tpu_torch.config import tiny_debug_configs
+    from stableavatar_tpu_torch.models.dit import init_dit
+    from stableavatar_tpu_torch.cli import train as ttrain
+    from stableavatar_tpu_torch.train.loop import CheckpointManager
+    from stableavatar_tpu_torch.utils.tree import tree_paths
+
+    base, result = two_ranks
+    rc, still_running = result[f"--{flag}"]
+    assert rc == 0 and not still_running
+    outdir = base / f"train{flag}"
+
+    def losses(d):
+        (name,) = [f for f in os.listdir(d) if f.endswith(".metrics.jsonl")]
+        with open(d / name) as f:
+            return [json.loads(line)["train_loss"] for line in f if line.strip()]
+
+    got = losses(outdir)
+    assert len(got) == 2 and np.isfinite(got).all()
+    assert sorted(d for d in os.listdir(outdir) if d.startswith("checkpoint-")) == [
+        "checkpoint-2"]
+    assert any(d.startswith("validation_step2") for d in os.listdir(outdir))
+    monkeypatch.setenv("STABLEAVATAR_TINY", "1")
+    ttrain.main(TRAIN_ARGV(str(base)) + ["--validation_steps", "100",
+                                         "--output_dir", str(tmp_path)], device="cpu")
+    assert abs(got[0] - losses(tmp_path)[0]) <= 1e-6 * abs(got[0])
+    restored = CheckpointManager(str(outdir)).restore("cpu")
+    want = {p: tuple(x.shape) for p, x in tree_paths(
+        init_dit(torch.Generator(), tiny_debug_configs()[0], "cpu"))}
+    assert restored["step"] == 2
+    assert {p: tuple(x.shape) for p, x in tree_paths(restored["params"])} == want
 
 
 def test_initialize_distributed_without_coordinator_is_a_noop(monkeypatch):

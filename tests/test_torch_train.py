@@ -402,6 +402,28 @@ def test_encode_batch_matches_jax(jax_models, seed, tokenized):
                                    err_msg=k)
 
 
+def test_encode_batch_rows_equal_the_whole_batch(jax_models):
+    """A dp replica's rows (`rows=`), encoded alone, equal those rows of the
+    whole batch's encode: the t2v flags and the VAE noise are drawn at the
+    batch's size and sliced, and the host draws advance alike."""
+    from stableavatar_tpu_torch.train.loop import encode_batch
+
+    models = _port_models(jax_models)
+    batch = next(_raw_batches(1, b=3, all_ones_row=True))
+    kw = dict(t2v_zero_prob=0.5, audio_dropout_prob=0.5)
+    rng = np.random.default_rng(3)
+    want = encode_batch(models, batch, rng, **kw)
+    after = rng.integers(2 ** 31)
+    for rows in (slice(0, 2), slice(2, 3)):
+        rng = np.random.default_rng(3)
+        got = encode_batch(models, batch, rng, rows=rows, **kw)
+        assert rng.integers(2 ** 31) == after
+        assert got.pop("is_clip_level_modeling") == want["is_clip_level_modeling"]
+        for k, v in got.items():
+            np.testing.assert_allclose(v.numpy(), want[k][rows].numpy(), rtol=1e-5, atol=1e-6,
+                                       err_msg=k)
+
+
 def test_resize_matches_jax_image_resize():
     from stableavatar_tpu_torch.train.loop import resize_linear
 
