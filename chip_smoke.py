@@ -121,8 +121,28 @@ exits non-zero):
                moved parameters, the files, exact K1-LSE / K4 / K1 launch
                counts, and the load, step, loader-wait, memory, checkpoint and
                validation times.  Runs after phase 13, before 14.
+17. app     -- the serving app (`cli/app.py`) at WAN_1_3B, 512x512, random
+               seeded weights: `build_app_parser` flags (--fast_path
+               linears), `load_models` with umT5-xxl kept on the card,
+               `AvatarService`, `build_ui` and `launch` on 127.0.0.1; over
+               HTTP the page, /mcp/tools, request A (POST /api/Generate 生成:
+               euler, 2 steps, seed 7, 2 windows at clip 81 / overlap 15)
+               and the Separate tab (its HPSS tier here); request B through
+               `AvatarService.generate` (unipc, 2 steps, TeaCache 0.1,
+               streamed); each request's wall, window-step and exact K2 / K5
+               launches, the videos (1, 3, 105, 512, 512) read back, the
+               seeds and the peak memory with umT5-xxl resident;
+18. tools   -- the ONNX runner with a graph of MDX-Net's topology at
+               Kim_Vocal_2's geometry (seeded random weights) through
+               `mdx_separate_waveform` on a 30 s stereo track, card against
+               CPU; `device_trace` around one fast window-step (the trace
+               names the flash and dual-context kernels); the host scripts'
+               mains: `bench_decode_overlap` (monolithic against overlapped,
+               frames equal), `bench_dit_step base full`,
+               `profile_step_parts` and `quality_curves --small` (depth
+               QUALITY_LAYERS), with exact launch counts.  Run last.
 
-Phases 5-6, 7, 8, 9, 10's one-rank ring, 11's entry points and 12-16 drive
+Phases 5-6, 7, 8, 9, 10's one-rank ring, 11's entry points and 12-18 drive
 the paths: the launch counts are set to 0 just before each and read just
 after.  The line before the last is a JSON object with one entry per
 kernel; the last line is {"ok": true, "device": {...}}.
@@ -2520,6 +2540,307 @@ def phase_sequential(resident, reset_counts, counts):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 17. the serving app; 18. the preprocessing tools and the host scripts
+# ---------------------------------------------------------------------------
+
+APP_ARGV = ["--fast_path", "linears"]
+APP_PROMPT = "A person is talking to the camera"
+# MDX-Net's topology at Kim_Vocal_2's STFT geometry: 4 spectral channels in
+# and out, [1, 4, 3072, 256] a segment; the net's width and TDF bottleneck
+MDX_WIDTH, MDX_TDF_DIV, MDX_SECONDS = 32, 16, 30.0
+# the ONNX runner on the card against the same runner on the CPU (fp32,
+# TF32 off on both): relative L2 of the separated track
+MDX_REL_TOL = 1e-4
+QUALITY_LAYERS = 4  # quality_curves' depth: its 16 Euler / UniPC / TeaCache steps
+
+
+def write_app_inputs(root):
+    """A seeded 512x512 reference image and a 16 kHz voice that makes
+    N_WINDOWS windows of 81 frames at overlap OVERLAP (105 video frames)."""
+    import numpy as np
+    from PIL import Image
+
+    from stableavatar_tpu_torch.utils.media import save_wav
+
+    rng = np.random.default_rng(17)
+    img_path, wav_path = os.path.join(root, "ref.png"), os.path.join(root, "voice.wav")
+    Image.fromarray(rng.integers(0, 255, (512, 512, 3), dtype=np.uint8)).save(img_path)
+    infer_length = 21 + (21 - OVERLAP) * (N_WINDOWS - 1)
+    t = np.arange(((infer_length - 1) * 4 + 1) * (16000 // 25)) / 16000
+    voice = 0.3 * np.sin(2 * np.pi * 180 * t) * (0.6 + 0.4 * np.sin(2 * np.pi * 3 * t))
+    save_wav(wav_path, voice.astype(np.float32), 16000)
+    return img_path, wav_path
+
+
+def read_video(name, path, shape):
+    """The video an app request wrote, checked: a PNG frame directory read
+    back as [1, 3, T, H, W] in [0, 1], or an mp4 file (ffmpeg present)."""
+    import numpy as np
+    from PIL import Image
+
+    if os.path.isdir(path):
+        names = sorted(os.listdir(path))
+        frames = np.stack([np.asarray(Image.open(os.path.join(path, n)).convert("RGB"))
+                           for n in names])
+        check_video(name, frames.transpose(3, 0, 1, 2)[None].astype(np.float32) / 255.0, shape)
+    elif not (path.endswith(".mp4") and os.path.getsize(path) > 0):
+        raise AssertionError(f"{name}: no video at {path}")
+    else:
+        log(f"  {name}: mp4 of {os.path.getsize(path)} bytes")
+
+
+def http_post(base, name, values, timeout=900):
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    req = urllib.request.Request(base + urllib.parse.quote(f"/api/{name}"),
+                                 data=json.dumps({"data": values}).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    try:
+        body = json.loads(urllib.request.urlopen(req, timeout=timeout).read())
+    except urllib.error.HTTPError as e:  # the shim answers a failed callback with 500
+        raise AssertionError(f"POST /api/{name}: {e.code} {e.read().decode()}") from e
+    return body["data"]
+
+
+def phase_app(reset_counts, counts):
+    """17. The serving app at WAN_1_3B, 512x512: `build_app_parser` flags,
+    `load_models` with umT5-xxl kept on the card, `AvatarService`,
+    `build_ui` and `launch` on 127.0.0.1; over HTTP the page, the MCP
+    tools, request A (Generate: euler, 2 steps, seed 7) and the Separate
+    tab; request B (unipc, 2 steps, TeaCache 0.1, streamed) through
+    `AvatarService.generate`.  Returns the service (its models stay on the
+    card for phase 18's trace) and the launches of request A."""
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from stableavatar_tpu_torch.cli import app as tapp
+    from stableavatar_tpu_torch.cli.inference import load_models
+    from stableavatar_tpu_torch.utils.media import load_wav
+    from stableavatar_tpu_torch.utils.profiling import StepTimer
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_app_")
+    args = tapp.build_app_parser().parse_args(APP_ARGV + ["--output_dir",
+                                                          os.path.join(root, "out")])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    models = load_models(args, "cuda", keep_t5=True)
+    torch.cuda.synchronize()
+    if models.t5_params is None or models.text_ctx is not None:
+        raise AssertionError("the server's load_models released umT5")
+    log(f"  load_models (umT5-xxl kept on the card): {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    timer = StepTimer("cuda")
+    service = tapp.AvatarService(models, args.output_dir, model_family=args.model_family,
+                                 timer=timer)
+    demo = tapp.build_ui(service)
+    demo.launch(server_name="127.0.0.1", server_port=0, mcp_server=True,
+                prevent_thread_lock=True)
+    img_path, wav_path = write_app_inputs(root)
+    layers, calls = models.dit_cfg.num_layers, 2 * N_WINDOWS  # 2 steps x 2 windows
+    want = {"flash_fwd_int8_qk": layers * calls, "dual_context": layers * calls}
+    shape = (1, 3, 105, 512, 512)
+    try:
+        base = f"http://127.0.0.1:{demo.server_port}"
+        page = urllib.request.urlopen(base + "/", timeout=30).read().decode()
+        tools = json.loads(urllib.request.urlopen(base + "/mcp/tools", timeout=30).read())
+        names = [t["name"] for t in tools["tools"]]
+        if "Avatar Generation" not in page or names != ["Generate 生成", "Extract", "Separate"]:
+            raise AssertionError(f"app page / MCP tools wrong: {names}")
+        log(f"  GET / ({len(page)} bytes) and /mcp/tools: {names}")
+
+        values = demo.default_inputs("Generate 生成")
+        values[:4] = [img_path, wav_path, APP_PROMPT, "blurry, distorted"]
+        values[7], values[8], values[18] = 2, "euler", 7  # steps, solver, seed
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        video, seed = http_post(base, "Generate 生成", values)
+        wall = time.perf_counter() - t0
+        launches = counts()
+        step = timer.history["denoise_step"][-1] / N_WINDOWS
+        log(f"  request A (POST /api/Generate 生成, euler, 2 steps): wall {wall:.2f} s, "
+            f"window-step {step:.3f} s, seed {seed}, peak device memory with umT5-xxl "
+            f"resident {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phases "
+            f"{ {k: round(v['total_s'], 3) for k, v in timer.summary().items()} }")
+        check_launches("request A", launches, want)
+        if seed != 7:
+            raise AssertionError(f"request A returned seed {seed}, not 7")
+        read_video("request A", video, shape)
+
+        timer.history.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        video_b, seed_b, _ = service.generate(
+            img_path, wav_path, APP_PROMPT, "blurry, distorted", num_inference_steps=2,
+            seed_param=8, enable_teacache=True, teacache_threshold=0.1,
+            num_skip_start_steps=5, sample_solver="unipc", stream_output=True)
+        wall = time.perf_counter() - t0
+        step = timer.history["denoise_step"][-1] / N_WINDOWS
+        log(f"  request B (generate, unipc, 2 steps, TeaCache 0.1, streamed): wall "
+            f"{wall:.2f} s, window-step {step:.3f} s, seed {seed_b}; phases "
+            f"{ {k: round(v['total_s'], 3) for k, v in timer.summary().items()} }")
+        # 2 steps: TeaCache computes every call (its first and last of each cycle)
+        check_launches("request B", counts(), want)
+        if seed_b != 8:
+            raise AssertionError(f"request B returned seed {seed_b}, not 8")
+        read_video("request B", video_b, shape)
+
+        t0 = time.perf_counter()
+        (vocal,) = http_post(base, "Separate", [wav_path])
+        sep, sr = load_wav(vocal, 16000)
+        if not (sr == 16000 and sep.size == load_wav(wav_path, 16000)[0].size
+                and np.isfinite(sep).all()):
+            raise AssertionError(f"Separate wrote no usable vocals at {vocal}")
+        log(f"  POST /api/Separate (HPSS tier, no Kim_Vocal_2.onnx here): "
+            f"{time.perf_counter() - t0:.2f} s, {sep.size} samples")
+    finally:
+        demo.close()
+    shutil.rmtree(root, ignore_errors=True)
+    return service, launches
+
+
+def stereo_track(seconds, sr=44100):
+    """A seeded stereo 44.1 kHz track: a voiced harmonic stack and noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(18)
+    t = np.arange(int(sr * seconds)) / sr
+    voice = sum(a * np.sin(2 * np.pi * 180 * k * t) for k, a in ((1, 0.3), (2, 0.15), (3, 0.1)))
+    voice *= 0.6 + 0.4 * np.sin(2 * np.pi * 2.5 * t)
+    return np.stack([voice + 0.05 * rng.standard_normal(t.size),
+                     0.8 * voice + 0.05 * rng.standard_normal(t.size)]).astype(np.float32)
+
+
+def phase_mdx():
+    """18a. The ONNX runner with an MDX-topology graph at Kim_Vocal_2's
+    geometry (seeded random weights) through `mdx_separate_waveform` on a
+    stereo 44.1 kHz track: the card against the same runner on the CPU."""
+    import numpy as np
+    import torch
+
+    from stableavatar_tpu_torch.preprocess import vocal_separator as sep
+    from stableavatar_tpu_torch.utils.onnx_runner import parse_onnx
+    from tests.torch_onnx_graphs import mdx_graph
+
+    data, _ = mdx_graph(c=4, g=MDX_WIDTH, f=sep.MDX_DIM_F, t=sep.MDX_DIM_T, crop=0,
+                        tdf_div=MDX_TDF_DIV, seed=0, scale=0.05)
+    graph = parse_onnx(data)
+    track = stereo_track(MDX_SECONDS)
+    kept = sep.MDX_HOP * (sep.MDX_DIM_T - 1) - 2 * (sep.MDX_N_FFT // 2)  # a segment's centre
+    n_segments = -(-track.shape[-1] // kept)
+
+    def separate(device):
+        t0 = time.perf_counter()
+        out = sep.mdx_separate_waveform(track, graph, device=device)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    separate("cuda")  # warm-up: cuDNN's choice of algorithms
+    got, card_s = separate("cuda")
+    want, cpu_s = separate("cpu")
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    mx = float(np.abs(got - want).max())
+    log(f"  MDX-topology graph ({len(data) / 1e6:.1f} MB, width {MDX_WIDTH}) on a "
+        f"{MDX_SECONDS:.0f} s stereo 44.1 kHz track, {n_segments} segments of "
+        f"[1, 4, {sep.MDX_DIM_F}, {sep.MDX_DIM_T}]: card {card_s:.2f} s, CPU "
+        f"{cpu_s:.2f} s; card vs CPU rel_l2 {rel:.3e} max_abs {mx:.3e} "
+        f"(limit rel_l2 {MDX_REL_TOL}, fp32 with TF32 off)")
+    if got.shape != track.shape or not np.isfinite(got).all() or not rel <= MDX_REL_TOL:
+        raise AssertionError(f"the ONNX runner on the card disagrees with the CPU: {rel:.3e}")
+
+
+def phase_trace(models, reset_counts, counts):
+    """18b. `device_trace` around one fast window-step of phase 17's
+    models: the exported Chrome trace names K2's and K5's kernels."""
+    import torch
+
+    from stableavatar_tpu_torch.models.dit import dit_forward
+    from stableavatar_tpu_torch.utils.profiling import device_trace
+
+    cfg = models.dit_cfg
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf16 = torch.bfloat16
+    x = torch.randn((3, 16, 21, 64, 64), generator=gen, device="cuda").to(bf16)
+    y = torch.randn((3, 20, 21, 64, 64), generator=gen, device="cuda").to(bf16)
+    text = torch.randn((3, cfg.text_len, cfg.text_dim), generator=gen, device="cuda").to(bf16)
+    clip = torch.randn((3, cfg.clip_tokens, cfg.clip_dim), generator=gen, device="cuda").to(bf16)
+    voc = torch.randn((1, 161, cfg.audio_in_dim), generator=gen, device="cuda")
+    t = torch.full((3,), 999.0, device="cuda")
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad(), device_trace(logdir):
+        dit_forward(models.dit_params, cfg, x, t, text, clip, y, voc, video_sample_n_frames=81,
+                    vocal_cfg_tile=True, rope_split=True, attn_quant="qk")
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_launches("traced window-step", counts(),
+                   {"flash_fwd_int8_qk": cfg.num_layers, "dual_context": cfg.num_layers})
+    (trace,) = os.listdir(logdir)
+    with open(os.path.join(logdir, trace)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = {"flash_fwd_kernel": 0, "dual_context_kernel": 0}
+    for e in kernels:
+        for k in names:
+            names[k] += k in e.get("name", "")
+    device_ms = sum(e.get("dur", 0) for e in kernels) / 1e3
+    log(f"  device_trace around one fast window-step: {wall:.2f} s, {len(events)} events, "
+        f"{len(kernels)} kernels ({device_ms:.1f} ms on the card), flash / dual-context "
+        f"kernels {names}, {os.path.getsize(os.path.join(logdir, trace)) / 1e6:.1f} MB")
+    if names != {"flash_fwd_kernel": cfg.num_layers, "dual_context_kernel": cfg.num_layers}:
+        raise AssertionError(f"the trace does not name the window-step's kernels: {names}")
+    shutil.rmtree(logdir, ignore_errors=True)
+
+
+def phase_scripts(reset_counts, counts):
+    """18c. The host scripts' mains: bench_decode_overlap, bench_dit_step
+    base and full, profile_step_parts and quality_curves --small, with exact
+    launch counts (none for the decode)."""
+    from stableavatar_tpu_torch.config import WAN_1_3B
+    from stableavatar_tpu_torch.scripts import (bench_decode_overlap, bench_dit_step,
+                                                profile_step_parts, quality_curves)
+
+    log("  bench_decode_overlap (512x512, 27 latents, 105 frames):")
+    reset_counts()
+    res = bench_decode_overlap.main([])
+    check_launches("decode overlap", counts(), {k: 0 for k in counts()})
+    if not res["equal"]:
+        raise AssertionError("the overlapped decode's frames differ from the monolithic one's")
+    log(f"  decode + copy: monolithic {res['monolithic_s']} s, overlapped "
+        f"{res['overlapped_s']} s")
+
+    log("  bench_dit_step base full --inner 2:")
+    reset_counts()
+    res = bench_dit_step.main(["base", "full", "--inner", "2"])
+    want = {}
+    for name, r in res.items():
+        for k, n in bench_dit_step.launches_per_forward(name, WAN_1_3B.num_layers).items():
+            want[k] = want.get(k, 0) + n * r["forwards"]
+    check_launches("bench_dit_step", counts(), want)
+
+    log("  profile_step_parts (the 512x512 window, 30 layers):")
+    reset_counts()
+    res = profile_step_parts.main([])
+    want_k1 = sum(r["calls"] * profile_step_parts.PARTS[k] for k, r in res.items())
+    check_launches("profile_step_parts", counts(), {"flash_fwd_bf16": want_k1})
+
+    log(f"  quality_curves --small --layers {QUALITY_LAYERS} (512x512, 2 windows):")
+    reset_counts()
+    res = quality_curves.main(["--small", "--layers", str(QUALITY_LAYERS)])
+    n = QUALITY_LAYERS * res["dit_forwards"]
+    check_launches("quality_curves", counts(), {"flash_fwd_int8_qk": n, "dual_context": n})
+    rows = res["solver_curve"] + res["teacache_frontier"]
+    if not all(r["psnr_latent"] > 0 for r in rows):
+        raise AssertionError(f"quality_curves rows without a PSNR: {rows}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2648,6 +2969,21 @@ def main() -> int:
     log("== remaining entry points: flash_attention(rope=) forward, with stats and under "
         "autograd, and the probe scripts' main")
     remaining = phase_remaining_paths()
+
+    # path 12, the serving app: counts set to 0 inside, just before each
+    # request; path 13, the tools and host scripts: before each
+    log("== app: load_models with umT5-xxl kept, AvatarService, build_ui, launch; over HTTP "
+        "Generate (1.3B, 512x512, 2 windows, euler 2 steps) and Separate; generate with "
+        "unipc, TeaCache, streaming")
+    service, app = phase_app(reset_counts, counts)
+    log("== tools: the ONNX runner (MDX topology, Kim_Vocal_2 geometry) card vs CPU, "
+        "device_trace, bench_decode_overlap, bench_dit_step, profile_step_parts, "
+        "quality_curves")
+    phase_mdx()
+    phase_trace(service.models, reset_counts, counts)
+    del service
+    torch.cuda.empty_cache()
+    phase_scripts(reset_counts, counts)
     launches = {**{k: inference[k] for k in INFERENCE_KERNELS},
                 **{k: cli[k] for k in CLI_KERNELS},
                 **{k: variants[k] for k in VARIANT_KERNELS},
@@ -2666,6 +3002,7 @@ def main() -> int:
             "launches": launches.get(name, 0), "max_abs_err": r.get("max_abs_err"),
             "ms": r.get("ms"), "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"), "library_ms": r.get("library_ms"),
+            **({"app_launches": app[name]} if name in app and app[name] else {}),
             **{k: r[k] for k in ("library_with_transpose_ms", "shapes", "k1_text_ms",
                                  "k1_image_ms", "sdpa_two_calls_and_add_ms", "out_of_kernel_ms")
                if k in r},

@@ -237,14 +237,16 @@ def _wav2vec(args, cfg, device, gen):
     return ckpt.to_device(ckpt.convert_wav2vec2(sd, cfg), device, torch.float32), cfg
 
 
-def load_models(args, device="cuda", timer=None) -> WanModels:
+def load_models(args, device="cuda", timer=None, keep_t5: bool = False) -> WanModels:
     """The model bundle on `device` (the card unless the caller asks for the
     CPU): each model from its checkpoint file when there is one (converted
     on the host, each leaf copied to the device once in its dtype), else
     random from a fixed seed.  T5 loads first: unless --GPU_memory_mode is
     model_full_load or --t5_cpu is set, the prompts are encoded right away
     (inside `timer`'s "text_encode" phase) and T5 is released before the
-    DiT loads.  Under sequential_cpu_offload the DiT's blocks go to pinned
+    DiT loads.  `keep_t5` keeps it loaded under every mode, for a caller
+    that encodes prompts later (the serving app: each request brings its
+    own): bf16 on the card, or fp32 on the host with --t5_cpu.  Under sequential_cpu_offload the DiT's blocks go to pinned
     host memory (`models/streaming.py:StreamedDiT`) and `dit_params` is None."""
     device = resolve_device(device)
     tiny = None
@@ -283,8 +285,8 @@ def load_models(args, device="cuda", timer=None) -> WanModels:
     tokenizer = build_tokenizer(args, root, t5_cfg)
     text_ctx = None
     memory_mode = getattr(args, "GPU_memory_mode", "model_full_load")
-    if not t5_cpu and (getattr(args, "offload_model", False)
-                       or memory_mode != "model_full_load"):
+    if not (t5_cpu or keep_t5) and (getattr(args, "offload_model", False)
+                                    or memory_mode != "model_full_load"):
         phase = (timer.follow(device).phase if timer is not None
                  else (lambda name: contextlib.nullcontext()))
         with phase("text_encode"):

@@ -51,6 +51,39 @@ from stableavatar_tpu_torch.train.trainer import TrainConfig
 # bytes a parameter holds while it trains: the bf16 weight and gradient and
 # AdamW's two fp32 moments (fp32 once the anomaly clip has scaled them)
 TRAIN_BYTES_PER_PARAM = 2 + 2 + 4 + 4
+# bytes an element of the one leaf that 8-bit Adam or CAME updates at a time
+# under fsdp holds in flight: the gathered bf16 gradient and parameter, the
+# fp32 update and about four fp32 temporaries of the update
+WHOLE_LEAF_UPDATE_BYTES = 2 + 2 + 4 + 16
+
+
+def train_bytes(leaves, fsdp: int, optimizer: str = "adamw") -> float:
+    """Bytes a card holds for the DiT's `leaves` while they train at
+    `--fsdp fsdp` with `optimizer` ("adamw", "adam8bit" or "came"): the
+    bf16 weights and gradients, a 1/fsdp slice of each, and the optimizer's
+    state.  AdamW's state is sliced too.  8-bit Adam's (bf16 first moment,
+    int8 second moment, one fp32 scale a row) and CAME's (fp32 first
+    moment, fp32 row and column statistics) stay whole on every rank
+    (`train/optim.py:whole_leaves`), and under fsdp the largest leaf is
+    gathered and updated whole.  Activations are not counted."""
+    total, largest = 0.0, 0
+    for p in leaves:
+        n, last = p.numel(), (p.shape[-1] if p.dim() else 1)
+        largest = max(largest, n)
+        if optimizer == "adamw":
+            total += TRAIN_BYTES_PER_PARAM * n / fsdp
+        elif optimizer == "adam8bit":
+            total += 4 * n / fsdp + 3 * n + 4 * (n // max(last, 1))
+        elif optimizer == "came":
+            # row and column statistics of the second moment and of the
+            # residual; a vector's second moment is unfactored
+            stats = 2 * (n // last + n // p.shape[-2]) if p.dim() >= 2 else n
+            total += 4 * n / fsdp + 4 * n + 4 * stats
+        else:
+            raise ValueError(f"unknown optimizer {optimizer!r}")
+    if optimizer != "adamw" and fsdp > 1:
+        total += WHOLE_LEAF_UPDATE_BYTES * largest
+    return total
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -223,20 +256,29 @@ def validation_config(args, models):
             "negative_prompt_ids": models.tokenizer("")}
 
 
-def _check_fits(params, fsdp: int, device) -> None:
-    """Refuse a DiT whose weights, gradients and AdamW state would not fit
-    the card (14B on one card) before the first step runs out of memory."""
+def optimizer_name(args) -> str:
+    """The optimizer `trainer.make_optimizer` builds for these flags."""
+    return "came" if args.use_came else "adam8bit" if args.use_8bit_adam else "adamw"
+
+
+def _check_fits(params, fsdp: int, device, optimizer: str = "adamw") -> None:
+    """Refuse a DiT whose weights, gradients and optimizer state
+    (`train_bytes`) would not fit the card (14B on one card) before the
+    first step runs out of memory."""
     device = torch.device(device)
     if device.type != "cuda":
         return
     from stableavatar_tpu_torch.utils.tree import tree_leaves
 
-    need = TRAIN_BYTES_PER_PARAM * sum(p.numel() for p in tree_leaves(params)) / fsdp
+    need = train_bytes(tree_leaves(params), fsdp, optimizer)
     have = torch.cuda.get_device_properties(device).total_memory
     if need > have:
+        hint = ("raise --fsdp" if optimizer == "adamw" else
+                "raise --fsdp, or use AdamW, whose state fsdp splits: this optimizer's "
+                "state stays whole on every card")
         raise ValueError(f"training this DiT needs {need / 2**30:.1f} GiB a card for weights, "
-                         f"gradients and AdamW state at --fsdp {fsdp}, the card has "
-                         f"{have / 2**30:.1f} GiB: raise --fsdp")
+                         f"gradients and {optimizer} state at --fsdp {fsdp}, the card has "
+                         f"{have / 2**30:.1f} GiB: {hint}")
 
 
 def main(argv=None, device="cuda") -> int:
@@ -258,7 +300,7 @@ def run(args, device) -> None:
     args.t5_cpu = bool(args.low_vram)
     mesh = build_mesh(args, device)
     models = load_models(args, device)
-    _check_fits(models.dit_params, args.fsdp, device)
+    _check_fits(models.dit_params, args.fsdp, device, optimizer_name(args))
 
     if args.scale_lr:
         args.learning_rate = (args.learning_rate * args.gradient_accumulation_steps

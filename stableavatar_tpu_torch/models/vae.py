@@ -348,21 +348,63 @@ def decode_video(params, z, cfg, frames_per_step: Optional[int] = None):
     return frames
 
 
-def decode_video_segmented(params, z, cfg, segment_latents: Optional[int] = None,
-                           frames_per_step: Optional[int] = None, out_uint8: bool = False):
-    """Segmented streaming decode: a list of [B, 3, Ts, H, W] segments (uint8
-    display frames when `out_uint8`) with the conv caches carried across
-    segments; their concatenation equals `decode_video`."""
+def _decode_segments(params, z, cfg, segment_latents: Optional[int] = None,
+                     frames_per_step: Optional[int] = None, out_uint8: bool = False):
+    """Yield the segments of the streaming decode on z's device, each as
+    soon as its work is enqueued, the conv caches carried across."""
     tl, lh, lw = z.shape[2], z.shape[3], z.shape[4]
     if frames_per_step is None:
         frames_per_step = _default_frames_per_step(lh, lw)
     if segment_latents is None:
         segment_latents = max(2 * frames_per_step, 4)
-    outs, caches, s = [], None, 0
+    caches, s = None, 0
     while s < tl:
         n = min(segment_latents, tl - s)
-        frames, caches = _decode_segment(params, z[:, :, s : s + n], caches, cfg,
-                                         frames_per_step, first=(s == 0), out_uint8=out_uint8)
-        outs.append(frames)
+        with torch.no_grad():
+            frames, caches = _decode_segment(params, z[:, :, s : s + n], caches, cfg,
+                                             frames_per_step, first=(s == 0),
+                                             out_uint8=out_uint8)
+        yield frames
         s += n
-    return outs
+
+
+def decode_video_segments(params, z, cfg, segment_latents: Optional[int] = None,
+                          frames_per_step: Optional[int] = None, out_uint8: bool = False):
+    """Segmented streaming decode: yields the [B, 3, Ts, H, W] segments
+    (uint8 display frames when `out_uint8`) in order as host tensors, with
+    the conv caches carried across segments; their concatenation equals
+    `decode_video`.
+
+    On the card each segment's copy into pinned host memory is enqueued
+    right behind its decode, and the segment is handed over only once the
+    decode of the next one is enqueued: the host takes segment k (a frame
+    sink, the concatenation) while the card decodes k+1, as the JAX
+    pipeline does through async dispatch (`pipelines/long.py:701-714`).
+    The copies run on the decode's stream, so the allocator's order keeps
+    every device segment alive until its copy is done."""
+    held = None
+    for frames in _decode_segments(params, z, cfg, segment_latents, frames_per_step,
+                                   out_uint8):
+        copied = None
+        if frames.is_cuda:
+            frames = frames.to("cpu", non_blocking=True)  # into pinned memory
+            copied = torch.cuda.Event()
+            copied.record()
+        if held is not None:
+            yield _handed_over(*held)
+        held = (frames, copied)
+    if held is not None:
+        yield _handed_over(*held)
+
+
+def decode_video_segmented(params, z, cfg, segment_latents: Optional[int] = None,
+                           frames_per_step: Optional[int] = None, out_uint8: bool = False):
+    """The segments of `decode_video_segments` as a list."""
+    return list(decode_video_segments(params, z, cfg, segment_latents, frames_per_step,
+                                      out_uint8))
+
+
+def _handed_over(host: torch.Tensor, copied) -> torch.Tensor:
+    if copied is not None:
+        copied.synchronize()
+    return host

@@ -23,13 +23,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from stableavatar_tpu_torch.models.dit import dit_forward, dit_forward_skip, dit_time_e0
-from stableavatar_tpu_torch.models.vae import decode_video_segmented
+from stableavatar_tpu_torch.models.vae import decode_video_segments
 from stableavatar_tpu_torch.pipelines.common import (
     WanModels,
     encode_prompts,
@@ -338,10 +339,16 @@ def generate_long(
         if output_type == "latent":
             return LongPipelineOutput(videos=None, latents=latents)
 
-        # decode in bf16, uint8 on the device (4x fewer bytes to the host)
+        # decode in bf16, uint8 on the device (4x fewer bytes to the host).
+        # The phase ends when the first segment is on the host (the card
+        # has decoded two: the first and the one enqueued behind it); the
+        # rest decode while the host takes each segment, under
+        # "video_transfer" (models/vae.py:decode_video_segments)
         with phase("vae_decode"):
-            segs_u8 = decode_video_segmented(models.vae_params, latents_all.to(torch.bfloat16),
-                                             vae_cfg, out_uint8=True)
+            segs = decode_video_segments(models.vae_params, latents_all.to(torch.bfloat16),
+                                         vae_cfg, out_uint8=True)
+            first = next(segs)
+        segs_u8 = itertools.chain([first], segs)
 
     def correct(video: np.ndarray) -> np.ndarray:
         # opt-in LAB match of the decoded frames to the reference image
@@ -357,12 +364,12 @@ def generate_long(
         # host memory stays O(segment)
         with phase("video_transfer"):
             for seg in segs_u8:
-                seg = seg.cpu().numpy()
+                seg = seg.numpy()
                 if color_correction_strength > 0.0:
                     seg = (correct(seg.astype(np.float32) / 255.0) * 255.0).round().astype(np.uint8)
                 frame_sink(seg)
         return LongPipelineOutput(videos=None, latents=latents)
 
     with phase("video_transfer"):
-        video = torch.cat(segs_u8, dim=2).cpu().numpy().astype(np.float32) / 255.0
+        video = torch.cat(list(segs_u8), dim=2).numpy().astype(np.float32) / 255.0
     return LongPipelineOutput(videos=correct(video), latents=latents)

@@ -3,6 +3,8 @@ analog (port of `stableavatar_tpu/train/adam8bit.py`).
 
 The second moment nu is stored as int8 with one fp32 absmax scale per
 last-axis row and dequantised inside the update; the first moment is bf16.
+Under fsdp the moments see whole parameters (`optim.whole_leaves`): a row
+that the split cuts would get another scale.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from stableavatar_tpu_torch.train.optim import (
     add_decayed_weights,
     chain,
     scale,
+    whole_leaves,
 )
 
 
@@ -55,5 +58,5 @@ def scale_by_adam8bit(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-10):
 
 def adamw8bit(learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-10,
               weight_decay: float = 3e-2) -> GradientTransformation:
-    return chain(scale_by_adam8bit(b1, b2, eps), add_decayed_weights(weight_decay),
-                 scale(-learning_rate))
+    return chain(whole_leaves(scale_by_adam8bit(b1, b2, eps)),
+                 add_decayed_weights(weight_decay), scale(-learning_rate))

@@ -8,7 +8,9 @@ Luo et al. 2023), port of `stableavatar_tpu/train/came.py`.
    the update is m / sqrt(confidence).
 
 Parameters with fewer than 2 axes use an unfactored second moment and skip
-the confidence step (as came_pytorch does).
+the confidence step (as came_pytorch does).  Under fsdp the update sees
+whole parameters (`optim.whole_leaves`): the row and column means, and the
+RMS clip, are over the whole leaf.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Tuple
 
 import torch
 
-from stableavatar_tpu_torch.train.optim import GradientTransformation
+from stableavatar_tpu_torch.train.optim import GradientTransformation, whole_leaves
 
 
 def _factored(shape) -> bool:
@@ -92,4 +94,5 @@ def came(learning_rate, betas: Tuple[float, float, float] = (0.9, 0.999, 0.9999)
                            "res_col": res_col})
         return deltas, {"count": state["count"] + 1, "leaves": leaves}
 
-    return GradientTransformation(init, update)
+    # the parameters give the deltas their dtype (and the weight decay)
+    return whole_leaves(GradientTransformation(init, update), with_params=True)

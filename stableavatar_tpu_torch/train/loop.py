@@ -33,9 +33,10 @@ from stableavatar_tpu_torch.models.clip import clip_visual_forward, preprocess_r
 from stableavatar_tpu_torch.models.vae import encode_video_sample
 from stableavatar_tpu_torch.models.wav2vec import normalize_waveform, wav2vec2_forward
 from stableavatar_tpu_torch.parallel.distributed import replica_rows
-from stableavatar_tpu_torch.parallel.mesh import axis_size, current_mesh
+from stableavatar_tpu_torch.parallel.mesh import axis_group, axis_size, current_mesh
 from stableavatar_tpu_torch.parallel.sharding import leaf_specs, shard_like, shard_params, unshard
 from stableavatar_tpu_torch.pipelines.common import WanModels, encode_prompt_ids, resolve_device
+from stableavatar_tpu_torch.train import optim
 from stableavatar_tpu_torch.train.trainer import (
     TrainConfig,
     lr_multiplier_schedule,
@@ -178,9 +179,11 @@ def _to_host(x):
 def map_leaf_lists(state, leaves, fn, other=lambda x: x):
     """`fn(x, i)` on every per-leaf entry of an optimizer state -- the lists
     as long as the parameter list whose tensors have the shapes of `leaves`
-    (Adam's moments, the accumulator) -- and `other` on the rest."""
+    (Adam's moments, the accumulator) -- and `other` on the rest, the
+    replicated state of `optim.whole_leaves` included."""
     if isinstance(state, dict):
-        return {k: map_leaf_lists(v, leaves, fn, other) for k, v in state.items()}
+        return {k: tree_map(other, v) if k == optim.REPLICATED
+                else map_leaf_lists(v, leaves, fn, other) for k, v in state.items()}
     if isinstance(state, (list, tuple)):
         if len(state) == len(leaves) and all(
                 torch.is_tensor(x) and x.shape == p.shape for x, p in zip(state, leaves)):
@@ -312,7 +315,7 @@ def log_validation(models: WanModels, validation_cfg: dict, output_dir: str, ste
     returns the path written.  In a process group every rank generates (the
     mesh's collectives) and rank 0 alone writes; the others return None."""
     from stableavatar_tpu_torch.pipelines.single_clip import generate_single_clip
-    from stableavatar_tpu_torch.utils.video_io import save_videos_grid, to_uint8
+    from stableavatar_tpu_torch.utils.video_io import save_videos_grid
 
     out = generate_single_clip(
         models,
@@ -328,19 +331,7 @@ def log_validation(models: WanModels, validation_cfg: dict, output_dir: str, ste
     if not _is_writer():
         return None
     path = os.path.join(output_dir, f"validation_step{step}.mp4")
-    try:
-        import imageio  # noqa: F401  (save_videos_grid's writer)
-    except ImportError:
-        # a host without imageio: the PNG frames save_videos_grid writes
-        # without an ffmpeg backend, through PIL
-        from PIL import Image
-
-        stem = os.path.splitext(path)[0]
-        os.makedirs(stem, exist_ok=True)
-        for i, frame in enumerate(to_uint8(out.videos)):
-            Image.fromarray(frame).save(os.path.join(stem, f"frame_{i:06d}.png"))
-        print(f"[stableavatar] no imageio - wrote the validation frames to {stem}/")
-        return stem
+    # a PNG frame directory without an ffmpeg backend or imageio
     return save_videos_grid(out.videos, path, fps=validation_cfg.get("fps", 25)) or path
 
 
@@ -364,14 +355,14 @@ def train(models: WanModels, batches: Iterable[dict], train_cfg: TrainConfig, *,
     device = resolve_device(models.device)
     mesh = current_mesh()
     writer = _is_writer()
-    if axis_size("fsdp") > 1 and (train_cfg.use_8bit_adam or train_cfg.use_came):
-        # both reduce over a parameter's rows or columns, which fsdp splits
-        raise NotImplementedError("8-bit Adam and CAME under fsdp > 1: the port shards "
-                                  "AdamW's state only; use dp / sp, or AdamW")
     os.makedirs(output_dir, exist_ok=True)
     tx = make_optimizer(train_cfg)
     params = models.dit_params
-    opt_state = tx.init(tree_leaves(params))
+    # under fsdp, 8-bit Adam's and CAME's state is made at the full shapes
+    # (optim.whole_leaves), AdamW's at this rank's slices
+    with optim.sharded_leaves(leaf_specs(params) if mesh is not None else (),
+                              axis_group("fsdp") if axis_size("fsdp") > 1 else None):
+        opt_state = tx.init(tree_leaves(params))
     step = 0
 
     cm = CheckpointManager(output_dir, checkpoints_total_limit, writer=writer)

@@ -15,7 +15,9 @@ hold the old and new moments and both bias-corrected copies at once.
 Under fsdp the lists hold this rank's slices of the split parameters
 (`parallel/sharding.py`); every transform but the global norm works
 element by element, and `global_norm` sums the squares of the slices over
-the fsdp group inside `sharded_leaves`.
+the fsdp group inside `sharded_leaves`.  A transform that reduces over a
+parameter's rows or columns (8-bit Adam's per-row scales, CAME's factored
+moments) runs inside `whole_leaves`, which gives it the whole leaves.
 """
 
 from __future__ import annotations
@@ -27,18 +29,22 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from stableavatar_tpu_torch.parallel.mesh import all_gather_dim0
 from stableavatar_tpu_torch.utils.tree import tree_map
 
-# (flags, group) of the leaf lists in flight: which leaves are this rank's
-# slices of a parameter split over 'fsdp', and that axis's group
+# (specs, group) of the leaf lists in flight: per leaf its `Shard` where it
+# is this rank's slice of a parameter split over 'fsdp' (else None), and
+# that axis's group
 _SHARDED: contextvars.ContextVar = contextvars.ContextVar("stableavatar_torch_sharded_leaves",
                                                           default=None)
 
 
 @contextlib.contextmanager
-def sharded_leaves(flags: Sequence[bool], group: Optional[dist.ProcessGroup]):
+def sharded_leaves(flags: Sequence, group: Optional[dist.ProcessGroup]):
     """Inside, `global_norm` of a leaf list takes the leaves flagged as
-    slices of a parameter split over `group` (the fsdp group)."""
+    slices of a parameter split over `group` (the fsdp group): a flag is
+    the leaf's `parallel/sharding.py:Shard` (`parallel/sharding.py:leaf_specs`),
+    None for a replicated leaf."""
     token = _SHARDED.set((tuple(flags), group) if group is not None and any(flags) else None)
     try:
         yield
@@ -172,7 +178,9 @@ def masked(inner: GradientTransformation, mask: Sequence[bool]) -> GradientTrans
         return None if xs is None else [xs[i] for i in idx]
 
     def init(params):
-        return {"inner": inner.init(pick(params))}
+        flags, group = _SHARDED.get() or (None, None)
+        with sharded_leaves(pick(flags) or (), group):
+            return {"inner": inner.init(pick(params))}
 
     def update(updates, state, params=None):
         flags, group = _SHARDED.get() or (None, None)
@@ -182,6 +190,110 @@ def masked(inner: GradientTransformation, mask: Sequence[bool]) -> GradientTrans
         for j, i in enumerate(idx):
             out[i] = sub[j]
         return out, {"inner": inner_state}
+
+    return GradientTransformation(init, update)
+
+
+# the key of `whole_leaves`'s state: full tensors, the same on every rank,
+# which checkpoints neither gather nor split (`train/loop.py:map_leaf_lists`)
+REPLICATED = "replicated"
+
+
+def _whole(x: torch.Tensor, spec, group) -> torch.Tensor:
+    """The full tensor of this rank's slice `x` of the leaf split as `spec`."""
+    if x.device.type == "meta":
+        return torch.empty(spec.shape, dtype=x.dtype, device="meta")
+    full = all_gather_dim0(x, group)
+    return full if spec.axis == 0 else full.movedim(0, spec.axis).contiguous()
+
+
+def _part(x: torch.Tensor, spec, group) -> torch.Tensor:
+    """This rank's slice of the full tensor `x`, laid out as its Shard, in
+    memory of its own (the full tensor can be freed)."""
+    n = 1 if x.device.type == "meta" else dist.get_world_size(group)
+    r = 0 if x.device.type == "meta" else dist.get_rank(group)
+    return x.movedim(spec.axis, 0).chunk(n, dim=0)[r].clone(
+        memory_format=torch.contiguous_format)
+
+
+def _leaf_state(state, n: int, i: int):
+    """Leaf i's view of an inner state over n leaves: its entry of every
+    per-leaf list (a list n long), the rest (the step count) as it is."""
+    if isinstance(state, dict):
+        return {k: _leaf_state(v, n, i) for k, v in state.items()}
+    if isinstance(state, list) and len(state) == n:
+        return [state[i]]
+    return state
+
+
+def _join_states(template, parts, n: int):
+    """The inner state over n leaves from the per-leaf states `parts`
+    (each from `_leaf_state` through one update): the per-leaf lists
+    joined, the rest (the step count, the same in every part) from the
+    last part."""
+    if isinstance(template, dict):
+        return {k: _join_states(v, [p[k] for p in parts], n) for k, v in template.items()}
+    if isinstance(template, list) and len(template) == n:
+        return [p[0] for p in parts]
+    return parts[-1]
+
+
+def whole_leaves(inner: GradientTransformation,
+                 with_params: bool = False) -> GradientTransformation:
+    """`inner` on whole leaves under fsdp.  Inside `sharded_leaves` `inner`
+    updates one leaf at a time: a leaf that is a slice (its flag a `Shard`)
+    is all-gathered over the fsdp group -- its update, and its parameter
+    when `with_params` -- updated whole, and each rank keeps its slice of
+    the result; outside, `inner` runs as it is.  For transforms that reduce
+    over a parameter's rows, columns or blocks, which the fsdp split would
+    cut: 8-bit Adam (one scale per row), CAME (row and column moments);
+    both update each leaf on its own, so a leaf at a time gives the same
+    numbers.
+
+    The state, `{"replicated": inner's state}`, holds full tensors, the same
+    on every rank.  Memory per rank: the state whole instead of a 1/fsdp
+    slice (8-bit Adam: bf16 mu + int8 nu, 3 bytes a parameter, plus one fp32
+    scale a row; CAME: an fp32 first moment, 4 bytes a parameter, plus its
+    factored rows and columns), and during the update the gathered
+    gradient, parameter and fp32 update of the one leaf in flight
+    (`cli/train.py:train_bytes` counts both)."""
+
+    def init(params):
+        sharded = _SHARDED.get()
+        if sharded is not None:
+            specs, _ = sharded
+            # the full shapes as zero-stride views: no memory of their own
+            params = [p if not s else p.new_empty(()).expand(s.shape)
+                      for p, s in zip(params, specs)]
+        token = _SHARDED.set(None)
+        try:
+            return {REPLICATED: inner.init(params)}
+        finally:
+            _SHARDED.reset(token)
+
+    def update(updates, state, params=None):
+        sharded = _SHARDED.get()
+        if sharded is None:
+            out, new = inner.update(updates, state[REPLICATED], params)
+            return out, {REPLICATED: new}
+        specs, group = sharded
+        n, outs, parts = len(updates), [], []
+        if n == 0:
+            return [], state
+        token = _SHARDED.set(None)
+        try:
+            for i, (g, spec) in enumerate(zip(updates, specs)):
+                p = params[i] if with_params and params is not None else None
+                if spec:
+                    g = _whole(g, spec, group)
+                    p = None if p is None else _whole(p, spec, group)
+                out, part = inner.update([g], _leaf_state(state[REPLICATED], n, i),
+                                         None if p is None else [p])
+                outs.append(_part(out[0], spec, group) if spec else out[0])
+                parts.append(part)
+        finally:
+            _SHARDED.reset(token)
+        return outs, {REPLICATED: _join_states(state[REPLICATED], parts, n)}
 
     return GradientTransformation(init, update)
 

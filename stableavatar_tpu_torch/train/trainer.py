@@ -273,13 +273,13 @@ def train_step(params, opt_state, batch: dict, generator: Optional[torch.Generat
             p.requires_grad_(False)
     del pred
     loss = loss.detach()
-    flags = [spec is not None for spec in leaf_specs(params)] if mesh is not None else []
+    specs = leaf_specs(params) if mesh is not None else []
     if mesh is not None:
-        sync_gradients(grads, flags, mesh)
+        sync_gradients(grads, [s is not None for s in specs], mesh)
         loss = loss * share
         if axis_size("dp", mesh) > 1:
             torch.distributed.all_reduce(loss, group=axis_group("dp", mesh))
-    with optim.sharded_leaves(flags, axis_group("fsdp", mesh) if axis_size("fsdp", mesh) > 1
+    with optim.sharded_leaves(specs, axis_group("fsdp", mesh) if axis_size("fsdp", mesh) > 1
                               else None):
         gnorm = optim.global_norm(grads)
         updates, opt_state = tx.update(grads, opt_state, leaves)

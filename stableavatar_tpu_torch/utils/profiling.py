@@ -1,15 +1,19 @@
-"""Per-phase wall timing (port of `stableavatar_tpu/utils/profiling.py:StepTimer`).
+"""Per-phase wall timing and device traces (port of
+`stableavatar_tpu/utils/profiling.py`).
 
-On a CUDA device each phase ends with `torch.cuda.synchronize()`, so the
-recorded wall time covers the device work the phase enqueued.
+`StepTimer`: on a CUDA device each phase ends with `torch.cuda.synchronize()`,
+so the recorded wall time covers the device work the phase enqueued.
+`device_trace`: a `torch.profiler` trace exported for chrome://tracing or
+Perfetto (where the JAX package writes an xprof trace).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -46,3 +50,24 @@ class StepTimer:
             k: {"total_s": sum(v), "count": len(v), "mean_s": sum(v) / len(v)}
             for k, v in self.history.items()
         }
+
+
+@contextlib.contextmanager
+def device_trace(logdir: Optional[str]):
+    """Trace the enclosed work with `torch.profiler` -- CPU activity, and
+    CUDA activity (every kernel launched, with its name) when the card is
+    there -- and export it as a Chrome trace `trace_<pid>_<ns>.json` into
+    `logdir`.  Without `logdir` it does nothing.  Yields the profiler (None
+    without `logdir`)."""
+    if not logdir:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

@@ -3,6 +3,11 @@ held equal by tests/test_torch_utils.py): `to_uint8`, `save_videos_grid`
 (imageio mp4 / gif, or a PNG frame directory without an ffmpeg backend) and
 `StreamingVideoWriter` for unbounded-length output.  PIL, imageio and
 ffmpeg are imported or called only when a function needs them.
+
+One departure from the copy: the PNG frame directory is written through
+PIL (`_write_png`), and a host without imageio takes it as it takes a
+host without an ffmpeg backend, so a machine with neither still gets its
+frames.
 """
 
 from __future__ import annotations
@@ -22,27 +27,37 @@ def to_uint8(video: np.ndarray) -> np.ndarray:
     return v.reshape(t, h, b * w, c)
 
 
+def _write_png(path: str, frame: np.ndarray) -> None:
+    """One [H, W, 3] uint8 frame of the PNG fallback."""
+    from PIL import Image
+
+    Image.fromarray(frame).save(path)
+
+
 def save_videos_grid(video: np.ndarray, path: str, fps: int = 25) -> str:
     """video [B, C, T, H, W] in [0, 1] -> mp4/gif on disk.
 
-    Returns the path actually written: with no ffmpeg backend available the
-    fallback writes per-frame PNGs into a directory named after the target
-    (and that directory path is returned so callers report the truth)."""
+    Returns the path actually written: with no ffmpeg backend available (or
+    no imageio) the fallback writes per-frame PNGs into a directory named
+    after the target (and that directory path is returned so callers report
+    the truth)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     frames = to_uint8(video)
-    import imageio
-
     if path.endswith(".gif"):
+        import imageio
+
         imageio.mimsave(path, list(frames), fps=fps)
         return path
     try:
+        import imageio
+
         writer = imageio.get_writer(path, fps=fps, codec="libx264", quality=8)
     except Exception:
         # no ffmpeg backend: fall back to per-frame PNGs next to the target
         stem = os.path.splitext(path)[0]
         os.makedirs(stem, exist_ok=True)
         for i, fr in enumerate(frames):
-            imageio.imwrite(os.path.join(stem, f"frame_{i:06d}.png"), fr)
+            _write_png(os.path.join(stem, f"frame_{i:06d}.png"), fr)
         print(f"[stableavatar-tpu] no ffmpeg video backend - wrote "
               f"{len(frames)} PNG frames to {stem}/ instead of {path}")
         return stem
@@ -129,9 +144,9 @@ class StreamingVideoWriter:
             return
         if self._start_ffmpeg(h, w):
             return
-        import imageio
-
         try:
+            import imageio
+
             self._writer = imageio.get_writer(
                 self._path, fps=self._fps, codec="libx264", quality=8
             )
@@ -156,8 +171,6 @@ class StreamingVideoWriter:
                 f"{self._dims}; a StreamingVideoWriter is fixed-geometry"
             )
         self._ensure_writer(h, b * w)
-        import imageio
-
         for fr in frames:
             if self._proc is not None:
                 try:
@@ -167,9 +180,8 @@ class StreamingVideoWriter:
             elif self._writer is not None:
                 self._writer.append_data(fr)
             else:
-                imageio.imwrite(
-                    os.path.join(self._png_dir,
-                                 f"frame_{self.frames_written:06d}.png"), fr)
+                _write_png(os.path.join(self._png_dir,
+                                        f"frame_{self.frames_written:06d}.png"), fr)
             self.frames_written += 1
 
     def abort(self) -> None:

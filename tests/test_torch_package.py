@@ -67,6 +67,20 @@ def test_import_check_covers_the_training_entry_point():
             "stableavatar_tpu_torch.utils.lora"} <= set(_modules())
 
 
+def test_import_check_covers_the_app_and_the_tools():
+    """... and the serving app, its gradio shim, the ONNX runner, the
+    preprocessing tools and the host scripts."""
+    assert {"stableavatar_tpu_torch.cli.app", "stableavatar_tpu_torch.utils.gradio_shim",
+            "stableavatar_tpu_torch.utils.onnx_runner",
+            "stableavatar_tpu_torch.preprocess.audio_extractor",
+            "stableavatar_tpu_torch.preprocess.lip_mask_extractor",
+            "stableavatar_tpu_torch.preprocess.vocal_separator",
+            "stableavatar_tpu_torch.scripts.bench_decode_overlap",
+            "stableavatar_tpu_torch.scripts.bench_dit_step",
+            "stableavatar_tpu_torch.scripts.profile_step_parts",
+            "stableavatar_tpu_torch.scripts.quality_curves"} <= set(_modules())
+
+
 def test_no_source_line_imports_jax():
     pattern = re.compile(r"^\s*(import jax|from jax|import stableavatar_tpu\b(?!_torch)"
                          r"|from stableavatar_tpu\b(?!_torch))")

@@ -14,7 +14,10 @@ int8 ring, whose slab scales are per chunk, at rel-L2 2e-2.  The token
 count of every DiT case (3 latent frames of 16 tokens) splits a latent frame
 between ranks.  One fp32 train step on each dp x fsdp x sp mesh equals the
 one-process step on the same global batch and draws at rel-L2 1e-5 (a
-reordered fp32 sum): loss, gradient norm and updated parameters.
+reordered fp32 sum): loss, gradient norm and updated parameters; so does
+one step of `train()` with 8-bit Adam and with CAME, whose updates see the
+whole leaves under fsdp (`train/optim.py:whole_leaves`), at fsdp 2 (a spawn
+of 2 ranks) and dp 2 x fsdp 2 (in the world-4 spawn).
 """
 
 import dataclasses
@@ -169,6 +172,7 @@ def _pipeline_kwargs(cfg):
 def world4_cases(rank):
     sharding._MIN_SHARD_SIZE = 16  # split the tiny matrices too
     res = train_cases(rank)
+    res.update(optimizer_cases(2, 2))
     # ring attention over 4 ranks, fp32, quant="none"
     mesh = make_mesh(1, 1, 4, device_type="cpu")
     w = RING_SHAPE[1] // 4
@@ -310,6 +314,125 @@ def train_cases(rank):
     return res
 
 
+# the optimizers whose update reduces over a parameter's rows or columns
+OPTIMIZERS = {"adam8bit": dict(use_8bit_adam=True), "came": dict(use_came=True)}
+# name: (dp, fsdp, global batch)
+OPTIMIZER_MESHES = {"fsdp2": (1, 2, 1), "dp2-fsdp2": (2, 2, 2)}
+
+
+def _raw_batch(cfg, b):
+    """One raw batch of `b` clips (9 frames at 32 x 32) for `train()`, with
+    the prompt embeddings given (no T5)."""
+    rng = np.random.default_rng(11)
+    frames, size = 9, 32
+    pixels = rng.uniform(-1, 1, (b, 3, frames, size, size)).astype(np.float32)
+    masks = np.zeros((b, frames, 1, size, size), np.float32)
+    masks[:, 1:] = 1.0
+    return {
+        "pixel_values": pixels,
+        "masked_pixel_values": pixels * (1 - masks.transpose(0, 2, 1, 3, 4)),
+        "pixel_value_masks": masks,
+        "reference_image": pixels[:, :, 0:1],
+        "tgt_face_masks": rng.uniform(0, 1, (b, 1, frames, size, size)).astype(np.float32),
+        "tgt_lip_masks": np.ones((b, 1, frames, size, size), np.float32),
+        "vocal_input_values": rng.standard_normal((b, frames * 640)).astype(np.float32) * 0.1,
+        "prompt_embeds": rng.standard_normal((b, cfg.text_len, cfg.text_dim)).astype(np.float32),
+    }
+
+
+def _zero_gradient_leaves(params) -> list:
+    """Per leaf (`tree_leaves` order): whether it is an attention key bias,
+    whose gradient is 0 in exact arithmetic (softmax ignores a shift that
+    every key shares).  Its computed gradient is rounding noise, which
+    CAME's first step (g / sqrt(g^2 + 1e-30), RMS-clipped) turns into an
+    update of about lr with the noise's sign, whatever the noise's size."""
+    from stableavatar_tpu_torch.utils.tree import tree_paths
+
+    return [p.rsplit("/", 2)[-2:] in (["k", "b"], ["k_img", "b"], ["k_vocal", "b"])
+            for p, _ in tree_paths(params)]
+
+
+def _train_loop_step(models, batch, optimizer, out_dir, init):
+    """One fp32 step of `train()` with `optimizer` from the parameters
+    `init` (a full tree; `models` holds them, or this rank's slices): (loss,
+    gradient norm, params, opt_state, the zero-gradient leaves' largest
+    update), params and opt_state gathered to full tensors and flattened
+    without the zero-gradient leaves (`_zero_gradient_leaves`)."""
+    from stableavatar_tpu_torch.train import trainer
+    from stableavatar_tpu_torch.train.loop import host_state, train
+    from stableavatar_tpu_torch.utils.tree import tree_leaves
+
+    trainer.DIT_DTYPE = torch.float32
+    # 8-bit Adam's first step divides by sqrt(nu) + eps: eps sits above the
+    # gradients' rounding noise, as in `_train_step`
+    tc = trainer.TrainConfig(learning_rate=1e-3, adam_eps=1e-6, video_sample_n_frames=9,
+                             **OPTIMIZERS[optimizer])
+    metrics = {}
+    params, state, _ = train(models, iter([batch]), tc, output_dir=out_dir, max_train_steps=1,
+                             checkpointing_steps=100, resume_from_checkpoint=None, log_every=1,
+                             seed=3, step_callback=lambda s, p, m: metrics.update(m))
+    full, full_state = host_state(params, state)
+    leaves, noise = tree_leaves(full), _zero_gradient_leaves(init)
+
+    def keep(tree):
+        # the per-leaf lists (parameters, moments) without the noise leaves
+        if isinstance(tree, dict):
+            return {k: keep(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            if len(tree) == len(leaves):
+                return [x for x, z in zip(tree, noise) if not z]
+            return [keep(v) for v in tree]
+        return tree
+
+    noise_step = max(float((x - y).abs().max())
+                     for x, y, z in zip(leaves, tree_leaves(init), noise) if z)
+    return (float(metrics["loss"]), float(metrics["grad_norm"]), _flat(keep(leaves)),
+            _flat(_dequantized(keep(full_state))), noise_step)
+
+
+def _dequantized(tree):
+    """8-bit Adam's int8 moments ({"q", "scale"}) as the values they hold:
+    a gradient's last-bit difference may flip an int8 rounding, which moves
+    the value by one step of its row's scale."""
+    if isinstance(tree, dict):
+        if set(tree) == {"q", "scale"}:
+            return tree["q"].float() * tree["scale"]
+        return {k: _dequantized(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_dequantized(v) for v in tree]
+    return tree
+
+
+def optimizer_cases(dp, fsdp):
+    """Each optimizer of OPTIMIZERS through `train()` on the dp x fsdp mesh
+    of OPTIMIZER_MESHES over this group, against the one-process run."""
+    import copy
+
+    cfg, params, _, _ = _tiny_dit()
+    name = next(k for k, v in OPTIMIZER_MESHES.items() if v[:2] == (dp, fsdp))
+    batch = _raw_batch(cfg, OPTIMIZER_MESHES[name][2])
+    base = os.path.join(os.environ["SA_TEST_DIR"], f"opt-{name}")
+    res = {}
+    for opt in OPTIMIZERS:
+        models = _tiny_models(copy.deepcopy(params), cfg)
+        want = _train_loop_step(models, batch, opt, os.path.join(base, opt, "one"), params)
+        mesh = make_mesh(dp, fsdp, 1, device_type="cpu")
+        with mesh_context(mesh):
+            models = _tiny_models(shard_params(copy.deepcopy(params), mesh), cfg)
+            n_shards = sum(s is not None for s in leaf_specs(models.dit_params))
+            got = _train_loop_step(models, batch, opt, os.path.join(base, opt, "mesh"),
+                                   params)
+        kept = [x for x, z in zip(_flat_list(params), _zero_gradient_leaves(params)) if not z]
+        res["optimizer", opt, name] = dict(want=want, got=got, n_shards=n_shards,
+                                           init=_flat(kept))
+    return res
+
+
+def fsdp2_optimizer_cases(rank):
+    sharding._MIN_SHARD_SIZE = 16
+    return optimizer_cases(1, 2)
+
+
 def _flat_list(tree):
     from stableavatar_tpu_torch.utils.tree import tree_leaves
 
@@ -427,6 +550,46 @@ def test_sharded_train_step_matches_one_process(world4, case):
     assert _rel(got_p, want_p) <= 1e-5
     assert got_s.shape == want_s.shape and _rel(got_s, want_s) <= 1e-5
     assert (r["n_shards"] > 0) == (TRAIN_CASES[case][1] > 1)
+
+
+@pytest.fixture(scope="module")
+def fsdp2_optimizers(tmp_path_factory):
+    saved = os.environ.get("SA_TEST_DIR")
+    os.environ["SA_TEST_DIR"] = str(tmp_path_factory.mktemp("fsdp2_opt"))
+    try:
+        return spawn("fsdp2_optimizer_cases", 2)
+    finally:
+        if saved is None:
+            del os.environ["SA_TEST_DIR"]
+        else:
+            os.environ["SA_TEST_DIR"] = saved
+
+
+@pytest.mark.parametrize("mesh", list(OPTIMIZER_MESHES))
+@pytest.mark.parametrize("optimizer", list(OPTIMIZERS))
+def test_sharded_optimizer_matches_one_process(request, optimizer, mesh):
+    """`train()` with 8-bit Adam or CAME for one step under fsdp 2 (2 ranks)
+    and dp 2 x fsdp 2 (4 ranks) against the one-process run: the loss, the
+    gradient norm, the updated parameters and the optimizer state (full
+    tensors on every rank; 8-bit Adam's int8 moments as the values they
+    hold) at rel-L2 1e-5, but for the attention key biases, whose gradient
+    is 0 in exact arithmetic."""
+    res = request.getfixturevalue("fsdp2_optimizers" if mesh == "fsdp2" else "world4")
+    r = res["optimizer", optimizer, mesh]
+    (want_loss, want_norm, want_p, want_s, want_noise), (loss, norm, got_p, got_s, noise) = \
+        r["want"], r["got"]
+    # the key biases' gradient is rounding noise (`_zero_gradient_leaves`):
+    # their update stays finite and within a few learning rates
+    assert np.isfinite([noise, want_noise]).all() and max(noise, want_noise) <= 1e-2
+    assert np.isfinite([want_loss, want_norm]).all() and want_norm > 0
+    assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
+    assert abs(norm - want_norm) <= 1e-5 * want_norm
+    init = r["init"]
+    assert got_p.shape == want_p.shape == init.shape
+    assert _rel(got_p - init, want_p - init) <= 1e-5  # the update itself
+    assert _rel(got_p, want_p) <= 1e-5
+    assert got_s.shape == want_s.shape and _rel(got_s, want_s) <= 1e-5
+    assert r["n_shards"] > 0  # the block matrices were split
 
 
 def test_mesh_checkpoint_restores_in_one_process(world4):

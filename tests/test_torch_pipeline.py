@@ -144,15 +144,20 @@ def jax_runs(tmp_path_factory):
     return jax_reference(tmp_path_factory)["runs"]
 
 
-def make_jax_models():
-    ks = jax.random.split(jax.random.PRNGKey(3), 5)
-    dit = jit_init(init_dit, DIT_E2E, ks[0])
-    # random head / vocal weights so the velocity is not zero
+def randomize_velocity(dit):
+    """Random head / vocal weights in a JAX DiT tree (zero-initialised by
+    init_dit), so the velocity is not zero and depends on the audio."""
     dit["head"]["head"]["w"] = jax.random.normal(
         jax.random.PRNGKey(9), dit["head"]["head"]["w"].shape) * 0.05
     for i, name in ((10, "k_vocal"), (11, "v_vocal")):
         node = dit["blocks"]["cross_attn"][name]
         node["w"] = jax.random.normal(jax.random.PRNGKey(i), node["w"].shape) * 0.1
+    return dit
+
+
+def make_jax_models():
+    ks = jax.random.split(jax.random.PRNGKey(3), 5)
+    dit = randomize_velocity(jit_init(init_dit, DIT_E2E, ks[0]))
     return dict(dit=dit, vae=jit_init(init_vae, VAE_E2E, ks[1]),
                 clip=jit_init(init_clip_visual, CLIP_E2E, ks[3]),
                 w2v=jit_init(init_wav2vec2, W2V_E2E, ks[4]))

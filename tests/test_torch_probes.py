@@ -252,3 +252,70 @@ def test_mm_probe_plain_epilogues_are_exact(epilogue):
     else:
         want = (acc.to(torch.float32) * probes.SCALED_FACTOR).to(torch.bfloat16)
         assert torch.equal(got, want)
+
+
+# --------------------------------------------------------------------------
+# the host scripts' mains at tiny sizes on the CPU
+# --------------------------------------------------------------------------
+
+
+def test_bench_decode_overlap_main_on_the_cpu(capsys):
+    """Monolithic and overlapped decodes of the tiny VAE: the same frames,
+    one time per run."""
+    from stableavatar_tpu_torch.scripts import bench_decode_overlap
+
+    res = bench_decode_overlap.main(["--tiny", "--device", "cpu", "--latents", "5",
+                                     "--size", "32", "--reps", "2"])
+    assert res["equal"] and res["frames"] == 17
+    assert len(res["monolithic_s"]) == len(res["overlapped_s"]) == 2
+    assert "frames equal bit for bit: True" in capsys.readouterr().out
+
+
+def test_bench_dit_step_main_on_the_cpu():
+    """Every configuration of the JAX script runs one timed window-step of
+    the tiny DiT; the launch table names the kernels of each route."""
+    from stableavatar_tpu_torch.scripts import bench_dit_step
+
+    names = list(bench_dit_step.VARIANTS)
+    assert names == ["base", "rope", "rope_qk", "rope_qkpv", "w8a8", "full"]
+    res = bench_dit_step.main([*names, "--tiny", "--device", "cpu", "--inner", "1",
+                               "--size", "32", "--frames", "3"])
+    assert list(res) == names
+    assert all(r["forwards"] == 2 and r["s_per_step"] > 0 for r in res.values())
+    assert bench_dit_step.launches_per_forward("base", 30) == {"flash_fwd_bf16": 90}
+    assert bench_dit_step.launches_per_forward("full", 30) == {
+        "flash_fwd_int8_qk": 30, "dual_context": 30}
+    assert bench_dit_step.launches_per_forward("rope_qkpv", 2) == {
+        "flash_fwd_int8_qkpv": 2, "dual_context": 2}
+
+
+def test_profile_step_parts_main_on_the_cpu():
+    from stableavatar_tpu_torch.scripts import profile_step_parts
+
+    res = profile_step_parts.main(["--tiny", "--device", "cpu", "--grid", "3", "4", "4"])
+    assert list(res) == list(profile_step_parts.PARTS)
+    assert all(r["calls"] == 4 and r["ms_per_layer"] > 0 for r in res.values())
+
+
+def test_quality_curves_main_on_the_cpu(tmp_path):
+    """The smallest step lists on the tiny models: every row's PSNRs are
+    numbers, the solver-sensitised DiT moves the latents (UniPC-2 is not
+    the reference), the JSON holds the rows, and the DiT forwards counted
+    are the window calls that TeaCache did not skip."""
+    import json
+
+    from stableavatar_tpu_torch.scripts import quality_curves
+
+    out = tmp_path / "curves.json"
+    res = quality_curves.main(["--small", "--tiny", "--device", "cpu", "--size", "32",
+                               "--clip_frames", "9", "--overlap", "1", "--out", str(out)])
+    rows = res["solver_curve"] + res["teacache_frontier"]
+    assert [(r.get("solver"), r.get("steps")) for r in res["solver_curve"]] == [
+        ("unipc", 2), ("unipc", 3), ("euler", 2)]
+    assert [r["rel_l1_thresh"] for r in res["teacache_frontier"]] == [0.05]
+    assert np.isfinite(res["solver_curve"][0]["psnr_latent"])
+    assert all(r["psnr_latent"] > 0 and r["wall_s"] > 0 for r in rows)
+    windows = 2
+    skipped = round(res["teacache_frontier"][0]["skip_frac"] * 3 * windows)
+    assert res["dit_forwards"] == windows * (3 + 3 + 2 + 3 + 2 + 3) - skipped
+    assert json.loads(out.read_text())["dit_forwards"] == res["dit_forwards"]

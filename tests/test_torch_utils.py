@@ -1,8 +1,8 @@
 """The port's copies of the JAX package's jax-free host modules
 (`utils/color_correction.py`, `media.py`, `native_audio.py`, `video_io.py`)
 are held equal to them: the same code below the module docstring (with the
-package name as the only difference), and the same outputs on seeded
-inputs."""
+package name as the only difference, and the definitions in DIVERGED
+left out), and the same outputs on seeded inputs."""
 
 import ast
 import importlib
@@ -13,6 +13,12 @@ import numpy as np
 import pytest
 
 MODULES = ["color_correction", "media", "native_audio", "video_io"]
+# definitions where the port departs from the JAX module on purpose, held
+# by their outputs instead: video_io's PNG fallback goes through PIL and
+# also serves a host without imageio (test_video_io_equal,
+# test_video_io_png_fallback_without_imageio)
+DIVERGED = {"video_io": {"_write_png", "save_videos_grid",
+                         "StreamingVideoWriter._ensure_writer", "StreamingVideoWriter.append"}}
 
 
 def _pair(name):
@@ -24,12 +30,25 @@ def _pair(name):
 def test_code_is_a_copy(name):
     jmod, tmod = _pair(name)
 
+    skip = DIVERGED.get(name, set())
+
+    def kept(nodes, prefix=""):
+        out = []
+        for node in nodes:
+            qual = prefix + getattr(node, "name", "")
+            if qual in skip:
+                continue
+            if isinstance(node, ast.ClassDef):
+                node.body = kept(node.body, qual + ".")
+            out.append(node)
+        return out
+
     def body(mod, rename=False):
         src = inspect.getsource(mod)
         if rename:
             src = src.replace("stableavatar_tpu_torch", "stableavatar_tpu")
         tree = ast.parse(src)
-        tree.body = tree.body[1:]  # the module docstring differs
+        tree.body = kept(tree.body[1:])  # the module docstring differs
         return ast.dump(tree)
 
     assert body(tmod, rename=True) == body(jmod)
@@ -139,3 +158,61 @@ def test_video_io_equal(tmp_path):
     if isinstance(a, list):
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("imageio_present", [True, False])
+def test_video_io_png_fallback_without_imageio(tmp_path, monkeypatch, imageio_present):
+    """Without an ffmpeg backend, with or without imageio (a machine with
+    neither), `save_videos_grid` and `StreamingVideoWriter` write through
+    PIL the PNG frame directory whose frames the JAX package's writers put
+    there."""
+    import sys
+
+    from stableavatar_tpu.utils import video_io as jv
+    from stableavatar_tpu_torch.utils import media as tmedia
+    from stableavatar_tpu_torch.utils import video_io as tv
+
+    video = np.random.default_rng(4).uniform(0, 1, (2, 3, 4, 8, 8)).astype(np.float32)
+    want = _frames(jv.save_videos_grid(video, str(tmp_path / "jax.mp4"), fps=5))
+    monkeypatch.setattr(tmedia.shutil, "which", lambda name: None)  # no ffmpeg
+    if not imageio_present:
+        monkeypatch.setitem(sys.modules, "imageio", None)  # import raises
+    whole = tv.save_videos_grid(video, str(tmp_path / "whole.mp4"), fps=5)
+    writer = tv.StreamingVideoWriter(str(tmp_path / "streamed.mp4"), fps=5)
+    writer.append((video[:, :, :1] * 255).round().astype(np.uint8))
+    writer.append(video[:, :, 1:])
+    assert writer.frames_written == 4
+    streamed = writer.close()
+    if not imageio_present:
+        assert whole == str(tmp_path / "whole") and streamed == str(tmp_path / "streamed")
+    monkeypatch.delitem(sys.modules, "imageio")
+    for out in (whole, streamed):
+        if isinstance(want, list):
+            got = _frames(out)
+            assert os.path.isdir(out) and len(got) == len(want) == 4
+            for x, y in zip(got, want):
+                np.testing.assert_array_equal(x, y)
+
+
+def test_device_trace_writes_a_trace_on_the_cpu(tmp_path):
+    """`device_trace(logdir)` exports a Chrome trace of the enclosed work
+    (its CPU ops here); without logdir it does nothing."""
+    import json
+
+    import torch
+
+    from stableavatar_tpu_torch.utils.profiling import device_trace
+
+    with device_trace(str(tmp_path / "trace")) as prof:
+        torch.nn.functional.conv2d(torch.ones(1, 2, 8, 8), torch.ones(3, 2, 3, 3))
+    assert prof is not None
+    (name,) = os.listdir(tmp_path / "trace")
+    assert name.startswith("trace_") and name.endswith(".json")
+    with open(tmp_path / "trace" / name) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("conv" in str(e.get("name", "")) for e in events)
+    for logdir in (None, ""):
+        with device_trace(logdir) as prof:
+            torch.ones(2).sum()
+        assert prof is None
+    assert sorted(os.listdir(tmp_path)) == ["trace"]

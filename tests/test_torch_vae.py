@@ -61,6 +61,47 @@ def test_segmented_decode_equals_monolithic(params):
         torch.clamp(torch.round((full / 2 + 0.5) * 255), 0, 255).to(torch.uint8).numpy())
 
 
+@pytest.mark.parametrize("seg", [3, 2, 7])
+def test_streamed_decode_equals_decode_video(params, seg):
+    """`decode_video_segments` (the decode's copy overlap; on the CPU the
+    segments are handed over as they are) yields host tensors, in order,
+    whose concatenation equals `decode_video`'s display frames bit for
+    bit; `decode_video_segmented` is their list."""
+    _, tp = params
+    z = t(np.random.default_rng(2).standard_normal((1, 4, 7, 4, 4)).astype(np.float32))
+    full = tvae.decode_video(tp, z, VAE_E2E, frames_per_step=1)
+    host = list(tvae.decode_video_segments(tp, z, VAE_E2E, segment_latents=seg,
+                                           frames_per_step=1, out_uint8=True))
+    want = tvae.decode_video_segmented(tp, z, VAE_E2E, segment_latents=seg, frames_per_step=1,
+                                       out_uint8=True)
+    assert len(host) == len(want) == -(-7 // seg)
+    for h, w in zip(host, want):
+        assert h.device.type == "cpu" and h.dtype == torch.uint8
+        assert torch.equal(h, w)
+    np.testing.assert_array_equal(
+        torch.cat(host, dim=2).numpy(),
+        torch.clamp(torch.round((full / 2 + 0.5) * 255), 0, 255).to(torch.uint8).numpy())
+
+
+def test_streamed_decode_hands_over_one_segment_behind(params, monkeypatch):
+    """Segment k is handed over only once segment k+1's decode is enqueued
+    (the host takes k while the card decodes k+1), and nothing is decoded
+    before the first segment is asked for."""
+    _, tp = params
+    z = t(np.random.default_rng(5).standard_normal((1, 4, 7, 4, 4)).astype(np.float32))
+    calls = []
+    seg_fn = tvae._decode_segment
+    monkeypatch.setattr(tvae, "_decode_segment",
+                        lambda *a, **k: calls.append(1) or seg_fn(*a, **k))
+    it = tvae.decode_video_segments(tp, z, VAE_E2E, segment_latents=3, frames_per_step=1)
+    assert len(calls) == 0
+    next(it)
+    assert len(calls) == 2
+    next(it)
+    assert len(calls) == 3
+    assert len(list(it)) == 1 and len(calls) == 3
+
+
 # ---------------------------------------------------------------------------
 # bf16: the port rounds where XLA rounds (excess precision off)
 # ---------------------------------------------------------------------------
