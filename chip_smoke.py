@@ -56,6 +56,15 @@ exits non-zero):
                defaults), one step in clip-level mode; checks finite losses,
                changed parameters, a checkpoint written and resumed at step
                3, the train step time and the exact K1-LSE / K4 launch counts;
+9b. optimizers -- the same train() route for 3 steps with 8-bit Adam, then 3
+               with CAME: phase 9's checks, each step's launches equal to
+               AdamW's, the peak device memory beside AdamW's and beside
+               `cli/train.py:train_bytes`, the checkpoint at step 3
+               restored on the card bit for bit (parameters and optimizer
+               state); a tiny-config fp32 train step of each, card against
+               CPU (TF32 off, rel-L2 1e-5); the optimizer update alone
+               (`tx.update`, CUDA events) of AdamW, 8-bit Adam and CAME at
+               1.3B;
 10. ring    -- multi-GPU inference's pieces that one card holds: K2-LSE (the
                int8 kernels' LSE output, "qk", "qkv", "qkpv") against its
                plain version at the DiT self-attention shape and at the
@@ -142,7 +151,7 @@ exits non-zero):
                `profile_step_parts` and `quality_curves --small` (depth
                QUALITY_LAYERS), with exact launch counts.  Run last.
 
-Phases 5-6, 7, 8, 9, 10's one-rank ring, 11's entry points and 12-18 drive
+Phases 5-6, 7, 8, 9, 9b, 10's one-rank ring, 11's entry points and 12-18 drive
 the paths: the launch counts are set to 0 just before each and read just
 after.  The line before the last is a JSON object with one entry per
 kernel; the last line is {"ok": true, "device": {...}}.
@@ -1208,26 +1217,24 @@ def train_batches(n, cfg):
         }
 
 
-def phase_train(models, dit_params, reset_counts, counts):
-    """train() at 1.3B / 512x512 / 81 frames for TRAIN_STEPS steps (AdamW,
-    remat, the train CLI's defaults) on the bf16 DiT, then a resume from
-    its checkpoint.  Returns the training path's launch counts."""
-    import dataclasses
-
+def train_run(tmodels, train_cfg, out_dir, reset_counts, counts):
+    """train() at 1.3B / 512x512 / 81 frames for TRAIN_STEPS steps on
+    `tmodels` with `train_cfg`, a checkpoint at the last step: each step's
+    wall, loss, gradient norm, parameter delta, clip-level flag, peak
+    device memory and launches logged; the launch counts set to 0 just
+    before train() and read just after.  Fails unless the losses, gradient
+    norms and deltas are finite, every step moved the parameters, one step
+    took the clip-level branch and the K1-LSE / K4 launches are exact.
+    Returns (launches, steps, params, opt_state)."""
     import torch
 
-    from stableavatar_tpu_torch.train.loop import CheckpointManager, train
-    from stableavatar_tpu_torch.train.trainer import TrainConfig
+    from stableavatar_tpu_torch.train.loop import train
     from stableavatar_tpu_torch.utils.tree import tree_leaves
 
-    cfg = models.dit_cfg
-    tmodels = dataclasses.replace(models, dit_params=dit_params, rope_split=False,
-                                  attn_quant="none")
-    leaves = tree_leaves(dit_params)
-    n_params = sum(p.numel() for p in leaves)
+    cfg = tmodels.dit_cfg
+    leaves = tree_leaves(tmodels.dit_params)
     before = [p.clone() for p in leaves]
     start = [p.clone() for p in leaves[:4]]
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     steps = []
     last = {"t": time.perf_counter(), "c": {}}
 
@@ -1251,50 +1258,78 @@ def phase_train(models, dit_params, reset_counts, counts):
         torch.cuda.reset_peak_memory_stats()
         last["t"], last["c"] = time.perf_counter(), c
 
-    log(f"  {n_params / 1e9:.3f} B parameters, bf16")
-    try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        last["t"] = time.perf_counter()
-        t0 = last["t"]
-        _, _, history = train(tmodels, train_batches(TRAIN_STEPS, cfg), TrainConfig(),
-                              output_dir=out_dir, max_train_steps=TRAIN_STEPS,
-                              checkpointing_steps=TRAIN_STEPS, checkpoints_total_limit=1,
-                              resume_from_checkpoint=None, log_every=1, seed=TRAIN_SEED,
-                              step_callback=on_step)
-        torch.cuda.synchronize()
-        launches = counts()
-        log(f"  train(): {len(history)} steps in {time.perf_counter() - t0:.2f} s including the "
-            f"asynchronous checkpoint; launches {launches}")
-        walls = sorted(s["wall_s"] for s in steps)
-        log(f"  train step time (encode + step): median {walls[len(walls) // 2]:.3f} s, "
-            f"steps {[round(s['wall_s'], 3) for s in steps]}")
-        if len(steps) != TRAIN_STEPS or not all(
-                torch.isfinite(torch.tensor([s["loss"], s["grad_norm"], s["delta_norm"]])).all()
-                for s in steps):
-            raise AssertionError(f"train steps not all finite: {steps}")
-        if not all(s["delta_norm"] > 0 for s in steps) or all(
-                torch.equal(a, b) for a, b in zip(start, leaves[:4])):
-            raise AssertionError("a train step left the parameters unchanged")
-        n_clip = sum(s["clip_level"] for s in steps)
-        if n_clip == 0:
-            raise AssertionError("no step took the clip-level branch")
-        # per layer 3 long-query attentions (self, text, image), 4 in
-        # clip-level mode (global vocal); forward twice under remat, one backward
-        calls = cfg.num_layers * (3 * TRAIN_STEPS + n_clip)
-        want = {"flash_fwd_bf16_lse": 2 * calls, "flash_bwd": calls,
-                "rope_rotate": 0, "rope_finalize_bwd": 0,
-                "flash_fwd_bf16": 0, "flash_fwd_int8_qk": 0, "dual_context": 0}
-        if {k: launches[k] for k in want} != want:
-            raise AssertionError(f"training launch counts {launches} != {want}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    last["t"] = time.perf_counter()
+    t0 = last["t"]
+    params, opt_state, history = train(
+        tmodels, train_batches(TRAIN_STEPS, cfg), train_cfg, output_dir=out_dir,
+        max_train_steps=TRAIN_STEPS, checkpointing_steps=TRAIN_STEPS, checkpoints_total_limit=1,
+        resume_from_checkpoint=None, log_every=1, seed=TRAIN_SEED, step_callback=on_step)
+    torch.cuda.synchronize()
+    launches = counts()
+    log(f"  train(): {len(history)} steps in {time.perf_counter() - t0:.2f} s including the "
+        f"asynchronous checkpoint; launches {launches}")
+    walls = sorted(s["wall_s"] for s in steps)
+    log(f"  train step time (encode + step): median {walls[len(walls) // 2]:.3f} s, "
+        f"steps {[round(s['wall_s'], 3) for s in steps]}")
+    if len(steps) != TRAIN_STEPS or not all(
+            torch.isfinite(torch.tensor([s["loss"], s["grad_norm"], s["delta_norm"]])).all()
+            for s in steps):
+        raise AssertionError(f"train steps not all finite: {steps}")
+    if not all(s["delta_norm"] > 0 for s in steps) or all(
+            torch.equal(a, b) for a, b in zip(start, leaves[:4])):
+        raise AssertionError("a train step left the parameters unchanged")
+    n_clip = sum(s["clip_level"] for s in steps)
+    if n_clip == 0:
+        raise AssertionError("no step took the clip-level branch")
+    # per layer 3 long-query attentions (self, text, image), 4 in
+    # clip-level mode (global vocal); forward twice under remat, one backward
+    calls = cfg.num_layers * (3 * TRAIN_STEPS + n_clip)
+    want = {"flash_fwd_bf16_lse": 2 * calls, "flash_bwd": calls,
+            "rope_rotate": 0, "rope_finalize_bwd": 0,
+            "flash_fwd_bf16": 0, "flash_fwd_int8_qk": 0, "dual_context": 0}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"training launch counts {launches} != {want}")
+    return launches, steps, params, opt_state
 
+
+def train_models(models, dit_params):
+    """The models of the training path: the bf16 DiT, no split-pair rope,
+    no int8 attention."""
+    import dataclasses
+
+    return dataclasses.replace(models, dit_params=dit_params, rope_split=False,
+                               attn_quant="none")
+
+
+def phase_train(models, dit_params, reset_counts, counts):
+    """train() at 1.3B / 512x512 / 81 frames for TRAIN_STEPS steps (AdamW,
+    remat, the train CLI's defaults) on the bf16 DiT, then a resume from
+    its checkpoint.  Returns the training path's launch counts and its
+    steps."""
+    import dataclasses
+
+    import torch
+
+    from stableavatar_tpu_torch.train.loop import CheckpointManager, train
+    from stableavatar_tpu_torch.train.trainer import TrainConfig
+    from stableavatar_tpu_torch.utils.tree import tree_leaves
+
+    tmodels = train_models(models, dit_params)
+    leaves = tree_leaves(dit_params)
+    log(f"  {sum(p.numel() for p in leaves) / 1e9:.3f} B parameters, bf16")
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        launches, steps, _, _ = train_run(tmodels, TrainConfig(), out_dir, reset_counts, counts)
         cm = CheckpointManager(out_dir)
         if os.path.basename(cm.latest() or "") != f"checkpoint-{TRAIN_STEPS}":
             raise AssertionError(f"no checkpoint-{TRAIN_STEPS} in {os.listdir(out_dir)}")
         t0 = time.perf_counter()
-        resumed, _, history = train(dataclasses.replace(tmodels), train_batches(1, cfg),
-                                    TrainConfig(), output_dir=out_dir,
+        resumed, _, history = train(dataclasses.replace(tmodels),
+                                    train_batches(1, tmodels.dit_cfg), TrainConfig(),
+                                    output_dir=out_dir,
                                     max_train_steps=TRAIN_STEPS, resume_from_checkpoint="latest",
                                     seed=TRAIN_SEED)
         same = all(torch.equal(a, b) for a, b in zip(tree_leaves(resumed), leaves))
@@ -1305,6 +1340,175 @@ def phase_train(models, dit_params, reset_counts, counts):
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     return launches, steps
+
+
+# the train CLI's optimizers: TrainConfig's flags of each
+OPTIMIZER_FLAGS = {"adamw": {}, "adam8bit": dict(use_8bit_adam=True),
+                   "came": dict(use_came=True)}
+# card against CPU, the tiny fp32 step's parameter updates: rel-L2 limit
+# (fp32 on both sides, summed in other orders; TF32 off)
+OPTIMIZER_REL_TOL = 1e-5
+
+
+def phase_train_optimizers(models, dit_params, reset_counts, counts, adamw_steps):
+    """8-bit Adam, then CAME, through train() on phase 9's route (the bf16
+    DiT at 1.3B / 512x512 / 81 frames, batch 1, remat) for TRAIN_STEPS steps
+    each: the checks of `train_run`, each step's launches equal to AdamW's
+    (phase 9, the same seed and batches), the peak device memory beside
+    AdamW's and beside `cli/train.py:train_bytes` at --fsdp 1, and the
+    checkpoint at the last step restored on the card equal to the live
+    parameters and optimizer state bit for bit.  Then a tiny-config fp32
+    train step of each, card against CPU, and the optimizer update alone
+    (`tx.update`) of AdamW, 8-bit Adam and CAME at 1.3B."""
+    import torch
+
+    from stableavatar_tpu_torch.cli.train import train_bytes
+    from stableavatar_tpu_torch.train.loop import CheckpointManager
+    from stableavatar_tpu_torch.train.trainer import TrainConfig
+    from stableavatar_tpu_torch.utils.tree import tree_leaves
+
+    tmodels = train_models(models, dit_params)
+    leaves = tree_leaves(dit_params)
+    adamw_peak = max(s["peak_gib"] for s in adamw_steps)
+    adamw_need = train_bytes(leaves, 1, "adamw") / 2 ** 30
+    for name in ("adam8bit", "came"):
+        log(f"  -- {name}")
+        out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+        try:
+            _, steps, params, state = train_run(tmodels, TrainConfig(**OPTIMIZER_FLAGS[name]),
+                                                out_dir, reset_counts, counts)
+            if [s["launches"] for s in steps] != [s["launches"] for s in adamw_steps]:
+                raise AssertionError(f"{name}'s launches a step {[s['launches'] for s in steps]}"
+                                     f" != AdamW's {[s['launches'] for s in adamw_steps]}")
+            peak = max(s["peak_gib"] for s in steps)
+            need = train_bytes(leaves, 1, name) / 2 ** 30
+            log(f"  {name}: peak device memory {peak:.2f} GiB, AdamW's {adamw_peak:.2f} "
+                f"({adamw_peak - peak:.2f} GiB less); train_bytes at --fsdp 1 {need:.2f} GiB, "
+                f"AdamW's {adamw_need:.2f} ({adamw_need - need:.2f} GiB less)")
+            t0 = time.perf_counter()
+            restored = CheckpointManager(out_dir).restore("cuda")
+            torch.cuda.synchronize()
+            same = (restored["step"] == TRAIN_STEPS and trees_equal(restored["params"], params)
+                    and trees_equal(restored["opt_state"], state))
+            log(f"  {name}: checkpoint-{restored['step']} restored on the card in "
+                f"{time.perf_counter() - t0:.2f} s, parameters and optimizer state equal to the "
+                f"live ones: {same}")
+            if not same:
+                raise AssertionError(f"{name}'s checkpoint does not restore its state bit for bit")
+            del restored, params, state
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        tiny_step_card_vs_cpu(name)
+    time_optimizer_updates(leaves)
+
+
+def tiny_step_card_vs_cpu(name):
+    """One fp32 train step of the tiny DiT (`tiny_debug_configs`, with a
+    random head and vocal k / v, so every block has a gradient) with the
+    optimizer `name`, on the card and on the CPU from the same weights,
+    batch and draws, TF32 off: the parameters' updates against each other
+    at rel-L2 OPTIMIZER_REL_TOL, over every leaf but the attention key
+    biases.  Their gradient is 0 in exact arithmetic (softmax ignores a
+    shift every key shares), so its rounding noise, another on each side,
+    is all the first step of 8-bit Adam and CAME sees there."""
+    import numpy as np
+    import torch
+
+    from stableavatar_tpu_torch.config import tiny_debug_configs
+    from stableavatar_tpu_torch.models.dit import init_dit
+    from stableavatar_tpu_torch.train import trainer
+    from stableavatar_tpu_torch.utils.tree import tree_leaves, tree_map, tree_paths
+
+    cfg = tiny_debug_configs()[0]
+    gen = torch.Generator().manual_seed(0)
+    params = init_dit(gen, cfg, "cpu")
+    head = params["head"]["head"]
+    head["w"] = torch.randn(head["w"].shape, generator=gen) * 0.05
+    for bp in params["blocks"]:
+        for k in ("k_vocal", "v_vocal"):
+            bp["cross_attn"][k]["w"] = torch.randn(bp["cross_attn"][k]["w"].shape,
+                                                   generator=gen) * 0.1
+    rng = np.random.default_rng(7)
+    f, h, w = 3, 8, 8
+    shapes = {"latents": (1, cfg.out_dim, f, h, w),
+              "inpaint_latents": (1, cfg.in_dim - cfg.out_dim, f, h, w),
+              "prompt_embeds": (1, cfg.text_len, cfg.text_dim),
+              "clip_fea": (1, cfg.clip_tokens, cfg.clip_dim),
+              "vocal_embeddings": (1, 24, cfg.audio_in_dim)}
+    batch = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+             for k, s in shapes.items()}
+    for k in ("face_masks", "lip_masks"):
+        batch[k] = torch.from_numpy(rng.uniform(0, 1, (1, 1, f, h, w)).astype(np.float32))
+    draws = {"noise": torch.from_numpy(rng.standard_normal(shapes["latents"]).astype(np.float32)),
+             "idx": torch.tensor([600]), "mask_flag": torch.tensor(0.3)}
+    # 8-bit Adam's first step is about g / (|g| + eps) an entry: eps above the
+    # gradients' rounding noise, as the CPU tests take it
+    tc = trainer.TrainConfig(learning_rate=1e-3, adam_eps=1e-6, video_sample_n_frames=9,
+                             **OPTIMIZER_FLAGS[name])
+    kept = [path.rsplit("/", 2)[-2:] not in (["k", "b"], ["k_img", "b"], ["k_vocal", "b"])
+            for path, _ in tree_paths(params)]
+    steps, losses = {}, {}
+    dit_dtype = trainer.DIT_DTYPE
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    trainer.DIT_DTYPE = torch.float32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for device in ("cuda", "cpu"):
+            p = tree_map(lambda x: x.to(device, copy=True), params)
+            tx = trainer.make_optimizer(tc)
+            state = tx.init(tree_leaves(p))
+            _, _, m = trainer.train_step(
+                p, state, tree_map(lambda x: x.to(device), batch), None, False, dit_cfg=cfg,
+                train_cfg=tc, tx=tx, sigmas_table=trainer.train_sigmas(device=device),
+                draws=tree_map(lambda x: x.to(device), draws))
+            losses[device] = float(m["loss"])
+            steps[device] = torch.cat([(a.cpu() - b).reshape(-1) for a, b, k in zip(
+                tree_leaves(p), tree_leaves(params), kept) if k])
+    finally:
+        trainer.DIT_DTYPE = dit_dtype
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    got, want = steps["cuda"], steps["cpu"]
+    rel = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+    log(f"  {name}: tiny fp32 train step, card vs CPU: loss {losses['cuda']:.7f} / "
+        f"{losses['cpu']:.7f}, parameter updates rel_l2={rel:.3e} over {want.numel()} entries "
+        f"(limit {OPTIMIZER_REL_TOL:.0e})")
+    if not (torch.isfinite(got).all() and float(want.abs().max()) > 0
+            and rel <= OPTIMIZER_REL_TOL):
+        raise AssertionError(f"{name}: the card's tiny train step disagrees with the CPU's: "
+                             f"rel_l2 {rel:.3e}")
+
+
+def time_optimizer_updates(leaves, reps: int = 3):
+    """CUDA-event ms of one `tx.update` of the train chain (the anomaly
+    clip, then the optimizer) at 1.3B for AdamW, 8-bit Adam and CAME, on
+    seeded bf16 gradients of the DiT's leaves: the median of `reps` after
+    one warm-up, each optimizer from its own fresh state."""
+    import torch
+
+    from stableavatar_tpu_torch.train.trainer import TrainConfig, make_optimizer
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    grads = [(torch.randn(p.shape, generator=gen, device="cuda") * 1e-3).to(p.dtype)
+             for p in leaves]
+    for name, flags in OPTIMIZER_FLAGS.items():
+        tx = make_optimizer(TrainConfig(**flags))
+        state = tx.init(leaves)
+        times = []
+        for _ in range(reps + 1):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            updates, state = tx.update(grads, state, leaves)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            del updates
+        ms = sorted(times[1:])[reps // 2]
+        log(f"  optimizer update alone (tx.update), {name}: median {ms:.2f} ms of "
+            f"{[round(t, 2) for t in times[1:]]} (warm-up {times[0]:.2f} ms), "
+            f"{len(leaves)} leaves")
+        del state
+        torch.cuda.empty_cache()
 
 
 def _free_port() -> int:
@@ -2919,7 +3123,13 @@ def main() -> int:
     # main path 4, training: counts set to 0 inside, just before train()
     log(f"== main path: train(), 1.3B, 512x512, 81 frames, batch 1, remat, AdamW, "
         f"{TRAIN_STEPS} steps")
-    training, _ = phase_train(models, dit_bf16, reset_counts, counts)
+    training, adamw_steps = phase_train(models, dit_bf16, reset_counts, counts)
+
+    # path 4b, training with 8-bit Adam and with CAME: counts set to 0
+    # inside, just before each train()
+    log(f"== train() with 8-bit Adam, then CAME: 1.3B, 512x512, 81 frames, batch 1, remat, "
+        f"{TRAIN_STEPS} steps each")
+    phase_train_optimizers(models, dit_bf16, reset_counts, counts, adamw_steps)
 
     # path 7, the single clip and log_validation: counts set to 0 inside,
     # just before each run

@@ -14,10 +14,11 @@ mapped onto PyTorch, one process per card:
 - clips are read from disk by `data/dataset.py` (a decode thread pool of
   `--dataloader_num_workers` and `--prefetch_depth` batches ahead);
 - `--dp` x `--fsdp` x `--sp` ranks form the ('dp', 'fsdp', 'sp') mesh: the
-  global batch split over 'dp', the DiT and its AdamW state split over
-  'fsdp', the tokens over 'sp' (Ulysses); the step equals the one-process
-  step (`train/trainer.py`).  The ranks come from torchrun's environment or
-  from `--coordinator_address` / `--num_processes` / `--process_id`:
+  global batch split over 'dp', the DiT and its optimizer state (AdamW,
+  8-bit Adam or CAME) split over 'fsdp', the tokens over 'sp' (Ulysses);
+  the step equals the one-process step (`train/trainer.py`).  The ranks
+  come from torchrun's environment or from `--coordinator_address` /
+  `--num_processes` / `--process_id`:
 
       torchrun --nproc_per_node 8 -m stableavatar_tpu_torch.cli.train \\
           --fsdp 8 --train_data_meta index.txt ...
@@ -44,45 +45,44 @@ from stableavatar_tpu_torch.cli.inference import load_models
 from stableavatar_tpu_torch.data.dataset import PROMPTS, InterleavedDataset, TalkingVideoDataset
 from stableavatar_tpu_torch.parallel.distributed import initialize_distributed, make_multihost_mesh
 from stableavatar_tpu_torch.parallel.mesh import mesh_context
-from stableavatar_tpu_torch.parallel.sharding import shard_params
+from stableavatar_tpu_torch.parallel.sharding import param_sharding_spec, shard_params
 from stableavatar_tpu_torch.train.loop import train
 from stableavatar_tpu_torch.train.trainer import TrainConfig
 
-# bytes a parameter holds while it trains: the bf16 weight and gradient and
-# AdamW's two fp32 moments (fp32 once the anomaly clip has scaled them)
-TRAIN_BYTES_PER_PARAM = 2 + 2 + 4 + 4
-# bytes an element of the one leaf that 8-bit Adam or CAME updates at a time
-# under fsdp holds in flight: the gathered bf16 gradient and parameter, the
-# fp32 update and about four fp32 temporaries of the update
-WHOLE_LEAF_UPDATE_BYTES = 2 + 2 + 4 + 16
+# bytes a parameter holds while it trains: its bf16 weight and gradient, and
+# the optimizer's moments of it: AdamW's two fp32 (fp32 once the anomaly
+# clip has scaled the gradients), 8-bit Adam's bf16 and int8 ones, CAME's
+# one fp32
+WEIGHT_BYTES_PER_PARAM = 2 + 2
+MOMENT_BYTES_PER_PARAM = {"adamw": 4 + 4, "adam8bit": 2 + 1, "came": 4}
 
 
 def train_bytes(leaves, fsdp: int, optimizer: str = "adamw") -> float:
     """Bytes a card holds for the DiT's `leaves` while they train at
     `--fsdp fsdp` with `optimizer` ("adamw", "adam8bit" or "came"): the
-    bf16 weights and gradients, a 1/fsdp slice of each, and the optimizer's
-    state.  AdamW's state is sliced too.  8-bit Adam's (bf16 first moment,
-    int8 second moment, one fp32 scale a row) and CAME's (fp32 first
-    moment, fp32 row and column statistics) stay whole on every rank
-    (`train/optim.py:whole_leaves`), and under fsdp the largest leaf is
-    gathered and updated whole.  Activations are not counted."""
-    total, largest = 0.0, 0
+    bf16 weights and gradients and the optimizer's state, a 1/fsdp slice of
+    each.  Besides its moments, 8-bit Adam keeps one fp32 scale a row,
+    CAME fp32 row and column statistics of its second moment and of its
+    residual (a vector's second moment unfactored, fp32).  A statistic
+    reduced over the axis that the fsdp rule splits
+    (`parallel/sharding.py:param_sharding_spec`) is whole on every card
+    (`train/optim.py:Split`).  Activations are not counted."""
+    if optimizer not in MOMENT_BYTES_PER_PARAM:
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    total = 0.0
     for p in leaves:
-        n, last = p.numel(), (p.shape[-1] if p.dim() else 1)
-        largest = max(largest, n)
-        if optimizer == "adamw":
-            total += TRAIN_BYTES_PER_PARAM * n / fsdp
-        elif optimizer == "adam8bit":
-            total += 4 * n / fsdp + 3 * n + 4 * (n // max(last, 1))
+        n, axis = p.numel(), param_sharding_spec(p, fsdp)
+
+        def stat(dim: int) -> float:
+            # an fp32 statistic of the rows (dim -1) or columns (dim -2)
+            whole = axis is not None and axis == dim % p.dim()
+            return 4 * n / p.shape[dim] / (1 if whole else fsdp)
+
+        total += (WEIGHT_BYTES_PER_PARAM + MOMENT_BYTES_PER_PARAM[optimizer]) * n / fsdp
+        if optimizer == "adam8bit":
+            total += stat(-1)
         elif optimizer == "came":
-            # row and column statistics of the second moment and of the
-            # residual; a vector's second moment is unfactored
-            stats = 2 * (n // last + n // p.shape[-2]) if p.dim() >= 2 else n
-            total += 4 * n / fsdp + 4 * n + 4 * stats
-        else:
-            raise ValueError(f"unknown optimizer {optimizer!r}")
-    if optimizer != "adamw" and fsdp > 1:
-        total += WHOLE_LEAF_UPDATE_BYTES * largest
+            total += 2 * (stat(-1) + stat(-2)) if p.dim() >= 2 else 4 * n / fsdp
     return total
 
 
@@ -273,12 +273,9 @@ def _check_fits(params, fsdp: int, device, optimizer: str = "adamw") -> None:
     need = train_bytes(tree_leaves(params), fsdp, optimizer)
     have = torch.cuda.get_device_properties(device).total_memory
     if need > have:
-        hint = ("raise --fsdp" if optimizer == "adamw" else
-                "raise --fsdp, or use AdamW, whose state fsdp splits: this optimizer's "
-                "state stays whole on every card")
         raise ValueError(f"training this DiT needs {need / 2**30:.1f} GiB a card for weights, "
                          f"gradients and {optimizer} state at --fsdp {fsdp}, the card has "
-                         f"{have / 2**30:.1f} GiB: {hint}")
+                         f"{have / 2**30:.1f} GiB: raise --fsdp")
 
 
 def main(argv=None, device="cuda") -> int:

@@ -13,7 +13,9 @@ just before a block runs, and the full tensors are dropped after it
 numbers.  Under autograd the gather's backward is the summing
 reduce-scatter (`parallel/mesh.py:all_gather_dim0`), so a shard's gradient
 arrives on the rank that holds it and the optimizer state stays sharded
-(ZeRO), as the JAX package's is under GSPMD.  Checkpoints hold full
+(ZeRO), as the JAX package's is under GSPMD: AdamW's, 8-bit Adam's and
+CAME's, whose row and column statistics over a split axis are reduced
+over the fsdp group (`train/optim.py:Split`).  Checkpoints hold full
 tensors: `unshard` gathers a leaf, `shard_params` / `shard_like` split them
 again.
 """

@@ -176,43 +176,59 @@ def _to_host(x):
     return x.detach().to("cpu", copy=True) if torch.is_tensor(x) else x
 
 
-def map_leaf_lists(state, leaves, fn, other=lambda x: x):
-    """`fn(x, i)` on every per-leaf entry of an optimizer state -- the lists
-    as long as the parameter list whose tensors have the shapes of `leaves`
-    (Adam's moments, the accumulator) -- and `other` on the rest, the
-    replicated state of `optim.whole_leaves` included."""
+def _per_leaf(state, leaves) -> bool:
+    """Whether a list of an optimizer state has one entry per parameter
+    leaf: a tensor of the leaf's shape (Adam's moments, the accumulator) or
+    a dict of tensors that holds one (8-bit Adam's second moment, CAME's
+    leaves)."""
+    def entry(x, p):
+        if torch.is_tensor(x):
+            return x.shape == p.shape
+        return (isinstance(x, dict) and all(torch.is_tensor(v) for v in x.values())
+                and any(v.shape == p.shape for v in x.values()))
+
+    return len(state) == len(leaves) and all(entry(x, p) for x, p in zip(state, leaves))
+
+
+def map_leaf_lists(state, leaves, specs, fn, other=lambda x: x):
+    """`fn(x, spec)` on every tensor of an optimizer state's per-leaf lists
+    -- the lists with one entry per parameter leaf, whose tensors have the
+    layout of `leaves` -- with `spec` the tensor's `Shard` over 'fsdp'
+    where its leaf's is `specs[i]` (`optim.field_spec`; None where every
+    rank holds the same tensor), and `other` on the rest."""
     if isinstance(state, dict):
-        return {k: tree_map(other, v) if k == optim.REPLICATED
-                else map_leaf_lists(v, leaves, fn, other) for k, v in state.items()}
+        return {k: map_leaf_lists(v, leaves, specs, fn, other) for k, v in state.items()}
     if isinstance(state, (list, tuple)):
-        if len(state) == len(leaves) and all(
-                torch.is_tensor(x) and x.shape == p.shape for x, p in zip(state, leaves)):
-            return [fn(x, i) for i, x in enumerate(state)]
-        return type(state)(map_leaf_lists(v, leaves, fn, other) for v in state)
+        if _per_leaf(state, leaves):
+            return [fn(x, specs[i]) if torch.is_tensor(x) else
+                    {k: fn(v, optim.field_spec(k, v, leaves[i].shape, specs[i]))
+                     for k, v in x.items()}
+                    for i, x in enumerate(state)]
+        return type(state)(map_leaf_lists(v, leaves, specs, fn, other) for v in state)
     return other(state)
 
 
 def host_state(params, opt_state, mesh=None, keep: bool = True):
     """Host copies of (params, opt_state) with every fsdp slice gathered to
     its full tensor: a collective of the fsdp group, which holds one
-    gathered tensor on the device at a time.  With keep=False (a rank that
-    does not write) the gathers run and nothing is copied."""
-    specs = leaf_specs(params)
+    gathered tensor on the device at a time.  A tensor that every rank
+    holds the same is copied as it is.  With keep=False (a rank that does
+    not write) the gathers run and nothing is copied."""
     host = _to_host if keep else (lambda x: None)
     full = tree_map(lambda x: host(unshard(x, mesh)), params)
-    state = map_leaf_lists(opt_state, tree_leaves(params),
-                           lambda x, i: host(unshard(x, mesh, spec=specs[i])), host)
+    state = map_leaf_lists(opt_state, tree_leaves(params), leaf_specs(params),
+                           lambda x, spec: host(unshard(x, mesh, spec=spec)), host)
     return full, state
 
 
 def shard_state(params, opt_state, mesh):
     """(params, opt_state) of full tensors split for `mesh`: this rank's
-    slices of the parameters that the fsdp rule splits, and of their
-    moments (the inverse of `host_state`'s gathers)."""
+    slices of the parameters that the fsdp rule splits, and of the state's
+    tensors that keep a split axis (the inverse of `host_state`'s
+    gathers); the rest as it is."""
     sharded = shard_params(params, mesh)
-    specs = leaf_specs(sharded)
-    state = map_leaf_lists(opt_state, tree_leaves(params),
-                           lambda x, i: shard_like(x, specs[i], mesh))
+    state = map_leaf_lists(opt_state, tree_leaves(params), leaf_specs(sharded),
+                           lambda x, spec: shard_like(x, spec, mesh))
     return sharded, state
 
 
@@ -358,8 +374,7 @@ def train(models: WanModels, batches: Iterable[dict], train_cfg: TrainConfig, *,
     os.makedirs(output_dir, exist_ok=True)
     tx = make_optimizer(train_cfg)
     params = models.dit_params
-    # under fsdp, 8-bit Adam's and CAME's state is made at the full shapes
-    # (optim.whole_leaves), AdamW's at this rank's slices
+    # under fsdp the optimizer state is made at this rank's slices
     with optim.sharded_leaves(leaf_specs(params) if mesh is not None else (),
                               axis_group("fsdp") if axis_size("fsdp") > 1 else None):
         opt_state = tx.init(tree_leaves(params))

@@ -13,11 +13,12 @@ parameters each fp32 moment list is 7 GB, and a functional update would
 hold the old and new moments and both bias-corrected copies at once.
 
 Under fsdp the lists hold this rank's slices of the split parameters
-(`parallel/sharding.py`); every transform but the global norm works
-element by element, and `global_norm` sums the squares of the slices over
-the fsdp group inside `sharded_leaves`.  A transform that reduces over a
-parameter's rows or columns (8-bit Adam's per-row scales, CAME's factored
-moments) runs inside `whole_leaves`, which gives it the whole leaves.
+(`parallel/sharding.py`), and so does every transform's state, as the JAX
+package's is under GSPMD.  Most transforms work element by element.
+Those that reduce over a parameter's axes learn each leaf's split from
+`leaf_splits` and reduce through its `Split`: `global_norm` sums the
+squares of the slices over the fsdp group, 8-bit Adam takes a row's absmax
+over the group where the split cuts the row, CAME its row and column means.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from stableavatar_tpu_torch.parallel.mesh import all_gather_dim0
+from stableavatar_tpu_torch.parallel.sharding import Shard
 from stableavatar_tpu_torch.utils.tree import tree_map
 
 # (specs, group) of the leaf lists in flight: per leaf its `Shard` where it
@@ -41,10 +42,10 @@ _SHARDED: contextvars.ContextVar = contextvars.ContextVar("stableavatar_torch_sh
 
 @contextlib.contextmanager
 def sharded_leaves(flags: Sequence, group: Optional[dist.ProcessGroup]):
-    """Inside, `global_norm` of a leaf list takes the leaves flagged as
-    slices of a parameter split over `group` (the fsdp group): a flag is
-    the leaf's `parallel/sharding.py:Shard` (`parallel/sharding.py:leaf_specs`),
-    None for a replicated leaf."""
+    """Inside, `global_norm` and `leaf_splits` of a leaf list take the
+    leaves flagged as slices of a parameter split over `group` (the fsdp
+    group): a flag is the leaf's `parallel/sharding.py:Shard`
+    (`parallel/sharding.py:leaf_specs`), None for a replicated leaf."""
     token = _SHARDED.set((tuple(flags), group) if group is not None and any(flags) else None)
     try:
         yield
@@ -83,6 +84,103 @@ def global_norm(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
     for x, s in zip(leaves, sums):
         total = total + s.to(x.dtype)
     return torch.sqrt(torch.as_tensor(total))
+
+
+class Split(NamedTuple):
+    """How this rank holds a leaf, or a statistic of one, under fsdp: the
+    full tensor has `ndim` axes and is split on `axis` over `group` (None:
+    whole here).  A slice is kept as its `Shard` keeps it, the split axis
+    first (`local`); `view` lays it out in the full tensor's axis order,
+    the split axis shortened.  The reductions take a view and reduce over
+    the fsdp group where they run over the split axis, so every rank gets
+    the full tensor's statistic; outside a split they are torch's own."""
+
+    axis: Optional[int]
+    ndim: int
+    group: Optional[dist.ProcessGroup] = None
+
+    def view(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.axis is None else x.movedim(0, self.axis)
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """The inverse of `view`, contiguous (as a `Shard` keeps it)."""
+        return x if self.axis is None else x.movedim(self.axis, 0).contiguous()
+
+    def reduced(self, dim: int, keepdim: bool = False) -> "Split":
+        """The split of a statistic reduced over `dim`: whole on every rank
+        where `dim` is the split axis, else split on the same axis."""
+        dim %= self.ndim
+        axis = self.axis
+        if axis == dim:
+            axis = None
+        elif axis is not None and not keepdim and axis > dim:
+            axis -= 1
+        return Split(axis, self.ndim - (not keepdim), self.group)
+
+    def _cuts(self, x: torch.Tensor, dim: Optional[int]) -> bool:
+        return (self.axis is not None and x.device.type != "meta"
+                and (dim is None or dim % self.ndim == self.axis))
+
+    def mean(self, x, dim: Optional[int] = None, keepdim: bool = False) -> torch.Tensor:
+        """The mean over `dim` (None: over every axis) of the full tensor."""
+        if not self._cuts(x, dim):
+            return x.mean() if dim is None else x.mean(dim=dim, keepdim=keepdim)
+        s = x.sum() if dim is None else x.sum(dim=dim, keepdim=keepdim)
+        dist.all_reduce(s, op=dist.ReduceOp.SUM, group=self.group)
+        n = x.numel() if dim is None else x.shape[dim]
+        return s / (dist.get_world_size(self.group) * n)
+
+    def amax(self, x, dim: int, keepdim: bool = False) -> torch.Tensor:
+        m = x.amax(dim=dim, keepdim=keepdim)
+        if self._cuts(x, dim):
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=self.group)
+        return m
+
+
+def leaf_splits(leaves: Sequence[torch.Tensor]) -> list:
+    """The `Split` of each leaf of a list in flight: inside `sharded_leaves`
+    the axis of its parameter's `Shard` over the fsdp group, else whole."""
+    sharded = _SHARDED.get()
+    if sharded is None:
+        return [Split(None, x.dim()) for x in leaves]
+    flags, group = sharded
+    if len(flags) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves, {len(flags)} sharding flags")
+    return [Split(f.axis, len(f.shape), group) if f else Split(None, x.dim())
+            for x, f in zip(leaves, flags)]
+
+
+# the per-leaf statistics of 8-bit Adam and CAME, by their key in a leaf's
+# state: the parameter's axis each is reduced over, and whether it is kept
+# (as length 1)
+STATISTICS = {"scale": (-1, True), "row": (-1, False), "res_row": (-1, False),
+              "col": (-2, False), "res_col": (-2, False)}
+
+
+def field_spec(key: str, x: torch.Tensor, leaf_shape, spec: Optional[Shard]) -> Optional[Shard]:
+    """The `Shard` of the tensor `x` that a leaf's state keeps under `key`,
+    where its parameter is split as `spec` (None: replicated): the
+    parameter's own for a tensor of the leaf's shape (a moment), the one of
+    a statistic's `Split.reduced`, None for a tensor that every rank holds
+    the same (a statistic over the split axis, a scalar)."""
+    if spec is None or x.dim() == 0:
+        return None
+    ndim = len(spec.shape)
+    if key in STATISTICS and x.dim() == ndim - (not STATISTICS[key][1]):
+        dim, keepdim = STATISTICS[key]
+        axis = Split(spec.axis, ndim).reduced(dim, keepdim).axis
+        if axis is None:
+            return None
+        shape = list(spec.shape)
+        if keepdim:
+            shape[dim] = 1
+        else:
+            del shape[dim]
+        return Shard(x, axis, tuple(shape))
+    if tuple(x.shape) == tuple(leaf_shape):
+        return spec
+    raise ValueError(f"no fsdp layout for the state field {key!r} of shape {tuple(x.shape)} "
+                     f"of a leaf {tuple(leaf_shape)}")
 
 
 def chain(*transforms: GradientTransformation) -> GradientTransformation:
@@ -190,110 +288,6 @@ def masked(inner: GradientTransformation, mask: Sequence[bool]) -> GradientTrans
         for j, i in enumerate(idx):
             out[i] = sub[j]
         return out, {"inner": inner_state}
-
-    return GradientTransformation(init, update)
-
-
-# the key of `whole_leaves`'s state: full tensors, the same on every rank,
-# which checkpoints neither gather nor split (`train/loop.py:map_leaf_lists`)
-REPLICATED = "replicated"
-
-
-def _whole(x: torch.Tensor, spec, group) -> torch.Tensor:
-    """The full tensor of this rank's slice `x` of the leaf split as `spec`."""
-    if x.device.type == "meta":
-        return torch.empty(spec.shape, dtype=x.dtype, device="meta")
-    full = all_gather_dim0(x, group)
-    return full if spec.axis == 0 else full.movedim(0, spec.axis).contiguous()
-
-
-def _part(x: torch.Tensor, spec, group) -> torch.Tensor:
-    """This rank's slice of the full tensor `x`, laid out as its Shard, in
-    memory of its own (the full tensor can be freed)."""
-    n = 1 if x.device.type == "meta" else dist.get_world_size(group)
-    r = 0 if x.device.type == "meta" else dist.get_rank(group)
-    return x.movedim(spec.axis, 0).chunk(n, dim=0)[r].clone(
-        memory_format=torch.contiguous_format)
-
-
-def _leaf_state(state, n: int, i: int):
-    """Leaf i's view of an inner state over n leaves: its entry of every
-    per-leaf list (a list n long), the rest (the step count) as it is."""
-    if isinstance(state, dict):
-        return {k: _leaf_state(v, n, i) for k, v in state.items()}
-    if isinstance(state, list) and len(state) == n:
-        return [state[i]]
-    return state
-
-
-def _join_states(template, parts, n: int):
-    """The inner state over n leaves from the per-leaf states `parts`
-    (each from `_leaf_state` through one update): the per-leaf lists
-    joined, the rest (the step count, the same in every part) from the
-    last part."""
-    if isinstance(template, dict):
-        return {k: _join_states(v, [p[k] for p in parts], n) for k, v in template.items()}
-    if isinstance(template, list) and len(template) == n:
-        return [p[0] for p in parts]
-    return parts[-1]
-
-
-def whole_leaves(inner: GradientTransformation,
-                 with_params: bool = False) -> GradientTransformation:
-    """`inner` on whole leaves under fsdp.  Inside `sharded_leaves` `inner`
-    updates one leaf at a time: a leaf that is a slice (its flag a `Shard`)
-    is all-gathered over the fsdp group -- its update, and its parameter
-    when `with_params` -- updated whole, and each rank keeps its slice of
-    the result; outside, `inner` runs as it is.  For transforms that reduce
-    over a parameter's rows, columns or blocks, which the fsdp split would
-    cut: 8-bit Adam (one scale per row), CAME (row and column moments);
-    both update each leaf on its own, so a leaf at a time gives the same
-    numbers.
-
-    The state, `{"replicated": inner's state}`, holds full tensors, the same
-    on every rank.  Memory per rank: the state whole instead of a 1/fsdp
-    slice (8-bit Adam: bf16 mu + int8 nu, 3 bytes a parameter, plus one fp32
-    scale a row; CAME: an fp32 first moment, 4 bytes a parameter, plus its
-    factored rows and columns), and during the update the gathered
-    gradient, parameter and fp32 update of the one leaf in flight
-    (`cli/train.py:train_bytes` counts both)."""
-
-    def init(params):
-        sharded = _SHARDED.get()
-        if sharded is not None:
-            specs, _ = sharded
-            # the full shapes as zero-stride views: no memory of their own
-            params = [p if not s else p.new_empty(()).expand(s.shape)
-                      for p, s in zip(params, specs)]
-        token = _SHARDED.set(None)
-        try:
-            return {REPLICATED: inner.init(params)}
-        finally:
-            _SHARDED.reset(token)
-
-    def update(updates, state, params=None):
-        sharded = _SHARDED.get()
-        if sharded is None:
-            out, new = inner.update(updates, state[REPLICATED], params)
-            return out, {REPLICATED: new}
-        specs, group = sharded
-        n, outs, parts = len(updates), [], []
-        if n == 0:
-            return [], state
-        token = _SHARDED.set(None)
-        try:
-            for i, (g, spec) in enumerate(zip(updates, specs)):
-                p = params[i] if with_params and params is not None else None
-                if spec:
-                    g = _whole(g, spec, group)
-                    p = None if p is None else _whole(p, spec, group)
-                out, part = inner.update([g], _leaf_state(state[REPLICATED], n, i),
-                                         None if p is None else [p])
-                outs.append(_part(out[0], spec, group) if spec else out[0])
-                parts.append(part)
-        finally:
-            _SHARDED.reset(token)
-        return outs, {REPLICATED: _join_states(state[REPLICATED], parts, n)}
 
     return GradientTransformation(init, update)
 

@@ -15,9 +15,11 @@ count of every DiT case (3 latent frames of 16 tokens) splits a latent frame
 between ranks.  One fp32 train step on each dp x fsdp x sp mesh equals the
 one-process step on the same global batch and draws at rel-L2 1e-5 (a
 reordered fp32 sum): loss, gradient norm and updated parameters; so does
-one step of `train()` with 8-bit Adam and with CAME, whose updates see the
-whole leaves under fsdp (`train/optim.py:whole_leaves`), at fsdp 2 (a spawn
-of 2 ranks) and dp 2 x fsdp 2 (in the world-4 spawn).
+one step of `train()` with 8-bit Adam and with CAME, whose state is
+sharded too (their statistics over a split axis reduced over the fsdp
+group, `train/optim.py:Split`; tests/test_torch_optim_sharded.py holds
+them on leaves split on every kind of axis), at fsdp 2 (a spawn of 2
+ranks) and dp 2 x fsdp 2 (in the world-4 spawn).
 """
 
 import dataclasses
