@@ -54,6 +54,7 @@ from stableavatar_tpu_torch.parallel.mesh import (
     axis_size,
 )
 from stableavatar_tpu_torch.parallel.sharding import gather_block
+from stableavatar_tpu_torch.utils.profiling import span
 from stableavatar_tpu_torch.models.vocal_projector import (
     _affine,
     _linear,
@@ -305,17 +306,21 @@ def apply_block(p, x, e0, context_text, context_img, vocal_context, vocal_k_lens
     e = [e[:, i : i + 1] for i in range(6)]
 
     temp = (layer_norm(x, eps=cfg.eps) * (1 + e[1]) + e[0]).to(x.dtype)
-    y = _self_attention(p["self_attn"], temp, freqs, cfg.num_heads, cfg.eps,
-                        rope_packed=rope_packed, quant=attn_quant, attn_impl=attn_impl)
+    with span("sa.self_attn"):
+        y = _self_attention(p["self_attn"], temp, freqs, cfg.num_heads, cfg.eps,
+                            rope_packed=rope_packed, quant=attn_quant, attn_impl=attn_impl)
     x = x + y * e[2]
 
-    normed = layer_norm(x, p["norm3"]["w"], p["norm3"]["b"], eps=cfg.eps)
-    x = x + _cross_attention(p["cross_attn"], normed.to(x.dtype), context_text, context_img,
-                             vocal_context, vocal_k_lens, cfg.num_heads, latents_num_frames,
-                             cfg.eps, fused=fuse_cross)
+    normed = layer_norm(x, p["norm3"]["w"], p["norm3"]["b"], eps=cfg.eps).to(x.dtype)
+    with span("sa.cross_attn"):
+        y = _cross_attention(p["cross_attn"], normed, context_text, context_img, vocal_context,
+                             vocal_k_lens, cfg.num_heads, latents_num_frames, cfg.eps,
+                             fused=fuse_cross)
+    x = x + y
 
     temp = (layer_norm(x, eps=cfg.eps) * (1 + e[4]) + e[3]).to(x.dtype)
-    y = apply_linear(p["ffn"]["fc2"], gelu_tanh(apply_linear(p["ffn"]["fc1"], temp)))
+    with span("sa.ffn"):
+        y = apply_linear(p["ffn"]["fc2"], gelu_tanh(apply_linear(p["ffn"]["fc1"], temp)))
     return x + y * e[5]
 
 
@@ -464,12 +469,13 @@ def dit_forward(params, cfg, x, t, text_embeds, clip_fea, y, vocal_embeddings,
     stack's delta [B, L, dim] (TeaCache's cached residual).
     """
     top = _top_params(params)
-    (tokens, e, e0, context_text, context_img, vocal_context, vocal_k_lens, freqs,
-     rope_packed, grid, latents_num_frames) = dit_prologue(
-        top, cfg, x, t, text_embeds, clip_fea, y, vocal_embeddings,
-        video_sample_n_frames=video_sample_n_frames, vocal_cfg_tile=vocal_cfg_tile,
-        is_clip_level_modeling=is_clip_level_modeling, freqs=freqs,
-        rope_split=rope_split, honor_vocal_k_lens=honor_vocal_k_lens)
+    with span("sa.prologue"):
+        (tokens, e, e0, context_text, context_img, vocal_context, vocal_k_lens, freqs,
+         rope_packed, grid, latents_num_frames) = dit_prologue(
+            top, cfg, x, t, text_embeds, clip_fea, y, vocal_embeddings,
+            video_sample_n_frames=video_sample_n_frames, vocal_cfg_tile=vocal_cfg_tile,
+            is_clip_level_modeling=is_clip_level_modeling, freqs=freqs,
+            rope_split=rope_split, honor_vocal_k_lens=honor_vocal_k_lens)
 
     tokens_in = tokens
     w = _sp_check(cfg, tokens.shape[1], attn_impl)
@@ -487,10 +493,12 @@ def dit_forward(params, cfg, x, t, text_embeds, clip_fea, y, vocal_embeddings,
             freqs=freqs, cfg=cfg, latents_num_frames=latents_num_frames,
             rope_packed=rope_packed, attn_quant=attn_quant, attn_impl=attn_impl,
             fuse_cross=attn_quant != "none")
-        tokens = checkpoint(block, tokens, use_reentrant=False) if remat else block(tokens)
+        with span("sa.block"):
+            tokens = checkpoint(block, tokens, use_reentrant=False) if remat else block(tokens)
     if w is not None:
         tokens = _gather_seq(tokens, _seq_shard(tokens.shape[1]))
-    out = _apply_head(top, cfg, tokens, e, grid)
+    with span("sa.head"):
+        out = _apply_head(top, cfg, tokens, e, grid)
     if return_residual:
         return out, tokens - tokens_in
     return out

@@ -29,6 +29,7 @@ import torch
 
 from stableavatar_tpu_torch.models.dit import _apply_head, apply_block, dit_prologue
 from stableavatar_tpu_torch.pipelines.common import resolve_device
+from stableavatar_tpu_torch.utils.profiling import span
 from stableavatar_tpu_torch.utils.tree import tree_leaves, tree_map
 
 _ALIGN = 256  # bytes; every leaf of a packed block starts at such an offset
@@ -176,19 +177,22 @@ class StreamedDiT:
                  video_sample_n_frames: int = 81, vocal_cfg_tile: bool = False,
                  is_clip_level_modeling: bool = False, return_residual: bool = False):
         """Same contract as `dit_forward` (without remat or a freqs override)."""
-        (tokens, e, e0, ctx_t, ctx_i, vocal_ctx, vocal_k_lens, freqs, rope_packed, grid,
-         lnf) = dit_prologue(
-            self.resident, self.cfg, x, t, text_embeds, clip_fea, y, vocal_embeddings,
-            video_sample_n_frames=video_sample_n_frames, vocal_cfg_tile=vocal_cfg_tile,
-            is_clip_level_modeling=is_clip_level_modeling, rope_split=self.rope_split,
-            honor_vocal_k_lens=self.honor_vocal_k_lens)
+        with span("sa.prologue"):
+            (tokens, e, e0, ctx_t, ctx_i, vocal_ctx, vocal_k_lens, freqs, rope_packed, grid,
+             lnf) = dit_prologue(
+                self.resident, self.cfg, x, t, text_embeds, clip_fea, y, vocal_embeddings,
+                video_sample_n_frames=video_sample_n_frames, vocal_cfg_tile=vocal_cfg_tile,
+                is_clip_level_modeling=is_clip_level_modeling, rope_split=self.rope_split,
+                honor_vocal_k_lens=self.honor_vocal_k_lens)
         tokens_in = tokens
         for bp in self.blocks():
-            tokens = apply_block(bp, tokens, e0, ctx_t, ctx_i, vocal_ctx, vocal_k_lens, freqs,
-                                 self.cfg, lnf, rope_packed=rope_packed,
-                                 attn_quant=self.attn_quant, attn_impl=self.attn_impl,
-                                 fuse_cross=self.attn_quant != "none")
-        out = _apply_head(self.resident, self.cfg, tokens, e, grid)
+            with span("sa.block"):
+                tokens = apply_block(bp, tokens, e0, ctx_t, ctx_i, vocal_ctx, vocal_k_lens,
+                                     freqs, self.cfg, lnf, rope_packed=rope_packed,
+                                     attn_quant=self.attn_quant, attn_impl=self.attn_impl,
+                                     fuse_cross=self.attn_quant != "none")
+        with span("sa.head"):
+            out = _apply_head(self.resident, self.cfg, tokens, e, grid)
         if return_residual:
             return out, tokens - tokens_in
         return out

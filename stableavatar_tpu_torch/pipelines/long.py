@@ -47,6 +47,7 @@ from stableavatar_tpu_torch.schedulers.fm_solvers import (
     unipc_coeffs,
 )
 from stableavatar_tpu_torch.utils.color_correction import match_and_blend_colors
+from stableavatar_tpu_torch.utils.profiling import span
 
 
 def overlap_weights(n: int, scheme: str = "uniform") -> np.ndarray:
@@ -152,49 +153,51 @@ def _sweep_step(models: WanModels, latents_all, y_full, text_ctx, clip_ctx, voca
     step = float(np.float32(sigma_next) - np.float32(sigma))
     prev_end = None
     for wi, (s, e) in enumerate(windows):
-        f = e - s
-        lat_win = latents_all[:, :, s:e]
-        lat3 = torch.cat([lat_win] * 3, dim=0).to(torch.bfloat16)
-        if compute_flags is not None and not compute_flags[wi]:
-            noise_pred = dit_forward_skip(models.dit_params, cfg, lat3, tb, y_full[:, :, :f],
-                                          residual)
-        elif models.streamed_dit is not None:
-            noise_pred = models.streamed_dit(
-                lat3, tb, text_ctx, clip_ctx, y_full[:, :, :f], vocal_embs[wi],
-                video_sample_n_frames=(f - 1) * temporal_ratio + 1, vocal_cfg_tile=True)
-        else:
-            out = dit_forward(
-                models.dit_params, cfg, lat3, tb, text_ctx, clip_ctx, y_full[:, :, :f],
-                vocal_embs[wi], video_sample_n_frames=(f - 1) * temporal_ratio + 1,
-                vocal_cfg_tile=True, rope_split=models.rope_split,
-                attn_quant=models.attn_quant, attn_impl=models.attn_impl,
-                honor_vocal_k_lens=models.honor_vocal_k_lens,
-                return_residual=compute_flags is not None)
-            noise_pred, residual = out if compute_flags is not None else (out, residual)
-        v = guidance_combine_long(noise_pred, text_scale, audio_scale)
-        if solver == "euler":
-            new_lat = lat_win.float() + step * v
-        elif solver == "dpm":
-            new_lat, x0 = dpm_apply(lat_win, v, sigma, ms_state["x0_prev"][wi],
-                                    ms_state["x0_prev2"][wi], **coeffs)
-            ms_state["x0_prev2"][wi] = ms_state["x0_prev"][wi]
-            ms_state["x0_prev"][wi] = x0
-        else:
-            new_lat, x0, corrected = unipc_apply(
-                lat_win, v, sigma, ms_state["x0_prev"][wi], ms_state["x0_prev2"][wi],
-                ms_state["last_sample"][wi], x0_prev3=ms_state["x0_prev3"][wi], **coeffs)
-            ms_state["x0_prev3"][wi] = ms_state["x0_prev2"][wi]
-            ms_state["x0_prev2"][wi] = ms_state["x0_prev"][wi]
-            ms_state["x0_prev"][wi] = x0
-            ms_state["last_sample"][wi] = corrected
-        new_lat = new_lat.to(torch.bfloat16)
-        if s != 0 and blend:
-            prev_tail = pred[:, :, prev_end - overlap : prev_end]
-            head = new_lat[:, :, :overlap]
-            blended = head * ramp.to(head.dtype) + prev_tail * (1 - ramp).to(head.dtype)
-            new_lat = torch.cat([blended, new_lat[:, :, overlap:]], dim=2)
-        pred[:, :, s:e] = new_lat
-        prev_end = e
+        with span("sa.window"):
+            f = e - s
+            lat_win = latents_all[:, :, s:e]
+            lat3 = torch.cat([lat_win] * 3, dim=0).to(torch.bfloat16)
+            with span("sa.dit"):
+                if compute_flags is not None and not compute_flags[wi]:
+                    noise_pred = dit_forward_skip(models.dit_params, cfg, lat3, tb,
+                                                  y_full[:, :, :f], residual)
+                elif models.streamed_dit is not None:
+                    noise_pred = models.streamed_dit(
+                        lat3, tb, text_ctx, clip_ctx, y_full[:, :, :f], vocal_embs[wi],
+                        video_sample_n_frames=(f - 1) * temporal_ratio + 1, vocal_cfg_tile=True)
+                else:
+                    out = dit_forward(
+                        models.dit_params, cfg, lat3, tb, text_ctx, clip_ctx, y_full[:, :, :f],
+                        vocal_embs[wi], video_sample_n_frames=(f - 1) * temporal_ratio + 1,
+                        vocal_cfg_tile=True, rope_split=models.rope_split,
+                        attn_quant=models.attn_quant, attn_impl=models.attn_impl,
+                        honor_vocal_k_lens=models.honor_vocal_k_lens,
+                        return_residual=compute_flags is not None)
+                    noise_pred, residual = out if compute_flags is not None else (out, residual)
+            v = guidance_combine_long(noise_pred, text_scale, audio_scale)
+            if solver == "euler":
+                new_lat = lat_win.float() + step * v
+            elif solver == "dpm":
+                new_lat, x0 = dpm_apply(lat_win, v, sigma, ms_state["x0_prev"][wi],
+                                        ms_state["x0_prev2"][wi], **coeffs)
+                ms_state["x0_prev2"][wi] = ms_state["x0_prev"][wi]
+                ms_state["x0_prev"][wi] = x0
+            else:
+                new_lat, x0, corrected = unipc_apply(
+                    lat_win, v, sigma, ms_state["x0_prev"][wi], ms_state["x0_prev2"][wi],
+                    ms_state["last_sample"][wi], x0_prev3=ms_state["x0_prev3"][wi], **coeffs)
+                ms_state["x0_prev3"][wi] = ms_state["x0_prev2"][wi]
+                ms_state["x0_prev2"][wi] = ms_state["x0_prev"][wi]
+                ms_state["x0_prev"][wi] = x0
+                ms_state["last_sample"][wi] = corrected
+            new_lat = new_lat.to(torch.bfloat16)
+            if s != 0 and blend:
+                prev_tail = pred[:, :, prev_end - overlap : prev_end]
+                head = new_lat[:, :, :overlap]
+                blended = head * ramp.to(head.dtype) + prev_tail * (1 - ramp).to(head.dtype)
+                new_lat = torch.cat([blended, new_lat[:, :, overlap:]], dim=2)
+            pred[:, :, s:e] = new_lat
+            prev_end = e
     return pred, residual
 
 
@@ -333,7 +336,8 @@ def generate_long(
                     compute_flags=tc_plan[i] if tc_plan is not None else None,
                     residual=residual)
             if step_callback is not None:
-                step_callback(i, latents_all)
+                with span("sa.step_callback"):
+                    step_callback(i, latents_all)
 
         latents = latents_all.float()
         if output_type == "latent":
