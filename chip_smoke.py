@@ -11,7 +11,7 @@ exits non-zero):
                hand-written kernels from csrc/, print the build seconds and
                ptxas's report (registers, spills, warnings), and fail on a
                spill in any wgmma forward, K5 or fused K4 instance or in
-               the rope passes;
+               the rope and GELU passes;
 2. kernels  -- K1 (bf16 flash), K2 (int8-QK flash), K2v (int8 V: "qkv",
                "qkpv"), K3 (static-bound softmax, "qk" and "qkv", with its
                LSE and the count of rows whose sum underflows), K5
@@ -39,7 +39,9 @@ exits non-zero):
                weights on the W8A8 / int8-QK fast path; checks the video and
                the K2/K5 launch counts;
 6. bf16     -- one dit_forward window on unprepared bf16 params
-               (attn_quant="none"): 90 K1 launches;
+               (attn_quant="none"): 90 K1 launches, and one launch of the
+               FFN's GELU pass (`sa_gelu_tanh`) for each of the 30 blocks,
+               the text embedding and the 2 vocal projector blocks;
 7. cli      -- the inference CLI's path: real flags through `build_parser`
                (--fast_path linears, DPM++ order 2, TeaCache), `load_models`
                with umT5-xxl at full width on the card (prompts encoded,
@@ -55,7 +57,9 @@ exits non-zero):
                512x512, 81 frames, batch 1, remat, AdamW (the train CLI's
                defaults), one step in clip-level mode; checks finite losses,
                changed parameters, a checkpoint written and resumed at step
-               3, the train step time and the exact K1-LSE / K4 launch counts;
+               3, the train step time, the exact K1-LSE / K4 launch counts
+               and at least two GELU passes (`sa_gelu_tanh`, forward and
+               remat) and one GELU backward a block a step;
 9b. optimizers -- the same train() route for 3 steps with 8-bit Adam, then 3
                with CAME: phase 9's checks, each step's launches equal to
                AdamW's, the peak device memory beside AdamW's and beside
@@ -88,7 +92,12 @@ exits non-zero):
                exactly, with torch.matmul / torch._int_mm as yardsticks,
                _int_mm also with B turned inside the call, and the dots
                probes beside K1 / K2 / K2v: each kernel's time beyond its
-               two products); then
+               two products); the FFN's tanh-GELU pass and its
+               backward (`sa_gelu_tanh`, `sa_gelu_tanh_bwd`,
+               csrc/elementwise.cu) exactly against the composition and
+               autograd through it at the fc1 products of 1.3B and 14B,
+               timed beside the byte bound, the composition and PyTorch's
+               one-pass `F.gelu(approximate="tanh")`; then
                `flash_attention(rope=)` forward, with stats and under
                autograd, and each probe script's `main` with its own CH
                (`stableavatar_tpu_torch/scripts/`), each with exact launch
@@ -243,10 +252,14 @@ KERNEL_SOURCES = {
                         "scripts/bench_attn_blocks.py:61"),
     "dots_probe_int8": ("stableavatar_tpu_torch/csrc/flash_attention.cu",
                         "scripts/bench_attn_blocks.py:119"),
+    # the FFN's tanh-GELU pass and its backward: no TPU kernel (XLA fuses the chain)
+    "gelu_tanh": ("stableavatar_tpu_torch/csrc/elementwise.cu", "—"),
+    "gelu_tanh_bwd": ("stableavatar_tpu_torch/csrc/elementwise.cu", "—"),
 }
 # the kernels whose ptxas report must show no spill
 NO_SPILL_KERNELS = ("flash_fwd_kernel", "dual_context_kernel", "flash_bwd_fused_kernel",
-                    "rope_rotate_kernel", "rope_finalize_bwd_kernel")
+                    "rope_rotate_kernel", "rope_finalize_bwd_kernel", "gelu_tanh_kernel",
+                    "gelu_tanh_bwd_kernel")
 INFERENCE_KERNELS = ("flash_fwd_bf16", "flash_fwd_int8_qk", "dual_context")
 CLI_KERNELS = ("flash_fwd_int8_static_qk",)
 VARIANT_KERNELS = ("flash_fwd_int8_qkv", "flash_fwd_int8_qkpv", "flash_fwd_int8_static_qkv")
@@ -1002,6 +1015,7 @@ def phase_bf16(dit_params, cfg):
     import torch
 
     from stableavatar_tpu_torch.models.dit import dit_forward
+    from stableavatar_tpu_torch.ops import activations as act
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     bf16 = torch.bfloat16
@@ -1011,6 +1025,7 @@ def phase_bf16(dit_params, cfg):
     clip = torch.randn((3, cfg.clip_tokens, cfg.clip_dim), generator=gen, device="cuda").to(bf16)
     voc = torch.randn((1, 161, cfg.audio_in_dim), generator=gen, device="cuda")
     t = torch.full((3,), 999.0, device="cuda")
+    before = act.launch_counts["gelu_tanh"]
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1020,6 +1035,13 @@ def phase_bf16(dit_params, cfg):
     log(f"  bf16 dit_forward window: {time.perf_counter() - t0:.3f} s, out {tuple(out.shape)}")
     if tuple(out.shape) != (3, 16, 21, 64, 64) or not torch.isfinite(out).all():
         raise AssertionError("bf16 dit_forward output has the wrong shape or non-finite values")
+    # one GELU pass for each block, the text embedding and each vocal block
+    gelu = act.launch_counts["gelu_tanh"] - before
+    log(f"  gelu_tanh launches: {gelu}")
+    if gelu != cfg.num_layers + 1 + cfg.vocal_num_layers:
+        raise AssertionError(f"expected {cfg.num_layers + 1 + cfg.vocal_num_layers} "
+                             f"gelu_tanh launches, got {gelu}")
+    return gelu
 
 
 # the CLI's flags in the cli phase: --sample_steps 5 because the TeaCache
@@ -1228,6 +1250,7 @@ def train_run(tmodels, train_cfg, out_dir, reset_counts, counts):
     Returns (launches, steps, params, opt_state)."""
     import torch
 
+    from stableavatar_tpu_torch.ops import activations as act
     from stableavatar_tpu_torch.train.loop import train
     from stableavatar_tpu_torch.utils.tree import tree_leaves
 
@@ -1261,6 +1284,7 @@ def train_run(tmodels, train_cfg, out_dir, reset_counts, counts):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    gelu_before = dict(act.launch_counts)
     last["t"] = time.perf_counter()
     t0 = last["t"]
     params, opt_state, history = train(
@@ -1268,7 +1292,7 @@ def train_run(tmodels, train_cfg, out_dir, reset_counts, counts):
         max_train_steps=TRAIN_STEPS, checkpointing_steps=TRAIN_STEPS, checkpoints_total_limit=1,
         resume_from_checkpoint=None, log_every=1, seed=TRAIN_SEED, step_callback=on_step)
     torch.cuda.synchronize()
-    launches = counts()
+    launches = {**counts(), **{k: n - gelu_before[k] for k, n in act.launch_counts.items()}}
     log(f"  train(): {len(history)} steps in {time.perf_counter() - t0:.2f} s including the "
         f"asynchronous checkpoint; launches {launches}")
     walls = sorted(s["wall_s"] for s in steps)
@@ -1292,6 +1316,13 @@ def train_run(tmodels, train_cfg, out_dir, reset_counts, counts):
             "flash_fwd_bf16": 0, "flash_fwd_int8_qk": 0, "dual_context": 0}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"training launch counts {launches} != {want}")
+    # every block's FFN GELU: forward and remat recompute on the card, one
+    # backward a step
+    if (launches["gelu_tanh"] < 2 * cfg.num_layers * TRAIN_STEPS
+            or launches["gelu_tanh_bwd"] < cfg.num_layers * TRAIN_STEPS):
+        raise AssertionError(f"training GELU launches {launches} below two forwards and one "
+                             f"backward for each of {cfg.num_layers} blocks and "
+                             f"{TRAIN_STEPS} steps")
     return launches, steps, params, opt_state
 
 
@@ -1862,6 +1893,59 @@ def phase_rope_kernels(results, l=21504, grid=(21, 32, 32)):
         del g32
     del q, k, v, do, out, lse, qr, kr
     torch.cuda.synchronize()
+
+
+def phase_gelu_kernel(results):
+    """The FFN's tanh-GELU pass (`sa_gelu_tanh`) and its backward
+    (`sa_gelu_tanh_bwd`) on the DiT's fc1 products at 1.3B [64512, 8960] and
+    14B [64512, 13824]: equal bit for bit to the composition run by PyTorch
+    (nine passes) and to autograd through it, then timed beside the byte
+    bound (x read once, the result written once; the backward reads g too),
+    the composition ("plain") and PyTorch's one-pass
+    `F.gelu(approximate="tanh")` ("library": it rounds once, so the port
+    does not call it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from stableavatar_tpu_torch.ops import activations as act
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    entry = results.setdefault("gelu_tanh", {"max_abs_err": 0.0})
+    entry_bwd = results.setdefault("gelu_tanh_bwd", {"max_abs_err": 0.0})
+    for rows, c, model in ((64512, 8960, "WAN_1_3B"), (64512, 13824, "WAN_14B")):
+        x = _rand(gen, (rows, c), torch.bfloat16) * 2
+        g = _rand(gen, (rows, c), torch.bfloat16)
+        out = torch.empty_like(x)
+        tag = f"[{rows},{c}]"
+        require_equal(f"gelu_tanh {tag} against the composition", act._gelu_tanh_cuda(x, out),
+                      act._gelu_tanh_plain(x))
+        xg = x.clone().requires_grad_()
+        (want,) = torch.autograd.grad(act._gelu_tanh_plain(xg), xg, g)
+        del xg
+        require_equal(f"gelu_tanh_bwd {tag} against autograd through the composition",
+                      act._gelu_tanh_bwd_cuda(x, g), want)
+        del want
+        ms = time_ms(lambda: act._gelu_tanh_cuda(x, out), 20)
+        ms_bwd = time_ms(lambda: act._gelu_tanh_bwd_cuda(x, g), 20)
+        plain = time_ms(lambda: act._gelu_tanh_plain(x), 5)
+        library = time_ms(lambda: F.gelu(x, approximate="tanh"), 20)
+        bound = bound_ms(0.0, 2.0 * 2 * rows * c)
+        bound_bwd = bound_ms(0.0, 2.0 * 3 * rows * c)
+        log(f"  gelu_tanh {tag}: kernel {ms:.3f} ms, plain {plain:.3f} ms, library {library:.3f} "
+            f"ms, bound {bound[0]:.3f} ms ({bound[1]}); backward {ms_bwd:.3f} ms, bound "
+            f"{bound_bwd[0]:.3f} ms")
+        if model == "WAN_1_3B":
+            entry.update(ms=ms, plain_ms=plain, library_ms=library, bound_ms=bound[0],
+                         bound_by=bound[1])
+            entry_bwd.update(ms=ms_bwd, bound_ms=bound_bwd[0], bound_by=bound_bwd[1])
+        entry.setdefault("shapes", []).append(dict(
+            shape=[rows, c], model=model, ms=ms, plain_ms=plain, library_ms=library,
+            bound_ms=bound[0], bound_by=bound[1]))
+        entry_bwd.setdefault("shapes", []).append(dict(
+            shape=[rows, c], model=model, ms=ms_bwd, bound_ms=bound_bwd[0],
+            bound_by=bound_bwd[1]))
+        del x, g, out
+    torch.cuda.empty_cache()
 
 
 def phase_probe_kernels(results):
@@ -3103,7 +3187,7 @@ def main() -> int:
     if c["flash_fwd_int8_qk"] != want or c["dual_context"] != want:
         raise AssertionError(f"expected {want} K2 and K5 launches, got {c}")
     log("== CLI-default bf16 path: dit_forward, attn_quant='none'")
-    phase_bf16(dit_bf16, models.dit_cfg)
+    gelu_launches = phase_bf16(dit_bf16, models.dit_cfg)
     inference = counts()
     k1 = inference["flash_fwd_bf16"] - c["flash_fwd_bf16"]
     log(f"  K1 launches: {k1}")
@@ -3173,9 +3257,11 @@ def main() -> int:
 
     # path 6, the entry points of the remaining kernels: counts set to 0
     # inside, just before each
-    log("== remaining kernels: K1-rope, K4-rope and the probes against their plain versions")
+    log("== remaining kernels: K1-rope, K4-rope, the probes and the GELU pass against their "
+        "plain versions")
     phase_rope_kernels(results)
     phase_probe_kernels(results)
+    phase_gelu_kernel(results)
     log("== remaining entry points: flash_attention(rope=) forward, with stats and under "
         "autograd, and the probe scripts' main")
     remaining = phase_remaining_paths()
@@ -3199,7 +3285,8 @@ def main() -> int:
                 **{k: variants[k] for k in VARIANT_KERNELS},
                 **{k: training[k] for k in TRAIN_KERNELS},
                 **{k: ring[k] for k in RING_KERNELS},
-                **{k: remaining.get(k, 0) for k in ROPE_KERNELS + PROBE_KERNELS}}
+                **{k: remaining.get(k, 0) for k in ROPE_KERNELS + PROBE_KERNELS},
+                "gelu_tanh": gelu_launches, "gelu_tanh_bwd": training["gelu_tanh_bwd"]}
     idle = [k for k, n in launches.items() if n == 0]
     if idle:
         raise AssertionError(f"kernels of the main paths never launched: {idle}")

@@ -34,6 +34,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from stableavatar_tpu_torch.ops.activations import gelu_tanh
 from stableavatar_tpu_torch.ops.attention import attention
 from stableavatar_tpu_torch.ops.cross_attention import dual_context_attention
 from stableavatar_tpu_torch.ops.embeddings import sinusoidal_embedding_1d
@@ -63,7 +64,6 @@ from stableavatar_tpu_torch.models.vocal_projector import (
     apply_linear,
     apply_vocal_projector,
     gelu_exact,
-    gelu_tanh,
     init_vocal_projector,
 )
 

@@ -19,7 +19,8 @@ import numpy as np
 import torch
 
 from stableavatar_tpu_torch.config import T5Config
-from stableavatar_tpu_torch.models.vocal_projector import _linear, apply_linear, gelu_tanh
+from stableavatar_tpu_torch.models.vocal_projector import _linear, apply_linear
+from stableavatar_tpu_torch.ops.activations import gelu_tanh
 from stableavatar_tpu_torch.ops.norms import t5_rms_norm
 
 

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from stableavatar_tpu_torch.ops.activations import _const, gelu_tanh
 from stableavatar_tpu_torch.ops.attention import attention
 from stableavatar_tpu_torch.ops.norms import layer_norm, rms_norm
 from stableavatar_tpu_torch.utils.quantization import int8_linear
@@ -132,18 +133,6 @@ def apply_linear(p, x):
     y = F.linear(x, w.to(x.dtype))
     b = p.get("b")
     return y if b is None else y + b.to(x.dtype)
-
-
-def _const(value: float, like: torch.Tensor) -> torch.Tensor:
-    """A Python constant rounded to like's dtype, as JAX's weak typing does."""
-    return torch.tensor(value, dtype=like.dtype, device=like.device)
-
-
-def gelu_tanh(x):
-    """jax.nn.gelu(approximate=True) op for op, each rounded to x's dtype:
-    x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x^3))), x^3 = x * (x * x)."""
-    inner = _const(math.sqrt(2 / math.pi), x) * (x + _const(0.044715, x) * (x * (x * x)))
-    return x * (0.5 * (1.0 + torch.tanh(inner)))
 
 
 def silu(x):

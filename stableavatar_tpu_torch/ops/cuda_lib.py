@@ -28,7 +28,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "cross_attention.cu", "probes.cu",
-           "rope.cu")
+           "rope.cu", "elementwise.cu")
 HEADERS = ("hopper_common.cuh",)
 BUILD_ROOT = PACKAGE_DIR / "_build"
 LIB_NAME = "libsa_kernels.so"
@@ -38,7 +38,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # argument types of each C entry point; every pointer and the stream is a
 # c_void_p (a plain int would be cut to 32 bits)
 SIGNATURES = {
@@ -67,6 +67,10 @@ SIGNATURES = {
     "sa_mm_probe": [_P] * 3 + [_I] * 4 + [_P],
     # q, k, v, out, BH, L, D, int8, stream
     "sa_dots_probe": [_P] * 4 + [_I] * 4 + [_P],
+    # x, out, n, fp32, c0, c1, stream
+    "sa_gelu_tanh": [_P, _P, _L, _I, _F, _F, _P],
+    # x, g, dx, n, fp32, c0, c1, stream
+    "sa_gelu_tanh_bwd": [_P, _P, _P, _L, _I, _F, _F, _P],
 }
 
 _lock = threading.Lock()

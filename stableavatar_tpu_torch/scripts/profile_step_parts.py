@@ -23,7 +23,8 @@ import torch
 
 from stableavatar_tpu_torch.config import WAN_1_3B, tiny_debug_configs
 from stableavatar_tpu_torch.models.dit import init_dit
-from stableavatar_tpu_torch.models.vocal_projector import apply_linear, gelu_tanh
+from stableavatar_tpu_torch.models.vocal_projector import apply_linear
+from stableavatar_tpu_torch.ops.activations import gelu_tanh
 from stableavatar_tpu_torch.ops.attention import attention
 from stableavatar_tpu_torch.ops.norms import layer_norm, rms_norm
 from stableavatar_tpu_torch.ops.rope import rope_apply, rope_freqs_3d

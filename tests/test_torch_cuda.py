@@ -19,18 +19,28 @@ their plain versions exactly, and so must K1-rope the rotation in PyTorch
 followed by K1, and K4-rope's dV the fused K4's on the rotated inputs; the
 probes' int8 GEMM outputs (`ops/probes.py`) must equal their plain version
 exactly, and the bf16 GEMM and the dots probes stay within rel-L2 1e-2.
+The FFN's tanh-GELU pass and its backward (`csrc/elementwise.cu`,
+`ops/activations.py`) must equal the op-for-op composition run by PyTorch on
+the same card, and autograd through it, bit for bit, NaN positions included:
+over every bf16 value, in fp32, at the FFN shapes, under checkpointing, and
+the DiT with the pass against the DiT with the composition; a CUDA tensor
+the pass does not take raises.
 """
 
 import pytest
 import torch
+from torch.utils.checkpoint import checkpoint
 
 import chip_smoke
+from stableavatar_tpu_torch.models.vocal_projector import apply_linear
+from stableavatar_tpu_torch.ops import activations as act
 from stableavatar_tpu_torch.ops import cross_attention as ca
 from stableavatar_tpu_torch.ops import flash_attention as fa
 from stableavatar_tpu_torch.ops import probes
 from stableavatar_tpu_torch.ops.attention import attention
 from stableavatar_tpu_torch.ops.rope import pack_split, rope_freqs_3d
-from stableavatar_tpu_torch.utils.quantization import int8_linear, quantize_weight_for_compute
+from stableavatar_tpu_torch.utils.quantization import (int8_linear, quantize_weight,
+                                                       quantize_weight_for_compute)
 
 pytestmark = pytest.mark.cuda
 
@@ -623,3 +633,155 @@ def test_streamed_dit_equals_in_memory_on_cuda(gen, attn_quant):
     torch.cuda.synchronize()
     assert sdit.host_blocks[0].flat.is_pinned()
     assert all(torch.equal(g, want) for g in got)
+
+
+_INT = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+
+
+def _require_bits(got, want):
+    """Equal bit for bit, NaN positions equal (a NaN's payload aside)."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got.view(_INT[got.dtype])[~nan], want.view(_INT[want.dtype])[~nan])
+
+
+def _launches(fn, fwd, bwd=0):
+    """fn() with exactly `fwd` forward and `bwd` backward GELU launches."""
+    before = dict(act.launch_counts)
+    out = fn()
+    assert act.launch_counts == {"gelu_tanh": before["gelu_tanh"] + fwd,
+                                 "gelu_tanh_bwd": before["gelu_tanh_bwd"] + bwd}
+    return out
+
+
+def _autograd_plain(x, g):
+    xg = x.clone().requires_grad_()
+    return torch.autograd.grad(act._gelu_tanh_plain(xg), xg, g)[0]
+
+
+def _every_bf16():
+    bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32, device="cuda").to(torch.int16)
+    return bits.view(torch.bfloat16)
+
+
+def test_gelu_tanh_exact_over_every_bf16(gen):
+    """Every bf16 bit pattern as x, forward and in place; and its gradient
+    against 64 output gradients each (0, +-1, large, subnormal, random)."""
+    x = _every_bf16().reshape(-1, 8)
+    want = act._gelu_tanh_plain(x)
+    y = x.clone()
+    _require_bits(_launches(lambda: act.gelu_tanh(y), 1), want)
+    _require_bits(y, want)  # in place
+    g = torch.tensor([0.0, -0.0, 1.0, -1.0, 3e38, -3e38, 1e-39, -1e-39], device="cuda")
+    g = torch.cat([g, torch.randn((56,), generator=gen, device="cuda") * 4]).bfloat16()
+    xs, gs = x.reshape(-1, 1).expand(-1, 64).contiguous(), g.expand(2 ** 16, -1).contiguous()
+    _require_bits(_launches(lambda: act._gelu_tanh_bwd_cuda(xs, gs), 0, 1),
+                  _autograd_plain(xs, gs))
+
+
+def test_gelu_tanh_exact_in_fp32(gen):
+    """fp32: every bf16 value and 2^22 random ones at four scales, forward
+    and against autograd through the composition."""
+    x = torch.cat([_every_bf16().float()] + [
+        torch.randn((2 ** 20,), generator=gen, device="cuda") * s for s in (0.01, 1, 4, 100)])
+    g = torch.randn(x.shape, generator=gen, device="cuda")
+    _require_bits(_launches(lambda: act.gelu_tanh(x.clone()), 1), act._gelu_tanh_plain(x))
+    _require_bits(_launches(lambda: act._gelu_tanh_bwd_cuda(x, g), 0, 1), _autograd_plain(x, g))
+
+
+# the DiT's FFN products at 1.3B and 14B (3 CFG rows of 21,504 tokens), and
+# element counts no multiple of a block's vectors nor of a vector
+@pytest.mark.parametrize("rows,c", [(64512, 8960), (64512, 13824), (1000, 263), (3, 5)])
+def test_gelu_tanh_exact_at_ffn_shapes(gen, rows, c):
+    x = _randn(gen, rows, c) * 2
+    want = act._gelu_tanh_plain(x)
+    _require_bits(_launches(lambda: act._gelu_tanh_cuda(x, torch.empty_like(x)), 1), want)
+    ptr = x.data_ptr()
+    out = _launches(lambda: act.gelu_tanh(x), 1)
+    assert out.data_ptr() == ptr  # in place
+    _require_bits(out, want)
+    del want, out
+    x, g = _randn(gen, rows, c) * 2, _randn(gen, rows, c)
+    _require_bits(_launches(lambda: act._gelu_tanh_bwd_cuda(x, g), 0, 1), _autograd_plain(x, g))
+    xf = x[: max(1, rows // 8)].float()
+    _require_bits(_launches(lambda: act.gelu_tanh(xf.clone()), 1), act._gelu_tanh_plain(xf))
+
+
+def test_gelu_tanh_refuses_on_cuda(gen):
+    """A CUDA tensor the kernel does not take raises: fp16, fp64, strided,
+    not 16-byte aligned."""
+    x = _randn(gen, 64, 24)
+    for bad, error in ((x.half(), TypeError), (x.double(), TypeError), (x[:, :12], ValueError),
+                       (x.reshape(-1)[1:], ValueError)):
+        with pytest.raises(error):
+            _launches(lambda: act.gelu_tanh(bad), 0)
+        with pytest.raises(error):
+            _launches(lambda: act.gelu_tanh(bad.detach().requires_grad_()), 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gelu_tanh_under_autograd_on_cuda(gen, dtype):
+    """Under a gradient the kernel runs forward and backward, and values and
+    gradients equal autograd through the composition, also under
+    non-reentrant checkpointing (the DiT's remat) with fc1 and fc2 around."""
+    x = (_randn(gen, 3, 300, 256) * 2).to(dtype)
+    g = _randn(gen, 3, 300, 256).to(dtype)
+    xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+    out = _launches(lambda: act.gelu_tanh(xa), 1)
+    _require_bits(out.detach(), act._gelu_tanh_plain(x))
+    assert torch.equal(xa.detach(), x)  # a graph through the call: nothing overwritten
+    got = _launches(lambda: torch.autograd.grad(out, xa, g)[0], 0, 1)
+    _require_bits(got, torch.autograd.grad(act._gelu_tanh_plain(xb), xb, g)[0])
+
+    p1 = {"w": (_randn(gen, 512, 256) * 0.06).to(dtype), "b": _randn(gen, 512).to(dtype)}
+    p2 = {"w": (_randn(gen, 256, 512) * 0.04).to(dtype), "b": _randn(gen, 256).to(dtype)}
+    leaves = [t.requires_grad_() for t in (p1["w"], p1["b"], p2["w"], p2["b"])]
+
+    def ffn(gelu):
+        return lambda h: apply_linear(p2, gelu(apply_linear(p1, h)))
+
+    grads = []
+    for gelu in (act.gelu_tanh, act._gelu_tanh_plain):
+        h = x.clone().requires_grad_()
+        y = checkpoint(ffn(gelu), h, use_reentrant=False)
+        grads.append([y.detach(), *torch.autograd.grad(y, [h, *leaves], g)])
+    for a, b in zip(*grads):
+        _require_bits(a, b)
+
+
+@pytest.mark.parametrize("form", ["float", "int8", "w8a8"])
+def test_gelu_tanh_after_each_linear_form_on_cuda(gen, form):
+    w = torch.randn((1024, 256), generator=gen, device="cuda") * 256 ** -0.5
+    p = {"w": w.bfloat16()} if form == "float" else (
+        {"w": quantize_weight(w)} if form == "int8" else {"w8": quantize_weight_for_compute(w)})
+    p["b"] = _randn(gen, 1024)
+    x = _randn(gen, 3, 300, 256)
+    with torch.no_grad():
+        got = _launches(lambda: act.gelu_tanh(apply_linear(p, x)), 1)
+        _require_bits(got, act._gelu_tanh_plain(apply_linear(p, x)))
+
+
+def test_dit_with_the_gelu_kernel_equals_the_composition(gen, monkeypatch):
+    """dit_forward on the card with the kernel, against the same call with
+    every FFN on the composition: equal bit for bit; one launch for each
+    block, the text embedding and each vocal projector block."""
+    from stableavatar_tpu_torch.config import DiTConfig
+    from stableavatar_tpu_torch.models import dit as dit_mod
+    from stableavatar_tpu_torch.models import vocal_projector as vp
+
+    cfg = DiTConfig(dim=256, ffn_dim=512, num_heads=2, num_layers=5, audio_proj_dim=256,
+                    vocal_num_heads=2)
+    params = dit_mod.init_dit(gen, cfg, "cuda", torch.bfloat16)
+    x = _randn(gen, 3, 16, 9, 32, 32)
+    y = _randn(gen, 3, 20, 9, 32, 32)
+    args = (x, torch.full((3,), 500.0, device="cuda"), _randn(gen, 3, cfg.text_len, cfg.text_dim),
+            _randn(gen, 3, cfg.clip_tokens, cfg.clip_dim), y, _randn(gen, 1, 66, cfg.audio_in_dim))
+    kw = dict(video_sample_n_frames=33, vocal_cfg_tile=True)
+    with torch.no_grad():
+        got = _launches(lambda: dit_mod.dit_forward(params, cfg, *args, **kw),
+                        cfg.num_layers + 1 + cfg.vocal_num_layers)
+        for mod in (dit_mod, vp):
+            monkeypatch.setattr(mod, "gelu_tanh", act._gelu_tanh_plain)
+        want = _launches(lambda: dit_mod.dit_forward(params, cfg, *args, **kw), 0)
+    assert torch.equal(got, want)
