@@ -19,7 +19,10 @@ import json
 import sys
 import time
 
-from avatar_bench import core, faults
+from avatar_bench import core, faults, faults_train
+
+# each traffic kind's table of faults, name -> context manager
+FAULTS = {"gen": faults.GEN, "train": faults_train.TRAIN}
 
 
 def reading(cell, seed: int, variant: str, seconds: float, device: str = "cuda") -> dict:
@@ -27,7 +30,8 @@ def reading(cell, seed: int, variant: str, seconds: float, device: str = "cuda")
     planted = contextlib.nullcontext()
     run_variant = variant
     if variant.startswith("fault:"):
-        planted, run_variant = faults.GEN[variant.split(":", 1)[1]](), "program"
+        table = FAULTS[cell.traffic["kind"]]
+        planted, run_variant = table[variant.split(":", 1)[1]](), "program"
     t0 = time.monotonic()
     with planted:
         out = kind.run(cell, seed=seed, seconds=seconds, trace=False, t0=t0, device=device,

@@ -11,10 +11,11 @@ import pytest
 from avatar_bench import core
 
 HARNESS = ("avatar_bench.run", "avatar_bench.core", "avatar_bench.readings", "avatar_bench.faults",
-           "avatar_bench.trace", "avatar_bench.roofline", "avatar_bench.weights",
-           "avatar_bench.traffic.gen")
+           "avatar_bench.faults_train", "avatar_bench.trace", "avatar_bench.trace_train",
+           "avatar_bench.roofline", "avatar_bench.roofline_train", "avatar_bench.weights",
+           "avatar_bench.traffic.gen", "avatar_bench.traffic.train")
 REFERENCE = ("avatar_bench.reference.common", "avatar_bench.reference.dit",
-             "avatar_bench.reference.encoders")
+             "avatar_bench.reference.encoders", "avatar_bench.reference.train")
 
 
 def loaded_after(modules, extra=""):
@@ -36,9 +37,10 @@ def test_whole_names_are_compared():
 
 def test_harness_and_port_load_no_jax():
     mods = loaded_after(HARNESS + ("stableavatar_tpu_torch.pipelines.long",
-                                   "stableavatar_tpu_torch.utils.fastpath"))
+                                   "stableavatar_tpu_torch.utils.fastpath",
+                                   "stableavatar_tpu_torch.train.loop"))
     assert core.forbidden_modules(mods) == []
-    assert "stableavatar_tpu_torch.pipelines.long" in mods
+    assert {"stableavatar_tpu_torch.pipelines.long", "stableavatar_tpu_torch.train.loop"} <= set(mods)
 
 
 def test_reference_loads_nothing_of_the_program():
